@@ -1,0 +1,154 @@
+"""CLIP text encoder (ViT-L/14 text tower, SD1.5) with the task-token rows.
+
+transformers ``CLIPTextModel`` parameter names. With task tokens, the token
+table is PowerPaint's ``EmbeddingLayerWithFixes`` layout:
+``token_embedding.wrapped.weight`` plus one
+``token_embedding.trainable_embeddings.<name>`` block of rows per placeholder
+(P_ctxt, P_shape, P_obj), whose ids follow the base vocabulary in that
+order, so the lookup is one gather from the concatenated table.
+
+The causal self-attention stays on plain tensor ops (fp32 logits and
+softmax), as the JAX package keeps it on einsum.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from powerpaint_tpu_torch.core.config import CLIPTextConfig
+from powerpaint_tpu_torch.models.layers import LayerNorm
+
+TASK_TOKEN_ORDER = ("P_ctxt", "P_shape", "P_obj")
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+class TaskTokenEmbedding(nn.Module):
+    """Base token table plus the learned task-token rows."""
+
+    def __init__(self, vocab_size: int, dim: int, num_external: int,
+                 names: Sequence[str] = TASK_TOKEN_ORDER):
+        super().__init__()
+        if num_external % len(names):
+            raise ValueError(f"{num_external} task rows do not split over "
+                             f"{len(names)} placeholders")
+        self.names = tuple(names)
+        self.wrapped = nn.Embedding(vocab_size, dim)
+        rows = num_external // len(names)
+        self.trainable_embeddings = nn.ParameterDict({
+            n: nn.Parameter(torch.zeros(rows, dim)) for n in self.names
+        })
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        table = torch.cat([self.wrapped.weight] + [
+            self.trainable_embeddings[n] for n in self.names
+        ])
+        return F.embedding(ids, table)
+
+
+class CLIPTextEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        if cfg.num_external_tokens:
+            self.token_embedding = TaskTokenEmbedding(
+                cfg.vocab_size, cfg.hidden_size, cfg.num_external_tokens)
+        else:
+            self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embedding = nn.Embedding(cfg.max_position_embeddings,
+                                               cfg.hidden_size)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        s = ids.shape[1]
+        return self.token_embedding(ids) + self.position_embedding.weight[None, :s]
+
+
+class CLIPAttention(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        c = cfg.hidden_size
+        self.num_heads = cfg.num_attention_heads
+        self.q_proj = nn.Linear(c, c)
+        self.k_proj = nn.Linear(c, c)
+        self.v_proj = nn.Linear(c, c)
+        self.out_proj = nn.Linear(c, c)
+
+    def forward(self, x: torch.Tensor, causal_mask: torch.Tensor) -> torch.Tensor:
+        b, s, c = x.shape
+        n = self.num_heads
+        d = c // n
+        q = self.q_proj(x).view(b, s, n, d)
+        k = self.k_proj(x).view(b, s, n, d)
+        v = self.v_proj(x).view(b, s, n, d)
+        logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+        logits = logits * d ** -0.5 + causal_mask
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float())
+        return self.out_proj(out.to(x.dtype).reshape(b, s, c))
+
+
+class CLIPMLP(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.act = quick_gelu if cfg.hidden_act == "quick_gelu" else F.gelu
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class CLIPEncoderLayer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.self_attn = CLIPAttention(cfg)
+        self.layer_norm1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.mlp = CLIPMLP(cfg)
+        self.layer_norm2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+    def forward(self, x: torch.Tensor, causal_mask: torch.Tensor) -> torch.Tensor:
+        x = x + self.self_attn(self.layer_norm1(x), causal_mask)
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class CLIPEncoder(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            CLIPEncoderLayer(cfg) for _ in range(cfg.num_hidden_layers)
+        ])
+
+
+class CLIPTextTransformer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.embeddings = CLIPTextEmbeddings(cfg)
+        self.encoder = CLIPEncoder(cfg)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+
+class CLIPTextModel(nn.Module):
+    """Returns last_hidden_state (B, S, H) in the compute dtype."""
+
+    def __init__(self, config: CLIPTextConfig):
+        super().__init__()
+        self.config = config
+        self.text_model = CLIPTextTransformer(config)
+
+    def forward(self, input_ids: torch.Tensor, clip_skip: int = 0) -> torch.Tensor:
+        """``clip_skip``: stop ``clip_skip`` layers early and apply the final
+        LayerNorm there (HF ``hidden_states[-(clip_skip + 1)]`` + final LN)."""
+        tm = self.text_model
+        dtype = tm.encoder.layers[0].mlp.fc1.weight.dtype
+        s = input_ids.shape[1]
+        x = tm.embeddings(input_ids).to(dtype)
+        causal = torch.full((s, s), -1e9, dtype=torch.float32,
+                            device=input_ids.device).triu(1)
+        for layer in tm.encoder.layers[:len(tm.encoder.layers) - clip_skip]:
+            x = layer(x, causal)
+        return tm.final_layer_norm(x)

@@ -1,0 +1,93 @@
+"""Non-causal flash attention over (B, S, N, D) tensors.
+
+``flash_attention`` is the wrapper of the hand-written CUDA kernel in
+``csrc/flash_attention.cu``, which replaces the TPU kernel
+``powerpaint_tpu/ops/flash_attention.py::_flash_kernel``. For a CUDA
+tensor it launches the kernel or raises; for a CPU tensor it runs
+``flash_attention_plain``, the same function in plain PyTorch (the CPU path
+and the kernel's oracle). What bounds the kernel on the card and what its
+design does about it is written at the top of the ``.cu`` source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from powerpaint_tpu_torch.ops import _build
+
+_LOG2E = math.log2(math.e)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Softmax attention with fp32 logits and softmax, probabilities cast
+    to v's dtype, fp32 P @ V, result in q's dtype (the JAX package's
+    ``xla_attention``). q: (B, Sq, N, D); k, v: (B, Skv, N, D)."""
+    d = q.shape[-1]
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+    probs = torch.softmax(logits * scale, dim=-1).to(v.dtype)
+    out = torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float())
+    return out.to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = _build.load("flash_attention").ppt_flash_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
+def _launch(q, k, v, scale: float) -> torch.Tensor:
+    b, sq, n, d = q.shape
+    skv = k.shape[1]
+    out = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*[
+        s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1), t.stride(2))
+    ])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    int(q.dtype == torch.bfloat16), b, n, sq, skv, d, strides,
+                    float(scale * _LOG2E), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over (B, S, N, D): q (B, Sq, N, D), k and v (B, Skv, N, D).
+
+    CUDA tensors go to the kernel (fp32 or bf16, one dtype, last dim
+    contiguous, all on one device); CPU tensors to the plain version."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, scale)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention takes (B, S, N, D) tensors")
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or \
+            k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention takes fp32 or bf16 of one dtype, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must lie on one CUDA device")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("flash_attention needs the head dim contiguous")
+    d = q.shape[-1]
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    out = _launch(q, k, v, scale)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
