@@ -7,21 +7,34 @@ Phases, in order; any failure exits non-zero:
 
 1. The card (``nvidia-smi`` name and power limit), the torch / CUDA / Triton
    versions, then the build of the CUDA sources in
-   ``powerpaint_tpu_torch/csrc`` with its time.
-2. Kernel checks: each kernel of the main path (flash attention in CUDA,
+   ``powerpaint_tpu_torch/csrc`` (one nvcc each, started together) with its
+   time.
+2. Kernel checks: each kernel of the main paths (flash attention and the
+   3x3 conv with and without its GroupNorm+SiLU prologue in CUDA,
    GroupNorm(+SiLU) and LayerNorm in Triton) against its plain PyTorch
-   version at the main path's shapes, in fp32 (TF32 off for matmuls and
+   version at the main paths' shapes, in fp32 (TF32 off for matmuls and
    convs) and in bf16, and timed beside the plain version, one PyTorch
-   library call of the same function, and the data-sheet bound.
-3. The main path: full-width ppt-v1 (860M-parameter 9-channel UNet, SD1.5
-   VAE, CLIP ViT-L/14 text with 30 task-token rows), random weights from a
+   library call of the same function, and the data-sheet bound. A kernel's
+   ``ms`` and the library call's are device time (a CUDA graph of 20 calls
+   replayed), ``stream_ms`` the same calls enqueued one by one (the host's
+   pace where it is the slower), ``host_ms`` the host's enqueue alone.
+3. The ppt-v1 path: full width (860M-parameter 9-channel UNet, SD1.5 VAE,
+   CLIP ViT-L/14 text with 30 task-token rows), random weights from a
    seed, bf16, a 512x512 image: the four tasks at 20 DDIM steps with
    guidance 7.5, the same seed twice, another seed, a two-request batch and
-   one call with strength 0.6 and eta 0.5. Each call must launch every
-   kernel the number of times its shapes imply, the latents before decode
-   must be finite, and a tiny configuration must give the same image
-   through the kernels as through the plain versions on the CPU.
-4. The ``{"kernels": [...]}`` line, then the last line
+   one call with strength 0.6 and eta 0.5.
+4. The ppt-v2 path: full width (the SD1.5 base UNet with 4 input channels,
+   a BrushNet branch of the same widths with 28 taps, the SD1.5 VAE, two
+   CLIP ViT-L/14 towers), random bf16 weights from a seed, 512x512, UniPC,
+   guidance 7.5: the four tasks at 20 steps, the same seed twice, another
+   seed, a two-request batch, conditioning scale 0 (which must change the
+   image), control_guidance_end 0.5, guess mode, and one call at 45 steps.
+   In both paths each call must launch every kernel the number of times
+   the config implies and the latents before decode must be finite; each
+   path ends with one profiled call, and a tiny configuration must give
+   the same image through the kernels as through the plain versions on
+   the CPU.
+5. The ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 With no GPU the script fails before printing any result.
@@ -30,7 +43,6 @@ With no GPU the script fails before printing any result.
 from __future__ import annotations
 
 import json
-import math
 import subprocess
 import sys
 import time
@@ -70,9 +82,10 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls. Where the host enqueues a
-    call more slowly than the card runs it, this is the host's pace."""
+    """Mean time of one call on the stream, from CUDA events around
+    ``iters`` back-to-back calls after ``warmup`` calls. Where the host
+    enqueues a call more slowly than the card runs it, this is the host's
+    pace (``graph_ms`` is the device's)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -81,6 +94,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one call with no host in the way: ``iters``
+    calls captured in one CUDA graph, its replay timed with CUDA events."""
+    fn()  # builds, specialises and allocates outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -131,6 +164,24 @@ GN_SHAPES = [
     ((1, 262144, 128), 1e-6, True), ((1, 65536, 256), 1e-6, True),
     ((1, 4096, 512), 1e-6, False),
 ]
+# (B, H, W, Cin, Cout, groups): ResNet units (conv3x3_gn_silu) of the UNet
+# and the BrushNet at a 512x512 image under CFG (the first level, the
+# widest up-block concats, the deep levels) and of the VAE at its largest
+# map; upsampler convs (conv3x3, no groups) of the UNet and the VAE
+# decoder, and the first UNet level's shape without the prologue (what the
+# prologue costs there); then a ragged fp32-only shape for each (groups of
+# 2 channels, Cin and Cout off the tiles). The first row of each is the one
+# the kernels line reports.
+CONV_SHAPES = {
+    "conv3x3_gn_silu": [
+        (2, 64, 64, 320, 320, 32), (2, 64, 64, 960, 320, 32),
+        (2, 16, 16, 2560, 1280, 32), (2, 8, 8, 1280, 1280, 32),
+        (1, 512, 512, 128, 128, 32), (1, 8, 8, 48, 40, 24)],
+    "conv3x3": [
+        (2, 64, 64, 640, 640, 0), (2, 16, 16, 1280, 1280, 0),
+        (1, 512, 512, 256, 256, 0), (2, 64, 64, 320, 320, 0),
+        (1, 8, 8, 48, 40, 0)],
+}
 # (shape, eps): transformer-block norms at each UNet level and CLIP's.
 LN_SHAPES = [
     ((2, 4096, 320), 1e-5), ((2, 1024, 640), 1e-5), ((2, 256, 1280), 1e-5),
@@ -152,6 +203,7 @@ def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
 
 
 def check_kernels(device) -> list:
+    from powerpaint_tpu_torch.ops import conv
     from powerpaint_tpu_torch.ops import flash_attention as fa
     from powerpaint_tpu_torch.ops import norms
 
@@ -194,11 +246,12 @@ def check_kernels(device) -> list:
             nbytes = 2.0 * (2 * b * sq * n * d + 2 * b * skv * n * d)
             timings.setdefault("flash_attention", []).append(dict(
                 shape=[b, sq, skv, n, d],
-                ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
+                ms=graph_ms(lambda: fa.flash_attention(q, k, v)),
+                stream_ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
                 host_ms=host_ms(lambda: fa.flash_attention(q, k, v)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v),
                                  iters=5),
-                library_ms=cuda_ms(
+                library_ms=graph_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt)),
                 bound=bound_ms(flops, nbytes)))
@@ -232,10 +285,11 @@ def check_kernels(device) -> list:
             nbytes = 2.0 * 2 * x.numel()
             timings.setdefault("group_norm", []).append(dict(
                 shape=list(shape), silu=silu,
-                ms=cuda_ms(lambda: norms.group_norm(x, w, bb, **kw)),
+                ms=graph_ms(lambda: norms.group_norm(x, w, bb, **kw)),
+                stream_ms=cuda_ms(lambda: norms.group_norm(x, w, bb, **kw)),
                 host_ms=host_ms(lambda: norms.group_norm(x, w, bb, **kw)),
                 plain_ms=cuda_ms(lambda: norms.group_norm_plain(x, w, bb, **kw)),
-                library_ms=cuda_ms(library),
+                library_ms=graph_ms(library),
                 bound=bound_ms(0.0, nbytes)))
     log(phase="kernel checks", kernel="group_norm",
         seconds=time.perf_counter() - t0)
@@ -259,14 +313,72 @@ def check_kernels(device) -> list:
             nbytes = 2.0 * 2 * x.numel()
             timings.setdefault("layer_norm", []).append(dict(
                 shape=list(shape),
-                ms=cuda_ms(lambda: norms.layer_norm(x, w, bb, eps=eps)),
+                ms=graph_ms(lambda: norms.layer_norm(x, w, bb, eps=eps)),
+                stream_ms=cuda_ms(lambda: norms.layer_norm(x, w, bb, eps=eps)),
                 host_ms=host_ms(lambda: norms.layer_norm(x, w, bb, eps=eps)),
                 plain_ms=cuda_ms(lambda: norms.layer_norm_plain(x, w, bb, eps=eps)),
-                library_ms=cuda_ms(lambda: torch.nn.functional.layer_norm(
+                library_ms=graph_ms(lambda: torch.nn.functional.layer_norm(
                     x, (c,), wl, bl, eps)),
                 bound=bound_ms(0.0, nbytes)))
     log(phase="kernel checks", kernel="layer_norm",
         seconds=time.perf_counter() - t0)
+
+    # ---- kernels 4 and 5: 3x3 conv with / without the GN+SiLU prologue
+    t0 = time.perf_counter()
+    F = torch.nn.functional
+    for name, shapes in CONV_SHAPES.items():
+        fused = name == "conv3x3_gn_silu"
+        for (b, h, w, cin, cout, groups) in shapes:
+            dtypes = (torch.float32,) if cin == 48 else (torch.float32,
+                                                         torch.bfloat16)
+            for dtype in dtypes:
+                x = (randn(b, h, w, cin) * 2 - 0.3).to(dtype)
+                wt = (randn(cout, cin, 3, 3) / (3 * cin ** 0.5)).to(dtype)
+                wt = wt.contiguous(memory_format=torch.channels_last)
+                bias = (0.1 * randn(cout)).to(dtype)
+                gamma = 1 + 0.1 * randn(cin)
+                beta = 0.5 + 0.1 * randn(cin)  # large: a nonzero SAME pad shows
+                kw = dict(num_groups=groups, eps=1e-5)
+                if fused:
+                    fn = lambda: conv.conv3x3_gn_silu(x, wt, bias, gamma, beta, **kw)
+                    ref = lambda: conv.conv3x3_gn_silu_plain(x, wt, bias, gamma,
+                                                             beta, **kw)
+                else:
+                    fn = lambda: conv.conv3x3(x, wt, bias)
+                    ref = lambda: conv.conv3x3_plain(x, wt, bias)
+                got = fn()
+                torch.cuda.synchronize()
+                want = ref()
+                err = float((got.float() - want.float()).abs().max())
+                record(name, (b, h, w, cin, cout), dtype, err,
+                       tolerance(dtype, want))
+                if dtype != torch.bfloat16:
+                    continue
+                # cuDNN on the channels-last NCHW view, ATen's group norm
+                x_nchw = x.permute(0, 3, 1, 2)
+                gl, bl = gamma.to(dtype), beta.to(dtype)
+
+                def library(x_nchw=x_nchw, wt=wt, bias=bias, gl=gl, bl=bl,
+                            groups=groups, fused=fused):
+                    y = x_nchw
+                    if fused:
+                        y = F.silu(F.group_norm(y, groups, gl, bl, 1e-5))
+                    return F.conv2d(y, wt, bias, padding=1)
+
+                flops = 2.0 * b * h * w * 9 * cin * cout
+                nbytes = 2.0 * (b * h * w * (cin + cout) + 9 * cin * cout + cout)
+                if fused:
+                    nbytes += 8.0 * cin  # gamma, beta in fp32
+                iters = 5 if h * w >= 512 * 512 else 20
+                timings.setdefault(name, []).append(dict(
+                    shape=[b, h, w, cin, cout],
+                    ms=graph_ms(fn, iters=iters),
+                    stream_ms=cuda_ms(fn, iters=iters),
+                    host_ms=host_ms(fn, iters=iters),
+                    plain_ms=cuda_ms(ref, iters=iters),
+                    library_ms=graph_ms(library, iters=iters),
+                    bound=bound_ms(flops, nbytes)))
+    log(phase="kernel checks", kernel="conv3x3", seconds=time.perf_counter() - t0)
 
     for name, rows in timings.items():
         for r in rows:
@@ -279,43 +391,78 @@ def check_kernels(device) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phases 3 and 4: the main paths
 # ---------------------------------------------------------------------------
 
+KERNELS = ("flash_attention", "group_norm", "layer_norm", "conv3x3_gn_silu",
+           "conv3x3")
 
-def expected_launches(cfg, steps: int, strength: float = 1.0) -> dict:
-    """Kernel launches one ``__call__`` implies, counted from the config:
-    per UNet evaluation (one per step, CFG in the batch) every transformer
-    runs 2 attentions and 3 LayerNorms and adds its GroupNorm to the two of
-    every ResNet; CLIP runs 2 LayerNorms a layer plus the final one; each
-    VAE pass runs its ResNets' norms, the mid attention and its norm, and
-    the output norm."""
-    u, v, t = cfg.unet, cfg.vae, cfg.text_encoder
+
+def unet_launches(u, with_out_norm: bool = True) -> dict:
+    """Launches of one UNet (or BrushNet, which has no conv_norm_out)
+    evaluation, CFG in the batch: every transformer runs 2 attentions, 3
+    LayerNorms and its GroupNorm; every ResNet unit 2 fused GN+SiLU convs;
+    every upsampler one plain conv."""
     n_levels = len(u.block_out_channels)
     n_tf = (sum(k.startswith("CrossAttn") for k in u.down_block_types)
             * u.layers_per_block
             + sum(k.startswith("CrossAttn") for k in u.up_block_types)
             * (u.layers_per_block + 1) + 1) * u.transformer_layers_per_block
     n_res = n_levels * u.layers_per_block + 2 + n_levels * (u.layers_per_block + 1)
-    unet = dict(attn=2 * n_tf, ln=3 * n_tf, gn=2 * n_res + n_tf + 1)
-    v_levels = len(v.block_out_channels)
-    enc_gn = 2 * v_levels * v.layers_per_block + 5 + 1
-    dec_gn = 2 * v_levels * (v.layers_per_block + 1) + 5 + 1
+    return {"flash_attention": 2 * n_tf, "layer_norm": 3 * n_tf,
+            "group_norm": n_tf + int(with_out_norm),
+            "conv3x3_gn_silu": 2 * n_res, "conv3x3": n_levels - 1}
+
+
+def vae_launches(v, decoder: bool) -> dict:
+    """One VAE encode or decode: its ResNet units, the mid attention and
+    its GroupNorm, the output GroupNorm, the decoder's upsamplers."""
+    levels = len(v.block_out_channels)
+    n_res = levels * (v.layers_per_block + int(decoder)) + 2
+    return {"flash_attention": 1, "layer_norm": 0, "group_norm": 2,
+            "conv3x3_gn_silu": 2 * n_res,
+            "conv3x3": levels - 1 if decoder else 0}
+
+
+def _total(*parts) -> dict:
+    """Sum of (count, launches dict) pairs."""
+    return {k: sum(n * d.get(k, 0) for n, d in parts) for k in KERNELS}
+
+
+def expected_launches(cfg, steps: int, strength: float = 1.0) -> dict:
+    """Kernel launches one ppt-v1 ``__call__`` implies, from the config: one
+    UNet evaluation per kept step, CLIP's 2 LayerNorms a layer and the
+    final one, one or two VAE encodes (image latents only at strength < 1)
+    and one decode."""
+    t = cfg.text_encoder
     kept = min(int(steps * strength), steps)
-    n_enc = 2 if kept < steps else 1  # image latents only when strength < 1
-    return {
-        "flash_attention": kept * unet["attn"] + n_enc + 1,
-        "layer_norm": kept * unet["ln"] + 2 * t.num_hidden_layers + 1,
-        "group_norm": kept * unet["gn"] + n_enc * enc_gn + dec_gn,
-    }
+    n_enc = 2 if kept < steps else 1
+    text = {"layer_norm": 2 * t.num_hidden_layers + 1}
+    return _total((kept, unet_launches(cfg.unet)), (1, text),
+                  (n_enc, vae_launches(cfg.vae, False)),
+                  (1, vae_launches(cfg.vae, True)))
+
+
+def expected_launches_v2(cfg, steps: int) -> dict:
+    """One ppt-v2 ``__call__``: per step one BrushNet and one base-UNet
+    evaluation (guess mode and gated steps run the branch all the same),
+    the two text towers, one VAE encode and one decode."""
+    t = cfg.text_encoder
+    text = {"layer_norm": 2 * t.num_hidden_layers + 1}
+    return _total((steps, unet_launches(cfg.unet)),
+                  (steps, unet_launches(cfg.brushnet.base, with_out_norm=False)),
+                  (2, text), (1, vae_launches(cfg.vae, False)),
+                  (1, vae_launches(cfg.vae, True)))
 
 
 def counters():
+    from powerpaint_tpu_torch.ops.conv import conv3x3, conv3x3_gn_silu
     from powerpaint_tpu_torch.ops.flash_attention import flash_attention
     from powerpaint_tpu_torch.ops.norms import group_norm, layer_norm
 
     return {"flash_attention": flash_attention, "group_norm": group_norm,
-            "layer_norm": layer_norm}
+            "layer_norm": layer_norm, "conv3x3_gn_silu": conv3x3_gn_silu,
+            "conv3x3": conv3x3}
 
 
 def read_counts() -> dict:
@@ -327,26 +474,31 @@ def reset_counts() -> None:
         f.launches = 0
 
 
-def instrument(pipe, stage_seconds: dict, finite: list) -> None:
-    """Time the pipeline's four stages (synchronising around each) and
-    record whether the latents handed to the decoder are finite."""
+def instrument(pipe, stage_seconds: dict, finite: list, models=()) -> None:
+    """Time the pipeline's four stages and the forward of each named model
+    (synchronising around each) and record whether the latents handed to
+    the decoder are finite."""
     names = {"_encode_prompts": "text", "_vae_sample": "vae_encode",
              "_denoise": "denoise", "_decode": "decode"}
-    for attr, stage in names.items():
-        fn = getattr(pipe, attr)
 
-        def wrapped(*args, _fn=fn, _stage=stage, **kw):
-            if _stage == "decode":
+    def timed(fn, stage):
+        def wrapped(*args, **kw):
+            if stage == "decode":
                 finite.append(bool(torch.isfinite(args[0]).all()))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = _fn(*args, **kw)
+            out = fn(*args, **kw)
             torch.cuda.synchronize()
-            stage_seconds[_stage] = stage_seconds.get(_stage, 0.0) + \
+            stage_seconds[stage] = stage_seconds.get(stage, 0.0) + \
                 time.perf_counter() - t0
             return out
+        return wrapped
 
-        setattr(pipe, attr, wrapped)
+    for attr, stage in names.items():
+        setattr(pipe, attr, timed(getattr(pipe, attr), stage))
+    for attr, stage in models:
+        module = getattr(pipe, attr)
+        module.forward = timed(module.forward, stage)
 
 
 def inputs(hw: int, seed: int):
@@ -357,103 +509,187 @@ def inputs(hw: int, seed: int):
     return image, mask
 
 
-def run_main_path(device) -> dict:
-    from powerpaint_tpu_torch.core.config import ppt_v1_config
-    from powerpaint_tpu_torch.io.weights import init_state
-    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+def _tokenizer(cfg):
     from powerpaint_tpu_torch.text.tokenizer import (
         HashTokenizer,
         TokenizerWrapper,
         add_task_tokens,
     )
 
-    cfg = ppt_v1_config()
-    t0 = time.perf_counter()
-    state = init_state(cfg, torch.Generator(device=device).manual_seed(0),
-                       device=device, dtype=torch.bfloat16)
     tok = TokenizerWrapper(HashTokenizer(cfg.text_encoder.vocab_size))
     add_task_tokens(tok)
-    pipe = InpaintPipeline(cfg, state, tok, dtype=torch.bfloat16, device=device)
-    del state
-    n_params = sum(p.numel() for m in (pipe.unet, pipe.vae, pipe.text_encoder)
-                   for p in m.parameters())
-    log(phase="setup", params=n_params,
-        unet_params=sum(p.numel() for p in pipe.unet.parameters()),
-        seconds=time.perf_counter() - t0)
+    return tok
 
-    image, mask = inputs(HW, 0)
+
+def _caller(pipe, image, mask, expected, models=()):
+    """``call(label, **kw)``: one timed pipeline call that checks its launch
+    counts against ``expected(kw)`` and its latents."""
     stage_seconds, finite = {}, []
-    instrument(pipe, stage_seconds, finite)
+    instrument(pipe, stage_seconds, finite, models)
 
     def call(label, **kw):
+        kw.setdefault("num_inference_steps", STEPS)
+        kw.setdefault("guidance_scale", GUIDANCE)
         before = read_counts()
         stage_seconds.clear()
         finite.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = pipe(image, mask, num_inference_steps=STEPS,
-                   guidance_scale=GUIDANCE, **kw)
+        out = pipe(image, mask, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         after = read_counts()
         got = {k: after[k] - before[k] for k in after}
-        batch = out.shape[0]
-        want = expected_launches(cfg, STEPS, kw.get("strength", 1.0))
-        log(call=label, seconds=secs, seconds_per_image=secs / batch,
+        want = expected(kw)
+        log(call=label, seconds=secs, seconds_per_image=secs / out.shape[0],
             stages=dict(stage_seconds), launches=got, shape=list(out.shape),
             dtype=str(out.dtype))
         check(got == want, f"{label}: launches {got}, expected {want}")
         check(finite and all(finite), f"{label}: non-finite latents before decode")
         return out
 
-    # warm-up: Triton specialisations and cuDNN / cuBLAS plans for the
-    # full-size shapes, so the timed calls below are steady state
-    call("warm-up", prompt="a cat", seed=99)
+    return call
 
-    reset_counts()  # the main path starts here
-    outs = {}
-    for task in TASKS:
-        outs[task] = call(task, prompt="a red bench in a park", task=task,
-                          seed=1)
-        check(outs[task].shape == (1, HW, HW, 3) and outs[task].dtype == np.uint8,
-              f"{task}: output {outs[task].shape} {outs[task].dtype}")
-    again = call("text-guided same seed", prompt="a red bench in a park",
-                 seed=1)
-    check(np.array_equal(again, outs["text-guided"]),
-          "the same seed gave a different image")
-    other = call("text-guided other seed", prompt="a red bench in a park",
-                 seed=2)
-    check(not np.array_equal(other, outs["text-guided"]),
-          "another seed gave the same image")
-    batch = call("batch of two", prompt=["a red bench in a park", "a dog"],
-                 negative_prompt=["", "blurry"], fitting_degree=[1.0, 0.5],
-                 seed=[1, 5])
-    check(batch.shape == (2, HW, HW, 3), f"batch output {batch.shape}")
-    d = np.abs(batch[0].astype(np.int32) - outs["text-guided"][0].astype(np.int32))
-    log(batch_vs_standalone_max_uint8_diff=int(d.max()),
-        batch_vs_standalone_mean_uint8_diff=float(d.mean()))
-    call("strength 0.6 eta 0.5", prompt="a red bench in a park", seed=3,
-         strength=0.6, eta=0.5)
-    launches = read_counts()  # the main path ends here
-    log(main_path_launches=launches)
+
+def _path_counts(label: str) -> dict:
+    launches = read_counts()  # the path ends here
+    log(path=label, path_launches=launches)
     for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
-    profile_call(pipe, image, mask)
+        check(n > 0, f"{name} was not launched on the {label} path")
     return launches
 
 
-def profile_call(pipe, image, mask) -> None:
-    """One text-guided call under ``torch.profiler``: device time by kernel
-    (the top ones) and the device's busy share of the call's wall time,
-    against the profiled call and against the same call unprofiled (the
-    profiler slows the host side)."""
+def run_v1_path(device) -> dict:
+    from powerpaint_tpu_torch.core.config import ppt_v1_config
+    from powerpaint_tpu_torch.io.weights import init_state
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+
+    cfg = ppt_v1_config()
+    t0 = time.perf_counter()
+    state = init_state(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device, dtype=torch.bfloat16)
+    pipe = InpaintPipeline(cfg, state, _tokenizer(cfg), dtype=torch.bfloat16,
+                           device=device)
+    del state
+    n_params = sum(p.numel() for m in (pipe.unet, pipe.vae, pipe.text_encoder)
+                   for p in m.parameters())
+    log(phase="setup", path="ppt-v1", params=n_params,
+        unet_params=sum(p.numel() for p in pipe.unet.parameters()),
+        seconds=time.perf_counter() - t0)
+
+    image, mask = inputs(HW, 0)
+    call = _caller(pipe, image, mask, lambda kw: expected_launches(
+        cfg, kw["num_inference_steps"], kw.get("strength", 1.0)))
+
+    # warm-up: Triton specialisations and cuDNN / cuBLAS plans for the
+    # full-size shapes, so the timed calls below are steady state
+    call("v1 warm-up", prompt="a cat", seed=99)
+
+    reset_counts()  # the path starts here
+    outs = {}
+    for task in TASKS:
+        outs[task] = call(f"v1 {task}", prompt="a red bench in a park",
+                          task=task, seed=1)
+        check(outs[task].shape == (1, HW, HW, 3) and outs[task].dtype == np.uint8,
+              f"{task}: output {outs[task].shape} {outs[task].dtype}")
+    again = call("v1 text-guided same seed", prompt="a red bench in a park",
+                 seed=1)
+    check(np.array_equal(again, outs["text-guided"]),
+          "v1: the same seed gave a different image")
+    other = call("v1 text-guided other seed", prompt="a red bench in a park",
+                 seed=2)
+    check(not np.array_equal(other, outs["text-guided"]),
+          "v1: another seed gave the same image")
+    batch = call("v1 batch of two", prompt=["a red bench in a park", "a dog"],
+                 negative_prompt=["", "blurry"], fitting_degree=[1.0, 0.5],
+                 seed=[1, 5])
+    check(batch.shape == (2, HW, HW, 3), f"v1 batch output {batch.shape}")
+    d = np.abs(batch[0].astype(np.int32) - outs["text-guided"][0].astype(np.int32))
+    log(path="ppt-v1", batch_vs_standalone_max_uint8_diff=int(d.max()),
+        batch_vs_standalone_mean_uint8_diff=float(d.mean()))
+    call("v1 strength 0.6 eta 0.5", prompt="a red bench in a park", seed=3,
+         strength=0.6, eta=0.5)
+    launches = _path_counts("ppt-v1")
+    profile_call("ppt-v1", lambda: pipe(image, mask, prompt="a red bench in a park",
+                                        seed=1, num_inference_steps=STEPS,
+                                        guidance_scale=GUIDANCE))
+    return launches
+
+
+def run_v2_path(device) -> dict:
+    from powerpaint_tpu_torch.core.config import ppt_v2_config
+    from powerpaint_tpu_torch.io.weights import init_state
+    from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
+
+    cfg = ppt_v2_config()
+    t0 = time.perf_counter()
+    state = init_state(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device, dtype=torch.bfloat16)
+    pipe = BrushNetPipeline(cfg, state, _tokenizer(cfg), dtype=torch.bfloat16,
+                            device=device)
+    del state
+    families = ("unet", "brushnet", "vae", "text_encoder",
+                "text_encoder_brushnet")
+    log(phase="setup", path="ppt-v2",
+        params=sum(p.numel() for f in families
+                   for p in getattr(pipe, f).parameters()),
+        unet_params=sum(p.numel() for p in pipe.unet.parameters()),
+        brushnet_params=sum(p.numel() for p in pipe.brushnet.parameters()),
+        seconds=time.perf_counter() - t0)
+
+    image, mask = inputs(HW, 0)
+    call = _caller(pipe, image, mask,
+                   lambda kw: expected_launches_v2(cfg, kw["num_inference_steps"]),
+                   models=(("brushnet", "denoise_brushnet"),
+                           ("unet", "denoise_base_unet")))
+    call("v2 warm-up", prompt="a cat", seed=99)
+
+    reset_counts()  # the path starts here
+    prompt = "a red bench in a park"
+    outs = {}
+    for task in TASKS:
+        outs[task] = call(f"v2 {task}", prompt=prompt, task=task, seed=1)
+        check(outs[task].shape == (1, HW, HW, 3) and outs[task].dtype == np.uint8,
+              f"v2 {task}: output {outs[task].shape} {outs[task].dtype}")
+    base = outs["text-guided"]
+    again = call("v2 text-guided same seed", prompt=prompt, seed=1)
+    check(np.array_equal(again, base), "v2: the same seed gave a different image")
+    other = call("v2 text-guided other seed", prompt=prompt, seed=2)
+    check(not np.array_equal(other, base), "v2: another seed gave the same image")
+    batch = call("v2 batch of two", prompt=[prompt, "a dog"],
+                 negative_prompt=["", "blurry"], fitting_degree=[1.0, 0.5],
+                 seed=[1, 5])
+    check(batch.shape == (2, HW, HW, 3), f"v2 batch output {batch.shape}")
+    d = np.abs(batch[0].astype(np.int32) - base[0].astype(np.int32))
+    log(path="ppt-v2", batch_vs_standalone_max_uint8_diff=int(d.max()),
+        batch_vs_standalone_mean_uint8_diff=float(d.mean()))
+    for label, kw in (("v2 conditioning scale 0", dict(brushnet_conditioning_scale=0.0)),
+                      ("v2 control_guidance_end 0.5", dict(control_guidance_end=0.5)),
+                      ("v2 guess mode", dict(guess_mode=True))):
+        out = call(label, prompt=prompt, seed=1, **kw)
+        d = np.abs(out.astype(np.int32) - base.astype(np.int32))
+        log(call=label, vs_scale_1_max_uint8_diff=int(d.max()),
+            vs_scale_1_mean_uint8_diff=float(d.mean()))
+        check(d.max() > 0, f"{label}: the image did not change (dead branch)")
+    call("v2 45 steps", prompt=prompt, seed=1, num_inference_steps=45)
+    launches = _path_counts("ppt-v2")
+    profile_call("ppt-v2", lambda: pipe(image, mask, prompt=prompt, seed=1,
+                                        num_inference_steps=STEPS,
+                                        guidance_scale=GUIDANCE))
+    return launches
+
+
+def profile_call(label: str, run_call) -> None:
+    """One 20-step call under ``torch.profiler``: device time by kernel
+    family and the top kernels, and the device's busy share of the call's
+    wall time, against the profiled call and against the same call
+    unprofiled (the profiler slows the host side)."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipe(image, mask, prompt="a red bench in a park", seed=1,
-             num_inference_steps=STEPS, guidance_scale=GUIDANCE)
+        run_call()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e6
 
@@ -466,35 +702,42 @@ def profile_call(pipe, image, mask) -> None:
                and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in kernels)
     if not kernels:
-        log(profile="not measured: the profiler recorded no device time")
+        log(profile=label, result="not measured: the profiler recorded no device time")
         return
     kernels.sort(key=lambda k: -k[1])
-    # device time by family, from the kernel names (first match wins)
-    families = (("flash_attention", ("flash_",)), ("group_norm", ("_gn_",)),
-                ("layer_norm", ("_ln_kernel",)), ("conv", ("fprop", "conv")),
+    # device time by family, from the kernel names (first match wins); the
+    # GroupNorm family holds the statistics launches of the fused conv too
+    families = (("flash_attention", ("flash_",)),
+                ("conv3x3 kernel", ("conv3x3_kernel",)),
+                ("group_norm", ("_gn_",)), ("layer_norm", ("_ln_kernel",)),
+                ("cudnn conv", ("fprop", "conv")),
                 ("matmul", ("gemm", "nvjet", "cutlass")))
     by_family = {}
     for name, t, _ in kernels:
         fam = next((f for f, keys in families if any(k in name for k in keys)),
                    "other")
         by_family[fam] = by_family.get(fam, 0.0) + t / 1e3
-    log(profile="one 20-step call", device_ms_by_family=by_family, wall_ms=wall_us / 1e3,
-        unprofiled_wall_ms=plain_wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-        device_busy_share=busy_us / wall_us,
+    log(profile=label, steps=STEPS, device_ms_by_family=by_family,
+        wall_ms=wall_us / 1e3, unprofiled_wall_ms=plain_wall_us / 1e3,
+        device_busy_ms=busy_us / 1e3, device_busy_share=busy_us / wall_us,
         device_busy_share_unprofiled=busy_us / plain_wall_us,
         top_kernels=[dict(name=n[:90], ms=t / 1e3, calls=c, share=t / busy_us)
                      for n, t, c in kernels[:12]])
 
 
 def tiny_reference(device) -> None:
-    """The tiny ppt-v1 configuration, fp32, through the kernels on the card
-    and through the plain versions on the CPU, with the same weights and
-    the same noise: the uint8 images must agree within the JAX package's
-    end-to-end bound (max 3, mean 0.5)."""
+    """The tiny ppt-v1 and ppt-v2 configurations, fp32, through the kernels
+    on the card and through the plain versions on the CPU, with the same
+    weights and the same noise: the uint8 images must agree within the JAX
+    package's end-to-end bound (max 3, mean 0.5)."""
     from powerpaint_tpu_torch.io.weights import init_state
+    from powerpaint_tpu_torch.pipelines.brushnet import (
+        BrushNetPipeline,
+        cond_scale_table,
+    )
     from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
-    from powerpaint_tpu_torch.testing import tiny_v1_config
-    from powerpaint_tpu_torch.text.prompts import add_task
+    from powerpaint_tpu_torch.testing import tiny_v1_config, tiny_v2_config
+    from powerpaint_tpu_torch.text.prompts import add_task, v2_prompt_suffix
     from powerpaint_tpu_torch.text.tokenizer import (
         HashTokenizer,
         TokenizerWrapper,
@@ -503,33 +746,66 @@ def tiny_reference(device) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = tiny_v1_config()
-    state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu",
-                       dtype=torch.float32)
     tok = TokenizerWrapper(HashTokenizer(994))
     add_task_tokens(tok)
     image, mask = inputs(64, 1)
-    outs = {}
-    for dev in ("cpu", device):
-        pipe = InpaintPipeline(cfg, state, tok, dtype=torch.float32, device=dev)
-        g = torch.Generator().manual_seed(7)
-        noise = [torch.randn((1, 8, 8, 4), generator=g).to(dev) for _ in range(3)]
+    mask_u8 = (mask >= 0.5).astype(np.uint8)[None, ..., None] * 255
+
+    def v1(pipe, dev, noise):
         ids = pipe.encode_task(add_task("a dog", "", "text-guided"))[None]
-        out = pipe._generate(
+        return pipe._generate(
             torch.as_tensor(ids, dtype=torch.long, device=dev),
-            torch.tensor([0.6], device=dev),
-            torch.as_tensor(image[None], device=dev),
-            torch.as_tensor((mask >= 0.5).astype(np.uint8)[None, ..., None] * 255,
-                            device=dev),
-            torch.tensor([7.5], device=dev), *noise, None,
-            num_steps=3, strength_steps=3, output_type="uint8")
-        outs[dev] = out.cpu().numpy().astype(np.int32)
-    d = np.abs(outs["cpu"] - outs[device])
-    log(tiny_reference_max_uint8_diff=int(d.max()),
-        tiny_reference_mean_uint8_diff=float(d.mean()))
-    check(d.max() <= 3 and d.mean() <= 0.5,
-          f"tiny config: card vs CPU uint8 diff max {d.max()} mean {d.mean()}")
+            torch.tensor([0.6], device=dev), torch.as_tensor(image[None], device=dev),
+            torch.as_tensor(mask_u8, device=dev), torch.tensor([7.5], device=dev),
+            *noise, None, num_steps=3, strength_steps=3, output_type="uint8")
+
+    def v2(pipe, dev, noise):
+        task = "object-removal"
+        ids_t, ids_u = pipe.encode_task(
+            add_task(v2_prompt_suffix("a dog", task), "", task, "ppt-v2"))
+        return pipe._generate(
+            torch.as_tensor(ids_t[None], dtype=torch.long, device=dev),
+            torch.as_tensor(ids_u[None], dtype=torch.long, device=dev),
+            torch.tensor([0.6], device=dev), torch.as_tensor(image[None], device=dev),
+            torch.as_tensor(mask_u8, device=dev), torch.tensor([7.5], device=dev),
+            cond_scale_table(3, 1.0, 0.0, 1.0), *noise[:2], num_steps=3,
+            output_type="uint8")
+
+    for label, cfg, cls, gen in (("ppt-v1", tiny_v1_config(), InpaintPipeline, v1),
+                                 ("ppt-v2", tiny_v2_config(), BrushNetPipeline, v2)):
+        state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu",
+                           dtype=torch.float32)
+        outs = {}
+        for dev in ("cpu", device):
+            pipe = cls(cfg, state, tok, dtype=torch.float32, device=dev)
+            g = torch.Generator().manual_seed(7)
+            noise = [torch.randn((1, 8, 8, 4), generator=g).to(dev) for _ in range(3)]
+            outs[dev] = gen(pipe, dev, noise).cpu().numpy().astype(np.int32)
+        d = np.abs(outs["cpu"] - outs[device])
+        log(tiny_reference=label, max_uint8_diff=int(d.max()),
+            mean_uint8_diff=float(d.mean()))
+        check(d.max() <= 3 and d.mean() <= 0.5,
+              f"tiny {label}: card vs CPU uint8 diff max {d.max()} mean {d.mean()}")
     torch.backends.cudnn.allow_tf32 = True
+
+
+META = {
+    "flash_attention": dict(
+        route="cuda", source="powerpaint_tpu_torch/csrc/flash_attention.cu",
+        replaces="powerpaint_tpu/ops/flash_attention.py:28"),
+    "group_norm": dict(
+        route="triton", source="powerpaint_tpu_torch/ops/norms.py",
+        replaces="powerpaint_tpu/ops/norms_pallas.py:78"),
+    "layer_norm": dict(
+        route="triton", source="powerpaint_tpu_torch/ops/norms.py",
+        replaces="powerpaint_tpu/ops/norms_pallas.py:27"),
+    "conv3x3_gn_silu": dict(
+        route="cuda", source="powerpaint_tpu_torch/csrc/conv3x3.cu",
+        replaces="powerpaint_tpu/ops/conv_pallas.py:106"),
+    "conv3x3": dict(
+        route="cuda", source="powerpaint_tpu_torch/csrc/conv3x3.cu",
+        replaces="powerpaint_tpu/ops/conv_pallas.py:91"),
+}
 
 
 def main() -> None:
@@ -565,32 +841,25 @@ def main() -> None:
     summary, timings = check_kernels(device)
     log(phase="kernel checks", seconds=time.perf_counter() - t0)
 
-    # phase 3: the main path, then a small reference
-    t0 = time.perf_counter()
-    launches = run_main_path(device)
-    log(phase="main path", seconds=time.perf_counter() - t0)
+    # phases 3 and 4: the main paths, then the small references
+    launches = {k: 0 for k in KERNELS}
+    for label, run in (("ppt-v1", run_v1_path), ("ppt-v2", run_v2_path)):
+        t0 = time.perf_counter()
+        for k, n in run(device).items():
+            launches[k] += n
+        torch.cuda.empty_cache()
+        log(phase="main path", path=label, seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     tiny_reference(device)
     log(phase="tiny reference", seconds=time.perf_counter() - t0)
 
-    meta = {
-        "flash_attention": dict(
-            route="cuda", source="powerpaint_tpu_torch/csrc/flash_attention.cu",
-            replaces="powerpaint_tpu/ops/flash_attention.py:28"),
-        "group_norm": dict(
-            route="triton", source="powerpaint_tpu_torch/ops/norms.py",
-            replaces="powerpaint_tpu/ops/norms_pallas.py:78"),
-        "layer_norm": dict(
-            route="triton", source="powerpaint_tpu_torch/ops/norms.py",
-            replaces="powerpaint_tpu/ops/norms_pallas.py:27"),
-    }
     kernels = []
-    for name, m in meta.items():
-        head = timings[name][0]  # the main path's most launched shape
+    for name, m in META.items():
+        head = timings[name][0]  # the main paths' most launched shape
         kernels.append(dict(
             name=name, **m, launches=launches[name],
             max_abs_err=summary[name]["max_abs_err"],
-            ms=head["ms"], kernel_ms=head["ms"], host_ms=head["host_ms"],
+            ms=head["ms"], stream_ms=head["stream_ms"], host_ms=head["host_ms"],
             plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"],

@@ -1,6 +1,7 @@
 """Model / pipeline configuration dataclasses.
 
-The port's own copy of the ppt-v1 part of ``powerpaint_tpu.core.config``:
+The port's own copy of the ppt-v1 and ppt-v2 parts of
+``powerpaint_tpu.core.config``:
 frozen dataclasses that are the single source of truth for block topology,
 with the same field names and defaults, so a config serialized by either
 package loads in the other (unknown keys are ignored by ``from_dict``).
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 
 def _freeze(obj):
@@ -89,6 +90,70 @@ class UNetConfig(_ConfigBase):
         # number of heads
         return self.attention_head_dim
 
+    # ---- the BrushNet tap schedule, in consumption order ------------------
+
+    def down_tap_channels(self) -> Tuple[int, ...]:
+        """conv_in's output, then per down block one tap after each resnet
+        and one after the downsampler (if present)."""
+        taps = [self.block_out_channels[0]]
+        for i, ch in enumerate(self.block_out_channels):
+            taps.extend([ch] * self.layers_per_block)
+            if i < len(self.block_out_channels) - 1:
+                taps.append(ch)
+        return tuple(taps)
+
+    def down_tap_strides(self) -> Tuple[int, ...]:
+        """Spatial downscale factor (against the latent) of each down tap."""
+        strides, s = [1], 1
+        for i in range(len(self.block_out_channels)):
+            strides.extend([s] * self.layers_per_block)
+            if i < len(self.block_out_channels) - 1:
+                s *= 2
+                strides.append(s)
+        return tuple(strides)
+
+    def mid_tap_channels(self) -> int:
+        return self.block_out_channels[-1]
+
+    def up_tap_channels(self) -> Tuple[int, ...]:
+        """Per up block one tap after each of its layers_per_block + 1
+        resnets and one after the upsampler (if present): 15 for SD1.5."""
+        taps = []
+        rev = tuple(reversed(self.block_out_channels))
+        for i, ch in enumerate(rev):
+            taps.extend([ch] * (self.layers_per_block + 1))
+            if i < len(rev) - 1:
+                taps.append(ch)
+        return tuple(taps)
+
+    def up_tap_strides(self) -> Tuple[int, ...]:
+        strides, s = [], 2 ** (len(self.block_out_channels) - 1)
+        for i in range(len(self.up_block_types)):
+            strides.extend([s] * (self.layers_per_block + 1))
+            if i < len(self.up_block_types) - 1:
+                s //= 2
+                strides.append(s)
+        return tuple(strides)
+
+
+@dataclasses.dataclass(frozen=True)
+class BrushNetConfig(_ConfigBase):
+    """The ppt-v2 side branch: a full UNet (down, mid, up) of ``base``'s
+    widths whose input is concat(noisy latent, 5 conditioning channels)
+    through ``conv_in_condition``, with one zero-initialised 1x1 conv per
+    tap."""
+
+    base: UNetConfig = dataclasses.field(
+        default_factory=lambda: UNetConfig(in_channels=4))
+    conditioning_channels: int = 5  # masked-image latents (4) + mask (1)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BrushNetConfig":
+        d = dict(d)
+        if isinstance(d.get("base"), dict):
+            d["base"] = UNetConfig.from_dict(d["base"])
+        return super().from_dict.__func__(cls, d)
+
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig(_ConfigBase):
@@ -132,11 +197,17 @@ class SchedulerConfig(_ConfigBase):
     steps_offset: int = 1
     timestep_spacing: str = "leading"
     set_alpha_to_one: bool = False
+    # UniPC specifics
+    solver_order: int = 2
+    lower_order_final: bool = True
+    solver_type: str = "bh2"
 
 
 @dataclasses.dataclass(frozen=True)
 class PowerPaintConfig(_ConfigBase):
-    """Top-level stack description (ppt-v1)."""
+    """Top-level stack description: ppt-v1, or ppt-v2 when ``brushnet`` is
+    set (then ``text_encoder`` describes the task-token tower of the BrushNet
+    branch; the base UNet's plain tower is the same with no task rows)."""
 
     version: str = "ppt-v1"
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
@@ -145,6 +216,7 @@ class PowerPaintConfig(_ConfigBase):
         default_factory=lambda: CLIPTextConfig(num_external_tokens=30)
     )
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
+    brushnet: Optional[BrushNetConfig] = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "PowerPaintConfig":
@@ -154,6 +226,7 @@ class PowerPaintConfig(_ConfigBase):
             ("vae", VAEConfig),
             ("text_encoder", CLIPTextConfig),
             ("scheduler", SchedulerConfig),
+            ("brushnet", BrushNetConfig),
         ):
             if isinstance(d.get(k), dict):
                 d[k] = sub.from_dict(d[k])
@@ -162,3 +235,10 @@ class PowerPaintConfig(_ConfigBase):
 
 def ppt_v1_config() -> PowerPaintConfig:
     return PowerPaintConfig(version="ppt-v1")
+
+
+def ppt_v2_config() -> PowerPaintConfig:
+    """SD1.5 base UNet with 4 input channels, a BrushNet branch of the same
+    widths, the SD1.5 VAE and two CLIP ViT-L/14 text towers."""
+    return PowerPaintConfig(version="ppt-v2", unet=UNetConfig(in_channels=4),
+                            brushnet=BrushNetConfig())

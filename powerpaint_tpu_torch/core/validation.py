@@ -1,5 +1,6 @@
 """Input validation, raised before any device work with actionable
-messages (the port's copy of the checks ``InpaintPipeline.__call__`` uses)."""
+messages (the port's copy of the checks ``InpaintPipeline.__call__`` and
+``BrushNetPipeline.__call__`` use)."""
 
 from __future__ import annotations
 
@@ -51,6 +52,8 @@ def check_call_args(
     guidance_scale: float,
     strength: float = 1.0,
     fitting_degree: float = 1.0,
+    control_guidance_start: float = 0.0,
+    control_guidance_end: float = 1.0,
 ) -> None:
     if task not in TASKS:
         raise InputValidationError(f"unknown task {task!r}; one of {TASKS}")
@@ -69,6 +72,28 @@ def check_call_args(
     if not 0 <= fitting_degree <= 1:
         raise InputValidationError(
             f"fitting_degree must be in [0, 1], got {fitting_degree}"
+        )
+    if not 0 <= control_guidance_start <= control_guidance_end <= 1:
+        raise InputValidationError(
+            "need 0 <= control_guidance_start <= control_guidance_end <= 1, "
+            f"got [{control_guidance_start}, {control_guidance_end}]"
+        )
+
+
+SCHEDULERS = ("unipc",)
+
+
+def check_scheduler(name: str, num_steps: int) -> None:
+    """The port's ppt-v2 pipeline samples with UniPC only; the JAX
+    package's other samplers are ROADMAP item A13."""
+    if not 1 <= int(num_steps) <= 1000:
+        raise InputValidationError(
+            f"num_inference_steps must be in [1, 1000], got {num_steps}"
+        )
+    if name.lower() not in SCHEDULERS:
+        raise InputValidationError(
+            f"scheduler {name!r} is not ported yet (ROADMAP A13); one of "
+            f"{SCHEDULERS}"
         )
 
 

@@ -1,7 +1,11 @@
 """Model construction, random weights and weight import.
 
-- ``build_models``: the ppt-v1 modules (unet, vae, text_encoder), built
-  without allocating (meta device) so weights can be assigned directly.
+- ``build_models``: the modules of a config, built without allocating
+  (meta device) so weights can be assigned directly: unet, vae and
+  text_encoder for ppt-v1; for ppt-v2 also brushnet and
+  text_encoder_brushnet (the task-token tower of the branch), with
+  text_encoder then the base UNet's plain tower (no task rows), the JAX
+  package's parameter families.
 - ``init_state``: random full-width weights made on a device from a
   generator (tests, the GPU smoke run; no checkpoint is needed).
 - ``params_from_jax``: a JAX-package parameter tree (nested dicts of numpy
@@ -11,7 +15,9 @@
   OIHW conv kernels, (in, out) -> (out, in) linear kernels, ``scale`` ->
   ``weight``, the VAE's ``quant_conv`` / ``post_quant_conv`` back at the top
   level, and the CLIP ``external_embedding`` rows split back into the task
-  tokens' ``trainable_embeddings``.
+  tokens' ``trainable_embeddings``; for the BrushNet branch, the zero-conv
+  lists ``brushnet_down_blocks_<i>`` / ``brushnet_up_blocks_<i>`` as
+  ``brushnet_down_blocks.<i>`` / ``brushnet_up_blocks.<i>``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from torch import nn
 
 from powerpaint_tpu_torch.core.config import PowerPaintConfig
+from powerpaint_tpu_torch.models.brushnet import BrushNetModel
 from powerpaint_tpu_torch.models.clip_text import (
     TASK_TOKEN_ORDER,
     CLIPTextModel,
@@ -32,17 +39,23 @@ from powerpaint_tpu_torch.models.layers import GroupNorm, LayerNorm, cast_comput
 from powerpaint_tpu_torch.models.unet import UNet2DConditionModel
 from powerpaint_tpu_torch.models.vae import AutoencoderKL
 
-FAMILIES = ("unet", "vae", "text_encoder")
+FAMILIES = ("unet", "vae", "text_encoder")  # ppt-v1
+V2_FAMILIES = FAMILIES + ("brushnet", "text_encoder_brushnet")
 
 
 def build_models(config: PowerPaintConfig,
                  device="meta") -> Dict[str, nn.Module]:
     with torch.device(device):
-        return {
-            "unet": UNet2DConditionModel(config.unet),
-            "vae": AutoencoderKL(config.vae),
-            "text_encoder": CLIPTextModel(config.text_encoder),
-        }
+        models = {"unet": UNet2DConditionModel(config.unet),
+                  "vae": AutoencoderKL(config.vae)}
+        if config.brushnet is None:
+            models["text_encoder"] = CLIPTextModel(config.text_encoder)
+            return models
+        models["text_encoder"] = CLIPTextModel(
+            config.text_encoder.replace(num_external_tokens=0))
+        models["brushnet"] = BrushNetModel(config.brushnet)
+        models["text_encoder_brushnet"] = CLIPTextModel(config.text_encoder)
+        return models
 
 
 def _init_param(module: nn.Module, name: str, shape, generator, device):
@@ -64,7 +77,10 @@ def init_state(config: PowerPaintConfig, generator: torch.Generator,
                dtype: torch.dtype = torch.float32) -> Dict[str, Dict[str, torch.Tensor]]:
     """Random weights for every family, made on ``device`` from
     ``generator`` (which must live on that device). Linear and conv weights
-    are returned in ``dtype``; norm parameters and embeddings in fp32."""
+    are returned in ``dtype``; norm parameters and embeddings in fp32.
+    Every conv gets random weights, the BrushNet zero convs too: with
+    zeros the branch would add nothing and a fault in it would pass every
+    check."""
     state = {}
     for family, model in build_models(config).items():
         sd = {}
@@ -87,7 +103,9 @@ def init_state(config: PowerPaintConfig, generator: torch.Generator,
 _LISTS = {"down_blocks": "down_blocks", "up_blocks": "up_blocks",
           "resnets": "resnets", "attentions": "attentions",
           "downsamplers": "downsamplers", "upsamplers": "upsamplers",
-          "blocks": "transformer_blocks", "layers": "layers"}
+          "blocks": "transformer_blocks", "layers": "layers",
+          "brushnet_down_blocks": "brushnet_down_blocks",
+          "brushnet_up_blocks": "brushnet_up_blocks"}
 _LIST_RE = re.compile(r"^([a-z_]+)_(\d+)$")
 
 
@@ -163,30 +181,29 @@ def _clip(tree: dict) -> Dict[str, np.ndarray]:
 
 
 def params_from_jax(tree: dict, family: str) -> Dict[str, np.ndarray]:
-    """JAX-package parameter tree of one family (``unet``, ``vae`` or
-    ``text_encoder``) -> state dict of numpy arrays with the port's (and
-    diffusers / transformers) names and layouts."""
-    if family == "unet":
+    """JAX-package parameter tree of one family (``unet``, ``vae``,
+    ``text_encoder``, ``brushnet`` or ``text_encoder_brushnet``) -> state
+    dict of numpy arrays with the port's (and diffusers / transformers)
+    names and layouts."""
+    if family in ("unet", "brushnet"):
         return _unet_or_vae(tree)
     if family == "vae":
         return _vae(tree)
-    if family == "text_encoder":
+    if family in ("text_encoder", "text_encoder_brushnet"):
         return _clip(tree)
-    raise ValueError(f"unknown family {family!r}; one of {FAMILIES}")
+    raise ValueError(f"unknown family {family!r}; one of {V2_FAMILIES}")
 
 
 def load_models(config: PowerPaintConfig, state: Dict[str, dict], *,
-                device, dtype: torch.dtype,
-                families=FAMILIES) -> Dict[str, nn.Module]:
-    """Build the named families and assign ``state`` (state dicts of
-    tensors or numpy arrays, strict names and shapes), on ``device``, with
-    linear and conv weights in ``dtype``. Conv weights are stored
+                device, dtype: torch.dtype) -> Dict[str, nn.Module]:
+    """Build every family of ``config`` and assign ``state`` (state dicts
+    of tensors or numpy arrays, strict names and shapes), on ``device``,
+    with linear and conv weights in ``dtype``. Conv weights are stored
     channels-last, the layout of the NHWC activations, so cuDNN does not
-    copy them into it on every call."""
-    models = build_models(config)
+    copy them into it on every call and the conv kernel of ``ops.conv``
+    reads them as they are."""
     out = {}
-    for family in families:
-        model = models[family]
+    for family, model in build_models(config).items():
         sd = {k: v if torch.is_tensor(v)
               else torch.from_numpy(np.ascontiguousarray(v))
               for k, v in state[family].items()}

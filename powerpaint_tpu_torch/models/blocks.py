@@ -2,7 +2,14 @@
 ``CrossAttnDownBlock2D`` / ``DownBlock2D`` / ``UNetMidBlock2DCrossAttn`` /
 ``CrossAttnUpBlock2D`` / ``UpBlock2D`` parameter names). One class per
 direction: a block with ``cross_attention`` has the ``attentions`` list,
-otherwise it is the plain resnet block."""
+otherwise it is the plain resnet block.
+
+BrushNet taps (ppt-v2) arrive as ``add_samples``, consumed in order, as in
+the JAX package: a down block adds one after each (resnet, attention) pair
+and one after the downsampler, each BEFORE the skip is recorded; an up
+block adds one after each pair and after the upsampler, and with ``emit``
+records each feature BEFORE its tap is added (the BrushNet branch's
+outputs)."""
 
 from __future__ import annotations
 
@@ -52,15 +59,22 @@ class DownBlock(nn.Module):
                              if add_downsample else None)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
-                context: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                context: torch.Tensor,
+                add_samples: Optional[Sequence[torch.Tensor]] = None,
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        taps = iter(add_samples) if add_samples is not None else None
         skips = []
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb)
             if self.attentions is not None:
                 x = self.attentions[i](x, context)
+            if taps is not None:
+                x = x + next(taps)
             skips.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
+            if taps is not None:
+                x = x + next(taps)
             skips.append(x)
         return x, skips
 
@@ -89,7 +103,7 @@ class MidBlock(nn.Module):
 
 class UpBlock(nn.Module):
     """Each resnet takes the concat of the running feature and one skip,
-    popped from the end of ``skips``."""
+    popped from the end of ``skips``. Returns (x, emitted features)."""
 
     def __init__(self, prev_channels: int, out_channels: int,
                  skip_in_channels: int, temb_channels: int, *, num_layers: int,
@@ -113,13 +127,26 @@ class UpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
                 skips: Sequence[torch.Tensor], context: torch.Tensor,
-                output_size: Optional[tuple] = None) -> torch.Tensor:
+                output_size: Optional[tuple] = None,
+                add_samples: Optional[Sequence[torch.Tensor]] = None,
+                emit: bool = False,
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        taps = iter(add_samples) if add_samples is not None else None
+        emitted = []
         skips = list(skips)
         for i, resnet in enumerate(self.resnets):
             x = torch.cat([x, skips.pop()], dim=-1)
             x = resnet(x, temb)
             if self.attentions is not None:
                 x = self.attentions[i](x, context)
+            if emit:
+                emitted.append(x)
+            if taps is not None:
+                x = x + next(taps)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x, output_size)
-        return x
+            if emit:
+                emitted.append(x)
+            if taps is not None:
+                x = x + next(taps)
+        return x, emitted

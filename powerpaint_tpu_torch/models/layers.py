@@ -2,7 +2,10 @@
 
 Activations are (B, H, W, C) tensors as in the JAX package. A convolution
 hands cuDNN the NCHW view of that memory, which is NCHW in channels_last
-format, so no copy is made on either side. Parameters use the diffusers
+format, so no copy is made on either side. A 3x3 convolution handed a
+GroupNorm (``Conv2D(x, gn=norm)``, the ResNet unit) runs instead as the
+hand-written implicit-GEMM kernel of ``ops.conv`` with GroupNorm + SiLU as
+its prologue. Parameters use the diffusers
 names and layouts (conv ``weight`` OIHW, linear ``weight`` (out, in), norm
 ``weight``/``bias``), so a diffusers state dict loads as it is.
 
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from powerpaint_tpu_torch.ops.conv import conv3x3_gn_silu
 from powerpaint_tpu_torch.ops.norms import group_norm, layer_norm
 
 
@@ -48,10 +52,36 @@ class LayerNorm(nn.Module):
 
 
 class Conv2D(nn.Conv2d):
-    """``nn.Conv2d`` applied to an NHWC tensor; returns NHWC."""
+    """``nn.Conv2d`` applied to an NHWC tensor; returns NHWC.
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    ``gn``, a ``GroupNorm``, prepends GroupNorm + SiLU to a 3x3 stride-1
+    SAME conv, and the pair runs as ``ops.conv.conv3x3_gn_silu``; the
+    parameters stay where they are, so state-dict keys do not change."""
+
+    def forward(self, x: torch.Tensor,
+                gn: Optional[GroupNorm] = None) -> torch.Tensor:
+        if gn is None:
+            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if self.kernel_size != (3, 3) or self.stride != (1, 1) or \
+                self.padding != (1, 1):
+            raise ValueError("a GroupNorm prologue needs a 3x3 stride-1 SAME conv")
+        return conv3x3_gn_silu(x.contiguous(), self.kernel_weight(), self.bias,
+                               gn.weight, gn.bias, num_groups=gn.num_groups,
+                               eps=gn.eps)
+
+    def kernel_weight(self) -> torch.Tensor:
+        """The weight in channels-last memory, (Cout, 3, 3, Cin) contiguous:
+        the layout ``ops.conv`` reads. ``io.weights.load_models`` stores it
+        so, and then this is the weight itself; otherwise a copy made once
+        and kept, outside the state dict, until the weight changes."""
+        w = self.weight
+        if w.is_contiguous(memory_format=torch.channels_last):
+            return w
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if getattr(self, "_packed_key", None) != key:
+            self._packed = w.detach().contiguous(memory_format=torch.channels_last)
+            self._packed_key = key
+        return self._packed
 
 
 def cast_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -1,5 +1,10 @@
 """ResNet block + spatial up/down sampling on NHWC activations (diffusers
-``ResnetBlock2D`` / ``Downsample2D`` / ``Upsample2D`` parameter names)."""
+``ResnetBlock2D`` / ``Downsample2D`` / ``Upsample2D`` parameter names).
+
+Each GroupNorm + SiLU -> conv3x3 pair of a ResNet unit runs as one fused
+implicit-GEMM kernel (``ops.conv.conv3x3_gn_silu``), and the upsampler's
+3x3 conv as the same kernel without the prologue (``ops.conv.conv3x3``);
+strided and 1x1 convs stay on cuDNN."""
 
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from powerpaint_tpu_torch.models.layers import (
     GroupNorm,
     upsample_nearest_2x,
 )
+from powerpaint_tpu_torch.ops.conv import conv3x3
 
 
 class ResnetBlock2D(nn.Module):
@@ -35,11 +41,11 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv1(x, gn=self.norm1)
         if self.time_emb_proj is not None and temb is not None:
             t = self.time_emb_proj(F.silu(temb))
             h = h + t[:, None, None, :].to(h.dtype)
-        h = self.conv2(self.norm2(h, silu=True))
+        h = self.conv2(h, gn=self.norm2)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -65,4 +71,5 @@ class Upsample2D(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 output_size: Optional[tuple] = None) -> torch.Tensor:
-        return self.conv(upsample_nearest_2x(x, output_size))
+        x = upsample_nearest_2x(x, output_size).contiguous()
+        return conv3x3(x, self.conv.kernel_weight(), self.conv.bias)

@@ -86,4 +86,4 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
-SOURCES = ("flash_attention",)
+SOURCES = ("flash_attention", "conv3x3")

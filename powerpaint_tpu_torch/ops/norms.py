@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import functools
 import types
+from typing import Tuple
 
 import torch
 
@@ -203,7 +204,8 @@ def _check(x, gamma, beta, name):
             raise ValueError(f"{name}: gamma/beta must be ({c},) on {x.device}")
 
 
-def _launch_group_norm(x, gamma, beta, num_groups, eps, silu):
+def _launch_stats(x, num_groups, eps):
+    """Launches (1) and (2): (2, B, G) fp32 mean and 1/std."""
     k = _kernels()
     b, c = x.shape[0], x.shape[-1]
     s = x.numel() // (b * c)
@@ -221,6 +223,15 @@ def _launch_group_norm(x, gamma, beta, num_groups, eps, silu):
     k.gn_finalize[(b * num_groups,)](
         part[0], part[1], stats[0], stats[1], s, gs, num_groups, n_chunks,
         float(eps), BLOCK_S=block_s, G=gp, BLOCK_N=1024, num_warps=4)
+    return stats
+
+
+def _launch_group_norm(x, gamma, beta, num_groups, eps, silu):
+    k = _kernels()
+    b, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (b * c)
+    gs = c // num_groups
+    stats = _launch_stats(x, num_groups, eps)
     out = torch.empty_like(x)
     cp = _pow2(c)
     block_r = max(1, _TILE // cp)
@@ -244,6 +255,27 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     out = _launch_group_norm(x, gamma, beta, num_groups, eps, silu)
     group_norm.launches += 1
     return out
+
+
+def group_norm_stats(x: torch.Tensor, num_groups: int,
+                     eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, group) fp32 mean and 1/sqrt(var + eps) of (B, ..., C),
+    each (B, G): the statistics pass of ``group_norm`` (launches (1) and
+    (2) on a CUDA tensor), for a consumer that applies the norm itself (the
+    GroupNorm+SiLU prologue of ``ops.conv.conv3x3_gn_silu``). Not counted
+    in ``group_norm.launches``."""
+    b, c = x.shape[0], x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    if not x.is_cuda:
+        xf = x.float().reshape(b, -1, num_groups, c // num_groups)
+        mean = xf.mean(dim=(1, 3))
+        var = (xf - mean[:, None, :, None]).square().mean(dim=(1, 3))
+        return mean, torch.rsqrt(var + eps)
+    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
+        raise ValueError("group_norm_stats takes a contiguous fp32 or bf16 tensor")
+    stats = _launch_stats(x, num_groups, eps)
+    return stats[0], stats[1]
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,

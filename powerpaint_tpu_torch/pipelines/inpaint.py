@@ -27,18 +27,20 @@ from powerpaint_tpu_torch.core.config import PowerPaintConfig
 from powerpaint_tpu_torch.core.validation import (
     check_call_args,
     check_clip_skip,
-    check_image_mask,
     check_output_type,
 )
 from powerpaint_tpu_torch.io.weights import load_models
+from powerpaint_tpu_torch.pipelines.common import (
+    as_list,
+    batch_inputs,
+    draw_noise,
+    resolve_seeds,
+    to_output,
+    vae_sample,
+)
 from powerpaint_tpu_torch.schedulers import ddim
 from powerpaint_tpu_torch.schedulers.common import make_schedule
-from powerpaint_tpu_torch.tasks.preprocess import to_numpy_image, to_numpy_mask
 from powerpaint_tpu_torch.text.prompts import TaskPrompts, add_task
-
-
-def _as_list(value, n: int) -> list:
-    return list(value) if isinstance(value, (list, tuple)) else [value] * n
 
 
 class InpaintPipeline:
@@ -86,10 +88,8 @@ class InpaintPipeline:
 
     def _vae_sample(self, images: torch.Tensor,
                     noise: torch.Tensor) -> torch.Tensor:
-        """Encode and draw one scaled latent sample per image."""
-        mean, logvar = self.vae.encode(images)
-        std = torch.exp(0.5 * logvar.float())
-        return (mean.float() + std * noise) * self.config.vae.scaling_factor
+        return vae_sample(self.vae, images, noise,
+                          self.config.vae.scaling_factor)
 
     def _denoise(self, sched, latents: torch.Tensor, mask_lat: torch.Tensor,
                  masked_lat: torch.Tensor, cond: torch.Tensor,
@@ -157,22 +157,13 @@ class InpaintPipeline:
                                 step_noise)
         if output_type == "latent":
             return latents
-        image = self._decode(latents)
-        if output_type == "uint8":
-            img01 = torch.clamp(image.float() / 2 + 0.5, 0.0, 1.0)
-            return torch.round(img01 * 255.0).to(torch.uint8)
-        return image.float()
+        return to_output(self._decode(latents), output_type)
 
     def _draw_noise(self, seeds: Sequence[int], shape, n_steps: int,
                     eta: float) -> List:
         """Per-image draws: [noise0, vae_noise, img_noise, step_noise]."""
-        per_image = []
-        for seed in seeds:
-            g = torch.Generator(device=self.device).manual_seed(int(seed))
-            draws = [torch.randn(shape, generator=g, device=self.device)
-                     for _ in range(3 + (n_steps if eta > 0.0 else 0))]
-            per_image.append(draws)
-        stacked = [torch.stack(d) for d in zip(*per_image)]
+        stacked = draw_noise(self.device, seeds, shape,
+                             3 + (n_steps if eta > 0.0 else 0))
         return stacked[:3] + [stacked[3:] if eta > 0.0 else None]
 
     def __call__(self, image, mask, prompt="", negative_prompt="",
@@ -192,25 +183,11 @@ class InpaintPipeline:
         as numpy."""
         multi = isinstance(prompt, (list, tuple))
         prompts = list(prompt) if multi else [prompt]
-        negatives = _as_list(negative_prompt, len(prompts))
-        fittings = _as_list(fitting_degree, len(prompts))
-        guidances = _as_list(guidance_scale, len(prompts))
-
-        if multi and np.asarray(image).ndim == 4:
-            img_b = np.stack([to_numpy_image(im) for im in image])
-            masks = [to_numpy_mask(m) for m in mask]
-            for im, m in zip(img_b, masks):
-                check_image_mask(im, m)
-            mask_b = np.stack([(m >= 0.5).astype(np.uint8)[..., None] * 255
-                               for m in masks])
-        else:
-            img = to_numpy_image(image)
-            msk = to_numpy_mask(mask)
-            check_image_mask(img, msk)
-            n = len(prompts) if multi else num_images_per_prompt
-            img_b = np.tile(img[None], (n, 1, 1, 1))
-            mask_b = np.tile((msk >= 0.5).astype(np.uint8)[None, ..., None] * 255,
-                             (n, 1, 1, 1))
+        negatives = as_list(negative_prompt, len(prompts))
+        fittings = as_list(fitting_degree, len(prompts))
+        guidances = as_list(guidance_scale, len(prompts))
+        img_b, mask_b = batch_inputs(
+            image, mask, multi, len(prompts) if multi else num_images_per_prompt)
         b, h, w, _ = img_b.shape
         for f, g in zip(fittings, guidances):
             check_call_args(task=task, num_inference_steps=num_inference_steps,
@@ -221,12 +198,7 @@ class InpaintPipeline:
         if len(guidances) != b:
             guidances = [guidances[0]] * b
 
-        if isinstance(seed, (list, tuple)):
-            seeds = [int(s) for s in seed]
-        else:  # one request, N images: seeds follow the base seed
-            seeds = [int(seed) + i for i in range(b)]
-        if len(seeds) != b:
-            raise ValueError(f"{len(seeds)} seeds for {b} images")
+        seeds = resolve_seeds(seed, b)
 
         ids = np.stack([self.encode_task(add_task(p, n, task, "ppt-v1"))
                         for p, n in zip(prompts, negatives)])

@@ -1,9 +1,10 @@
 """Tiny model configs for CPU-runnable tests (same widths as the JAX
-package's ``testing.tiny_v1_config``)."""
+package's ``testing.tiny_v1_config`` and ``testing.tiny_v2_config``)."""
 
 from __future__ import annotations
 
 from powerpaint_tpu_torch.core.config import (
+    BrushNetConfig,
     CLIPTextConfig,
     PowerPaintConfig,
     UNetConfig,
@@ -43,4 +44,14 @@ def tiny_v1_config() -> PowerPaintConfig:
         unet=tiny_unet(9),
         vae=tiny_vae(),
         text_encoder=tiny_text(30),
+    )
+
+
+def tiny_v2_config() -> PowerPaintConfig:
+    return PowerPaintConfig(
+        version="ppt-v2",
+        unet=tiny_unet(4),
+        vae=tiny_vae(),
+        text_encoder=tiny_text(30),
+        brushnet=BrushNetConfig(base=tiny_unet(4)),
     )

@@ -38,7 +38,9 @@ def _common_fields(ours: dict, theirs: dict) -> dict:
 @pytest.mark.parametrize("ours,theirs", [
     (config.ppt_v1_config, jax_config.ppt_v1_config),
     (testing.tiny_v1_config, jax_testing.tiny_v1_config),
-], ids=["ppt_v1", "tiny_v1"])
+    (config.ppt_v2_config, jax_config.ppt_v2_config),
+    (testing.tiny_v2_config, jax_testing.tiny_v2_config),
+], ids=["ppt_v1", "tiny_v1", "ppt_v2", "tiny_v2"])
 def test_config_copy_matches(ours, theirs):
     a = ours().to_dict()
     assert a == _common_fields(a, theirs().to_dict())
@@ -169,6 +171,14 @@ def test_postprocess_matches(name, args, monkeypatch):
                              guidance_scale=7.5, fitting_degree=-0.1)),
     ("check_call_args", dict(task="object-removal", num_inference_steps=45,
                              guidance_scale=0.0, strength=0.3)),
+    ("check_call_args", dict(task="text-guided", num_inference_steps=20,
+                             guidance_scale=7.5, control_guidance_start=0.6,
+                             control_guidance_end=0.4)),
+    ("check_call_args", dict(task="text-guided", num_inference_steps=20,
+                             guidance_scale=7.5, control_guidance_end=1.2)),
+    ("check_call_args", dict(task="shape-guided", num_inference_steps=20,
+                             guidance_scale=7.5, control_guidance_start=0.1,
+                             control_guidance_end=0.5)),
     ("check_clip_skip", dict(clip_skip=12, num_hidden_layers=12)),
     ("check_clip_skip", dict(clip_skip=11, num_hidden_layers=12)),
     ("check_image_mask", dict(image=np.zeros((64, 60, 3)), mask=np.zeros((64, 60)))),

@@ -10,6 +10,7 @@ conftest is left out):
 import pytest
 import torch
 
+from powerpaint_tpu_torch.ops import conv
 from powerpaint_tpu_torch.ops import flash_attention as fa
 from powerpaint_tpu_torch.ops import norms
 
@@ -111,3 +112,71 @@ def test_norms_reject_what_they_cannot_take(dev, bad):
         norms.layer_norm(x, w, b)
     with pytest.raises(ValueError):
         norms.group_norm(x, w, b, num_groups=32)
+
+
+# (B, H, W, Cin, Cout, groups): UNet levels, a wide up-block concat, the
+# ragged tiny widths (groups of 1-2 channels, Cin and Cout off the tiles),
+# one pixel, and more pixels than one tile row.
+CONV_SHAPES = [(2, 16, 16, 320, 320, 32), (2, 8, 8, 960, 640, 32),
+               (1, 8, 8, 48, 40, 24), (2, 8, 8, 32, 64, 32),
+               (1, 1, 1, 64, 64, 32), (1, 5, 7, 20, 12, 10),
+               (1, 40, 40, 128, 128, 32)]
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False], ids=["gn_silu", "plain"])
+def test_conv3x3_kernel(dev, shape, dtype, fused):
+    b, h, w, cin, cout, groups = shape
+    torch.backends.cudnn.allow_tf32 = False
+    x = (_randn(dev, b, h, w, cin, seed=10) * 2 - 0.3).to(dtype)
+    wt = (_randn(dev, cout, cin, 3, 3, seed=11) / (3 * cin ** 0.5)).to(dtype)
+    wt = wt.contiguous(memory_format=torch.channels_last)
+    bias = (0.1 * _randn(dev, cout, seed=12)).to(dtype)
+    gamma = 1 + 0.1 * _randn(dev, cin, seed=13)
+    beta = 0.5 + 0.1 * _randn(dev, cin, seed=14)  # large: catches nonzero padding
+    counter = conv.conv3x3_gn_silu if fused else conv.conv3x3
+    before = counter.launches
+    if fused:
+        kw = dict(num_groups=groups, eps=1e-5)
+        got = conv.conv3x3_gn_silu(x, wt, bias, gamma, beta, **kw)
+        want = conv.conv3x3_gn_silu_plain(x, wt, bias, gamma, beta, **kw)
+    else:
+        got = conv.conv3x3(x, wt, bias)
+        want = conv.conv3x3_plain(x, wt, bias)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, w, cout) and got.dtype == dtype
+    assert counter.launches == before + 1
+    again = (conv.conv3x3_gn_silu(x, wt, bias, gamma, beta, **kw) if fused
+             else conv.conv3x3(x, wt, bias))
+    assert torch.equal(again, got)  # deterministic, split K included
+    # fp32: one fp32 sum in another order; bf16: both round the fp32 sum
+    # once, one bf16 step (2^-7 of the largest output) where they straddle
+    atol = 1e-4 if dtype == torch.float32 else \
+        2.0 ** -7 * float(want.float().abs().max()) + 1e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 320), (1, 3, 5, 48), (3, 7, 1, 64)])
+def test_group_norm_stats_kernel(dev, shape):
+    x = _randn(dev, *shape, seed=15) * 2 - 0.3
+    groups = 32 if shape[-1] % 32 == 0 else 24
+    before = norms.group_norm.launches
+    mean, rstd = norms.group_norm_stats(x, groups, 1e-5)
+    want_mean, want_rstd = norms.group_norm_stats(x.cpu(), groups, 1e-5)
+    assert norms.group_norm.launches == before
+    torch.testing.assert_close(mean.cpu(), want_mean, atol=1e-5, rtol=0)
+    torch.testing.assert_close(rstd.cpu(), want_rstd, atol=0, rtol=1e-4)
+
+
+def test_conv3x3_rejects_what_it_cannot_take(dev):
+    x = _randn(dev, 1, 8, 8, 16)
+    wt = _randn(dev, 16, 16, 3, 3)  # OIHW, not channels-last
+    with pytest.raises(ValueError):
+        conv.conv3x3(x, wt)
+    wt = wt.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):
+        conv.conv3x3(x.half(), wt.half())
+    with pytest.raises(ValueError):
+        conv.conv3x3(x.permute(0, 2, 1, 3), wt)

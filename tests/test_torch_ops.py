@@ -22,6 +22,16 @@ from powerpaint_tpu_torch.ops import norms
 from powerpaint_tpu_torch.ops.attention import attention
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the ops here are tiny, and the suite's parallel
+    workers would otherwise oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x, dtype=torch.float32):
     return torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
 

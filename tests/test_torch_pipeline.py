@@ -28,6 +28,17 @@ from powerpaint_tpu_torch.text.tokenizer import (
     add_task_tokens,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the ops here are tiny, and the suite's parallel
+    workers would otherwise oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 HW, SEED, FIT, GUIDE = 64, 7, 0.6, 7.5
 MAX_UINT8_DIFF, MEAN_UINT8_DIFF = 3, 0.5
 

@@ -26,6 +26,17 @@ from powerpaint_tpu_torch.io.weights import (
 )
 from powerpaint_tpu_torch.testing import tiny_v1_config
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the ops here are tiny, and the suite's parallel
+    workers would otherwise oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CONVERT = {"unet": convert_unet, "vae": convert_vae,
            "text_encoder": convert_clip_text}
 
@@ -81,7 +92,7 @@ def test_converted_tree_has_the_jax_models_shapes(state_np, family):
 
 def test_params_from_jax_rejects_unknown_family():
     with pytest.raises(ValueError):
-        params_from_jax({}, "brushnet")
+        params_from_jax({}, "controlnet")
 
 
 def test_init_state_matches_the_modules(state_np):
