@@ -59,7 +59,9 @@
 //   1280), K is split over blocks: each writes its fp32 partial sums to its
 //   own slice of a workspace, and the last block of a tile to arrive (a
 //   counter per tile) adds the slices in split order, so the result is the
-//   same from run to run, adds the bias and writes the tile.
+//   same from run to run, adds the bias and writes the tile. The number of
+//   splits depends on the shape of one image, not on the batch, so the
+//   result is also the same whatever batch an image is in.
 // Where it stands (H100 SXM, 700 W): about 200 TFLOP/s without the prologue
 // and about 70 with it at the UNet's first level, 2-4x cuDNN's time; the
 // prologue costs as much as the products there. Later work: wgmma and TMA,
@@ -602,8 +604,14 @@ Shape plan(int B, int H, int W, int Cin, int Cout, bool is_bf16) {
   sh.col_tiles = (W + sh.TW - 1) / sh.TW;
   const long long tiles = (long long)((Cout + BN - 1) / BN) *
                           ((B * (long long)H + sh.TH - 1) / sh.TH) * sh.col_tiles;
+  // The K splits are sized for the tiles of a two-image batch (the UNet's
+  // CFG batch of one request), never for B: each output's fp32 sum then
+  // runs over the same chunks in the same order in any batch, so an image
+  // of a batched request gets the bits it gets alone.
+  const long long tiles2 = (long long)((Cout + BN - 1) / BN) *
+                           ((2LL * H + sh.TH - 1) / sh.TH) * sh.col_tiles;
   const int bk = is_bf16 ? Cfg<bf16>::BK : Cfg<float>::BK;
-  sh.splits = pick_splits(tiles, (Cin + bk - 1) / bk);
+  sh.splits = pick_splits(tiles2, (Cin + bk - 1) / bk);
   sh.ws_floats = sh.splits > 1 ? (long long)sh.splits * B * H * W * Cout : 0;
   sh.tiles = tiles;
   return sh;

@@ -23,7 +23,7 @@
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +36,10 @@ from powerpaint_tpu_torch.models.clip_text import (
     CLIPTextModel,
 )
 from powerpaint_tpu_torch.models.layers import GroupNorm, LayerNorm, cast_compute
+from powerpaint_tpu_torch.models.resnet import ResnetBlock2D
 from powerpaint_tpu_torch.models.unet import UNet2DConditionModel
 from powerpaint_tpu_torch.models.vae import AutoencoderKL
+from powerpaint_tpu_torch.ops.conv import quantize_weights_int8
 
 FAMILIES = ("unet", "vae", "text_encoder")  # ppt-v1
 V2_FAMILIES = FAMILIES + ("brushnet", "text_encoder_brushnet")
@@ -194,21 +196,45 @@ def params_from_jax(tree: dict, family: str) -> Dict[str, np.ndarray]:
     raise ValueError(f"unknown family {family!r}; one of {V2_FAMILIES}")
 
 
+def _quantize_resnets(model: nn.Module):
+    """(conv, w_q, w_scale, fp32 bias) for every conv fed by a GroupNorm
+    (``conv1`` / ``conv2`` of each ResNet unit), quantised from the weights
+    as loaded."""
+    out = []
+    for m in model.modules():
+        if isinstance(m, ResnetBlock2D):
+            for conv in (m.conv1, m.conv2):
+                w_q, w_scale = quantize_weights_int8(conv.weight.detach())
+                out.append((conv, w_q, w_scale, conv.bias.detach().float()))
+    return out
+
+
 def load_models(config: PowerPaintConfig, state: Dict[str, dict], *,
-                device, dtype: torch.dtype) -> Dict[str, nn.Module]:
+                device, dtype: torch.dtype,
+                int8_x_scale: Optional[float] = None) -> Dict[str, nn.Module]:
     """Build every family of ``config`` and assign ``state`` (state dicts
     of tensors or numpy arrays, strict names and shapes), on ``device``,
     with linear and conv weights in ``dtype``. Conv weights are stored
     channels-last, the layout of the NHWC activations, so cuDNN does not
     copy them into it on every call and the conv kernel of ``ops.conv``
-    reads them as they are."""
+    reads them as they are.
+
+    ``int8_x_scale`` (the int8 W8A8 path's static activation scale, or None
+    for off) quantises every ResNet unit's conv once, here: from the
+    state's values as given, before the cast to ``dtype`` (the values the
+    JAX package quantises), into non-persistent buffers (``Conv2D.set_int8``)."""
     out = {}
     for family, model in build_models(config).items():
         sd = {k: v if torch.is_tensor(v)
               else torch.from_numpy(np.ascontiguousarray(v))
               for k, v in state[family].items()}
         model.load_state_dict(sd, strict=True, assign=True)
+        quantized = _quantize_resnets(model) if int8_x_scale is not None else []
         cast_compute(model.to(device), dtype)
         model.to(memory_format=torch.channels_last)
+        # after the memory-format pass, which would restride the 4-D w_q
+        for conv, w_q, w_scale, bias in quantized:
+            conv.set_int8(w_q.to(device), w_scale.to(device), bias.to(device),
+                          int8_x_scale)
         out[family] = model.eval().requires_grad_(False)
     return out

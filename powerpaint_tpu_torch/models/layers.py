@@ -5,9 +5,11 @@ hands cuDNN the NCHW view of that memory, which is NCHW in channels_last
 format, so no copy is made on either side. A 3x3 convolution handed a
 GroupNorm (``Conv2D(x, gn=norm)``, the ResNet unit) runs instead as the
 hand-written implicit-GEMM kernel of ``ops.conv`` with GroupNorm + SiLU as
-its prologue. Parameters use the diffusers
-names and layouts (conv ``weight`` OIHW, linear ``weight`` (out, in), norm
-``weight``/``bias``), so a diffusers state dict loads as it is.
+its prologue (with int8 on, as the static-scale int8 kernel
+``ops.conv.conv3x3_gn_silu_int8`` where the JAX package quantises).
+Parameters use the diffusers names and layouts (conv ``weight`` OIHW,
+linear ``weight`` (out, in), norm ``weight``/``bias``), so a diffusers state
+dict loads as it is.
 
 Norm parameters stay fp32 while linear and conv weights take the compute
 dtype (``cast_compute``), the JAX package's bf16-compute / fp32-statistics
@@ -23,7 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from powerpaint_tpu_torch.ops.conv import conv3x3_gn_silu
+from powerpaint_tpu_torch.ops.conv import (
+    conv3x3_gn_silu,
+    conv3x3_gn_silu_int8,
+    int8_site,
+)
 from powerpaint_tpu_torch.ops.norms import group_norm, layer_norm
 
 
@@ -56,7 +62,11 @@ class Conv2D(nn.Conv2d):
 
     ``gn``, a ``GroupNorm``, prepends GroupNorm + SiLU to a 3x3 stride-1
     SAME conv, and the pair runs as ``ops.conv.conv3x3_gn_silu``; the
-    parameters stay where they are, so state-dict keys do not change."""
+    parameters stay where they are, so state-dict keys do not change.
+    After ``set_int8`` the pair runs as ``ops.conv.conv3x3_gn_silu_int8``
+    wherever ``ops.conv.int8_site`` admits the call's shape."""
+
+    int8_x_scale: Optional[float] = None
 
     def forward(self, x: torch.Tensor,
                 gn: Optional[GroupNorm] = None) -> torch.Tensor:
@@ -65,9 +75,27 @@ class Conv2D(nn.Conv2d):
         if self.kernel_size != (3, 3) or self.stride != (1, 1) or \
                 self.padding != (1, 1):
             raise ValueError("a GroupNorm prologue needs a 3x3 stride-1 SAME conv")
+        _, h, w, cin = x.shape
+        if self.int8_x_scale is not None and int8_site(h, w, cin,
+                                                       self.out_channels):
+            return conv3x3_gn_silu_int8(
+                x.contiguous(), self.w_q, self.w_scale, self.bias_fp32,
+                gn.weight, gn.bias, x_scale=self.int8_x_scale,
+                num_groups=gn.num_groups, eps=gn.eps)
         return conv3x3_gn_silu(x.contiguous(), self.kernel_weight(), self.bias,
                                gn.weight, gn.bias, num_groups=gn.num_groups,
                                eps=gn.eps)
+
+    def set_int8(self, w_q: torch.Tensor, w_scale: torch.Tensor,
+                 bias: Optional[torch.Tensor], x_scale: float) -> None:
+        """Turn on the int8 W8A8 form of the GroupNorm prologue: ``w_q`` /
+        ``w_scale`` from ``ops.conv.quantize_weights_int8``, the fp32 bias
+        and the static activation scale. They are non-persistent buffers:
+        the state dict keeps its keys."""
+        self.register_buffer("w_q", w_q, persistent=False)
+        self.register_buffer("w_scale", w_scale, persistent=False)
+        self.register_buffer("bias_fp32", bias, persistent=False)
+        self.int8_x_scale = float(x_scale)
 
     def kernel_weight(self) -> torch.Tensor:
         """The weight in channels-last memory, (Cout, 3, 3, Cin) contiguous:

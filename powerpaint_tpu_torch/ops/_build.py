@@ -86,4 +86,4 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
-SOURCES = ("flash_attention", "conv3x3")
+SOURCES = ("flash_attention", "conv3x3", "conv3x3_int8")

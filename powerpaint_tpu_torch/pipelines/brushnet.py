@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from powerpaint_tpu_torch.core.config import PowerPaintConfig
+from powerpaint_tpu_torch.core.metrics import GLOBAL as telemetry
 from powerpaint_tpu_torch.core.validation import (
     check_call_args,
     check_clip_skip,
@@ -44,6 +45,7 @@ from powerpaint_tpu_torch.pipelines.common import (
     as_list,
     batch_inputs,
     draw_noise,
+    int8_x_scale,
     resolve_seeds,
     to_output,
     vae_sample,
@@ -71,11 +73,14 @@ class BrushNetPipeline:
     Linear and conv weights run in ``dtype``; norm parameters stay fp32. The
     models live on ``device`` (the card unless the caller asks for
     ``"cpu"``).
+    ``int8=True`` runs the ResNet units the JAX package quantises as the
+    static-scale int8 W8A8 kernel (``pipelines.common.int8_x_scale``;
+    ``None`` reads ``POWERPAINT_INT8`` here, once).
     """
 
     def __init__(self, config: PowerPaintConfig, state: Dict[str, dict],
                  tokenizer, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", int8: Optional[bool] = None):
         if config.brushnet is None:
             raise ValueError("BrushNetPipeline needs a config with a brushnet "
                              "(ppt_v2_config)")
@@ -83,7 +88,9 @@ class BrushNetPipeline:
         self.tokenizer = tokenizer
         self.dtype = dtype
         self.device = torch.device(device)
-        models = load_models(config, state, device=self.device, dtype=dtype)
+        self.int8_x_scale = int8_x_scale(int8)
+        models = load_models(config, state, device=self.device, dtype=dtype,
+                             int8_x_scale=self.int8_x_scale)
         self.unet = models["unet"]
         self.vae = models["vae"]
         self.brushnet = models["brushnet"]
@@ -256,17 +263,21 @@ class BrushNetPipeline:
         noise0, vae_noise = draw_noise(self.device, seeds, (h // 8, w // 8, 4), 2)
 
         dev = self.device
-        out = self._generate(
-            torch.as_tensor(ids_task, dtype=torch.long, device=dev),
-            torch.as_tensor(ids_plain, dtype=torch.long, device=dev),
-            torch.as_tensor(np.asarray(fittings, np.float32), device=dev),
-            torch.as_tensor(img_b, device=dev),
-            torch.as_tensor(mask_b, device=dev),
-            torch.as_tensor(np.asarray(guidances, np.float32), device=dev),
-            scales, noise0, vae_noise,
-            num_steps=num_inference_steps, output_type=output_type,
-            guess_mode=bool(guess_mode),
-            latents_in=(None if latents is None
-                        else torch.as_tensor(latents, device=dev)),
-            clip_skip=int(clip_skip))
-        return out.cpu().numpy()
+        telemetry.reset_stages()
+        with telemetry.stage("generate"):
+            out = self._generate(
+                torch.as_tensor(ids_task, dtype=torch.long, device=dev),
+                torch.as_tensor(ids_plain, dtype=torch.long, device=dev),
+                torch.as_tensor(np.asarray(fittings, np.float32), device=dev),
+                torch.as_tensor(img_b, device=dev),
+                torch.as_tensor(mask_b, device=dev),
+                torch.as_tensor(np.asarray(guidances, np.float32), device=dev),
+                scales, noise0, vae_noise,
+                num_steps=num_inference_steps, output_type=output_type,
+                guess_mode=bool(guess_mode),
+                latents_in=(None if latents is None
+                            else torch.as_tensor(latents, device=dev)),
+                clip_skip=int(clip_skip)).cpu().numpy()
+        telemetry.count("images", out.shape[0])
+        telemetry.count("denoise_steps", num_inference_steps)
+        return out

@@ -1,15 +1,30 @@
-"""What the ppt-v1 and ppt-v2 pipelines share: request batching and seeds
-on the host, per-image noise, the VAE sample and the decode."""
+"""What the ppt-v1 and ppt-v2 pipelines share: the int8 option, request
+batching and seeds on the host, per-image noise, the VAE sample and the
+decode."""
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from powerpaint_tpu_torch.core.validation import check_image_mask
 from powerpaint_tpu_torch.tasks.preprocess import to_numpy_image, to_numpy_mask
+
+
+def int8_x_scale(int8: Optional[bool]) -> Optional[float]:
+    """The static activation scale of the int8 W8A8 path, or None when it
+    is off: the one place the port reads the option. ``int8=None`` reads the
+    JAX package's environment: ``POWERPAINT_INT8`` exactly "1" turns it on,
+    and the scale is ``POWERPAINT_INT8_XSCALE`` (default 8.0, the post-SiLU
+    range it calibrates) over 127."""
+    if int8 is None:
+        int8 = os.environ.get("POWERPAINT_INT8", "0") == "1"
+    if not int8:
+        return None
+    return float(os.environ.get("POWERPAINT_INT8_XSCALE", "8.0")) / 127.0
 
 
 def as_list(value, n: int) -> list:

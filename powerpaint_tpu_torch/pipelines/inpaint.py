@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from powerpaint_tpu_torch.core.config import PowerPaintConfig
+from powerpaint_tpu_torch.core.metrics import GLOBAL as telemetry
 from powerpaint_tpu_torch.core.validation import (
     check_call_args,
     check_clip_skip,
@@ -34,6 +35,7 @@ from powerpaint_tpu_torch.pipelines.common import (
     as_list,
     batch_inputs,
     draw_noise,
+    int8_x_scale,
     resolve_seeds,
     to_output,
     vae_sample,
@@ -50,16 +52,21 @@ class InpaintPipeline:
     (``unet``, ``vae``, ``text_encoder``), tensors or numpy arrays. Linear
     and conv weights run in ``dtype``; norm parameters stay fp32. The models
     live on ``device`` (the card unless the caller asks for ``"cpu"``).
+    ``int8=True`` runs the ResNet units the JAX package quantises as the
+    static-scale int8 W8A8 kernel (``pipelines.common.int8_x_scale``;
+    ``None`` reads ``POWERPAINT_INT8`` here, once).
     """
 
     def __init__(self, config: PowerPaintConfig, state: Dict[str, dict],
                  tokenizer, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", int8: Optional[bool] = None):
         self.config = config
         self.tokenizer = tokenizer
         self.dtype = dtype
         self.device = torch.device(device)
-        models = load_models(config, state, device=self.device, dtype=dtype)
+        self.int8_x_scale = int8_x_scale(int8)
+        models = load_models(config, state, device=self.device, dtype=dtype,
+                             int8_x_scale=self.int8_x_scale)
         self.unet = models["unet"]
         self.vae = models["vae"]
         self.text_encoder = models["text_encoder"]
@@ -208,16 +215,20 @@ class InpaintPipeline:
             seeds, (h // 8, w // 8, 4), strength_steps, float(eta))
 
         dev = self.device
-        out = self._generate(
-            torch.as_tensor(ids, dtype=torch.long, device=dev),
-            torch.as_tensor(np.asarray(fittings, np.float32), device=dev),
-            torch.as_tensor(img_b, device=dev),
-            torch.as_tensor(mask_b, device=dev),
-            torch.as_tensor(np.asarray(guidances, np.float32), device=dev),
-            noise0, vae_noise, img_noise, step_noise,
-            num_steps=num_inference_steps, strength_steps=strength_steps,
-            output_type=output_type, eta=float(eta),
-            latents_in=(None if latents is None
-                        else torch.as_tensor(latents, device=dev)),
-            clip_skip=int(clip_skip))
-        return out.cpu().numpy()
+        telemetry.reset_stages()
+        with telemetry.stage("generate"):
+            out = self._generate(
+                torch.as_tensor(ids, dtype=torch.long, device=dev),
+                torch.as_tensor(np.asarray(fittings, np.float32), device=dev),
+                torch.as_tensor(img_b, device=dev),
+                torch.as_tensor(mask_b, device=dev),
+                torch.as_tensor(np.asarray(guidances, np.float32), device=dev),
+                noise0, vae_noise, img_noise, step_noise,
+                num_steps=num_inference_steps, strength_steps=strength_steps,
+                output_type=output_type, eta=float(eta),
+                latents_in=(None if latents is None
+                            else torch.as_tensor(latents, device=dev)),
+                clip_skip=int(clip_skip)).cpu().numpy()
+        telemetry.count("images", out.shape[0])
+        telemetry.count("denoise_steps", strength_steps)
+        return out

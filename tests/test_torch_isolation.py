@@ -40,6 +40,12 @@ def test_no_jax_import_in_the_source(path):
     assert not hits, f"{path.relative_to(ROOT)}: {hits}"
 
 
+def test_the_entry_points_and_the_int8_path_are_covered():
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"controller.py", "serve/cli.py", "core/metrics.py",
+            "core/safety.py", "ops/conv.py", "pipelines/common.py"} <= names
+
+
 def test_the_pattern_catches_what_it_must():
     for line in ("import jax", "from jax import numpy", "import jax.numpy as jnp",
                  "from powerpaint_tpu.ops import attention",

@@ -2,7 +2,7 @@
 
 Marked ``cuda``: they need an NVIDIA GPU, ``nvcc`` and Triton, and skip
 without a card. On the GPU host (which has no JAX, so the suite's
-conftest is left out):
+conftest is left out), from the repository's root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -150,12 +150,67 @@ def test_conv3x3_kernel(dev, shape, dtype, fused):
     again = (conv.conv3x3_gn_silu(x, wt, bias, gamma, beta, **kw) if fused
              else conv.conv3x3(x, wt, bias))
     assert torch.equal(again, got)  # deterministic, split K included
+    # batch-invariant: the first image alone gets the same bits
+    first = x[:1].contiguous()
+    alone = (conv.conv3x3_gn_silu(first, wt, bias, gamma, beta, **kw) if fused
+             else conv.conv3x3(first, wt, bias))
+    assert torch.equal(alone, got[:1])
     # fp32: one fp32 sum in another order; bf16: both round the fp32 sum
     # once, one bf16 step (2^-7 of the largest output) where they straddle
     atol = 1e-4 if dtype == torch.float32 else \
         2.0 ** -7 * float(want.float().abs().max()) + 1e-2
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES + [(2, 16, 16, 2560, 1280, 32)],
+                         ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False], ids=["gn_silu", "plain"])
+def test_conv3x3_int8_kernel(dev, shape, dtype, fused):
+    """The static-scale int8 kernel against its plain version: within
+    chip_smoke.int8_check's flip bound (bitwise where no activation sits at
+    a rounding boundary), deterministic, batch-invariant."""
+    import chip_smoke
+
+    b, h, w, cin, cout, groups = shape
+    x = (_randn(dev, b, h, w, cin, seed=16) * 2 - 0.3).to(dtype)
+    w_q, w_s = conv.quantize_weights_int8(
+        _randn(dev, cout, cin, 3, 3, seed=17) / (3 * cin ** 0.5))
+    bias = 0.1 * _randn(dev, cout, seed=18)
+    gn = (1 + 0.1 * _randn(dev, cin, seed=19), 0.5 + 0.1 * _randn(dev, cin, seed=20))
+    kw = dict(x_scale=8.0 / 127.0)
+    if fused:
+        kw.update(num_groups=groups, eps=1e-5)
+        run = lambda x: conv.conv3x3_gn_silu_int8(x, w_q, w_s, bias, *gn, **kw)
+        want = conv.conv3x3_gn_silu_int8_plain(x, w_q, w_s, bias, *gn, **kw)
+    else:
+        run = lambda x: conv.conv3x3_int8(x, w_q, w_s, bias, **kw)
+        want = conv.conv3x3_int8_plain(x, w_q, w_s, bias, **kw)
+    counter = conv.conv3x3_gn_silu_int8 if fused else conv.conv3x3_int8
+    before = counter.launches
+    got = run(x)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.shape == (b, h, w, cout) and got.dtype == dtype
+    err, ok, _ = chip_smoke.int8_check(got, want, x, w_q, w_s, bias, fused, gn,
+                                       groups)
+    assert ok, f"max |err| {err} beyond the flip bound"
+    assert torch.equal(run(x), got)
+    assert torch.equal(run(x[:1].contiguous()), got[:1])
+
+
+def test_conv3x3_int8_rejects_what_it_cannot_take(dev):
+    x = _randn(dev, 1, 8, 8, 32)
+    w_q, w_s = conv.quantize_weights_int8(_randn(dev, 16, 32, 3, 3))
+    with pytest.raises(ValueError):  # OIHW, not (Cout, 3, 3, Cin)
+        conv.conv3x3_int8(x, w_q.permute(0, 3, 1, 2), w_s, x_scale=0.1)
+    with pytest.raises(ValueError):
+        conv.conv3x3_int8(x, w_q.float(), w_s, x_scale=0.1)
+    with pytest.raises(ValueError):
+        conv.conv3x3_int8(x.half(), w_q, w_s, x_scale=0.1)
+    with pytest.raises(ValueError):
+        conv.conv3x3_int8(x, w_q, w_s.double(), x_scale=0.1)
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 64, 320), (1, 3, 5, 48), (3, 7, 1, 64)])
