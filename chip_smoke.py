@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
 1. The card (``nvidia-smi`` name and power limit), the torch / CUDA / Triton
    versions, then the build of the CUDA sources in
    ``powerpaint_tpu_torch/csrc`` (one nvcc each, started together) with its
-   time.
+   time, each kernel's registers, spills and ptxas performance warnings,
+   and the count of HGMMA (wgmma) instructions in its SASS.
 2. Kernel checks: each kernel of the main paths (flash attention, the 3x3
    conv with and without its GroupNorm+SiLU prologue and its static-scale
    int8 form, all in CUDA; GroupNorm(+SiLU) and LayerNorm in Triton)
@@ -18,9 +19,12 @@ Phases, in order; any failure exits non-zero:
    data-sheet bound. A kernel's ``ms`` and the library call's are device
    time (a CUDA graph of 20 calls replayed), ``stream_ms`` the same calls
    enqueued one by one (the host's pace where it is the slower),
-   ``host_ms`` the host's enqueue alone. Then each kernel's batch
-   invariance: a CFG batch of two requests (4 images) against one request
-   (2 images), and the same for the cuBLAS and cuDNN calls the paths make.
+   ``host_ms`` the host's enqueue alone; attention adds the exp2 floor
+   (one MUFU.EX2 per score), the convs their Cout tile and K split. Then
+   each kernel's batch invariance: a CFG batch of two requests (4 images)
+   against one request (2 images), and the same for the cuBLAS and cuDNN
+   calls the paths make; the bf16 flash attention and conv kernels must be
+   bitwise invariant and deterministic.
 3. The ppt-v1 path: full width (860M-parameter 9-channel UNet, SD1.5 VAE,
    CLIP ViT-L/14 text with 30 task-token rows), random weights from a
    seed, bf16, a 512x512 image: the four tasks at 20 DDIM steps with
@@ -150,6 +154,19 @@ def host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t * 1e3 / iters
 
 
+# The card's SM count and its top SM clock in Hz (nvidia-smi), set in main().
+SM_COUNT = [132]
+SM_CLOCK_HZ = [1.98e9]
+
+
+def exp2_floor_ms(n_exp2: float) -> float:
+    """Least time for ``n_exp2`` MUFU.EX2 (one per attention score) at 16
+    per SM per clock, the card's SM count and top clock: a second bound of
+    attention beside the tensor-core one, which ``bound_ms`` does not
+    count."""
+    return n_exp2 / (16.0 * SM_COUNT[0] * SM_CLOCK_HZ[0]) * 1e3
+
+
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     """Least time on the card for the work: the larger of bytes over the
     memory rate and operations over the tensor-core rate of their type
@@ -273,6 +290,8 @@ def check_kernels(device) -> list:
             nbytes = 2.0 * (2 * b * sq * n * d + 2 * b * skv * n * d)
             timings.setdefault("flash_attention", []).append(dict(
                 shape=[b, sq, skv, n, d],
+                exp2_floor_ms=exp2_floor_ms(b * n * sq * skv),
+                smem_bytes=fa.bf16_config(d)["smem"],
                 ms=graph_ms(lambda: fa.flash_attention(q, k, v)),
                 stream_ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
                 host_ms=host_ms(lambda: fa.flash_attention(q, k, v)),
@@ -397,8 +416,10 @@ def check_kernels(device) -> list:
                 if fused:
                     nbytes += 8.0 * cin  # gamma, beta in fp32
                 iters = 5 if h * w >= 512 * 512 else 20
+                plan = conv.bf16_plan(b, h, w, cin, cout, sms=SM_COUNT[0])
                 timings.setdefault(name, []).append(dict(
                     shape=[b, h, w, cin, cout],
+                    bn=plan["bn"], splits=plan["splits"], smem_bytes=plan["smem"],
                     ms=graph_ms(fn, iters=iters),
                     stream_ms=cuda_ms(fn, iters=iters),
                     host_ms=host_ms(fn, iters=iters),
@@ -535,8 +556,10 @@ def batch_invariance(device) -> None:
     an image of a batch the same output as that image in a smaller batch:
     the UNet's CFG batch of a two-request call (4 images) against that of
     one request (the first 2), CLIP's 8 rows against 4, the VAE's 2 images
-    against 1, at fp32 (TF32 off) and bf16. Logged, not checked: a
-    batch-variant library call is not a fault of the port."""
+    against 1, at fp32 (TF32 off) and bf16. The library calls are logged,
+    not checked (a batch-variant library call is not a fault of the port);
+    the bf16 flash attention and conv kernels (the wgmma designs) must be
+    bitwise invariant and give the same bits on a second run."""
     from powerpaint_tpu_torch.ops import conv
     from powerpaint_tpu_torch.ops import flash_attention as fa
     from powerpaint_tpu_torch.ops import norms
@@ -610,11 +633,17 @@ def batch_invariance(device) -> None:
             x = randn(big, *shape).to(dtype)
             many, few = fn(x), fn(x[:small].contiguous())
             d = (many[:small].float() - few.float()).abs()
+            bitwise = bool(torch.equal(many[:small], few))
+            again = bool(torch.equal(fn(x), many))
             log(batch_invariance=name, shape=list(shape),
                 dtype=str(dtype).split(".")[-1], batch=[big, small],
-                bitwise=bool(torch.equal(many[:small], few)),
+                bitwise=bitwise, deterministic=again,
                 max_abs_diff=float(d.max()),
                 max_abs_out=float(few.float().abs().max()))
+            if dtype == torch.bfloat16 and name.split(",")[0] in (
+                    "flash_attention", "conv3x3_gn_silu", "conv3x3"):
+                check(bitwise and again, f"{name} bf16: batch-variant or "
+                      f"nondeterministic (bitwise {bitwise}, repeat {again})")
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -1158,6 +1187,56 @@ def run_cli(device) -> dict:
     return launches
 
 
+def kernel_resources(nvcc_logs: dict) -> None:
+    """Each compiled kernel's registers, static shared memory and spills
+    (``nvcc -Xptxas -v``) and ptxas's performance warnings, and, where
+    ``cuobjdump`` exists, the count of HGMMA (wgmma) instructions in its
+    SASS. The bf16 kernels' dynamic shared memory is in their kernel lines
+    (``smem_bytes``)."""
+    import re
+    import shutil
+
+    from powerpaint_tpu_torch.ops import _build
+
+    for name, text in nvcc_logs.items():
+        entry = None
+        for line in text.splitlines():
+            if "Potential Performance Loss" in line:  # e.g. wgmma serialised
+                log(nvcc=name, ptxas_warning=line.strip())
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+                props = {}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and entry:
+                props.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                smem = re.search(r"(\d+) bytes smem", line)
+                log(nvcc=name, kernel=entry, registers=int(m.group(1)),
+                    static_smem=int(smem.group(1)) if smem else 0, **props)
+                entry = None
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in _build.SOURCES:
+        try:
+            sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                                  capture_output=True, text=True, check=True).stdout
+        except (OSError, subprocess.CalledProcessError) as e:
+            log(cuobjdump=name, result=f"not measured: {e}")
+            continue
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                counts[fn] += 1
+        log(cuobjdump=name, hgmma_per_kernel=counts)
+
+
 def profile_call(label: str, run_call) -> None:
     """One 20-step call under ``torch.profiler``: device time by kernel
     family and the top kernels, and the device's busy share of the call's
@@ -1187,7 +1266,7 @@ def profile_call(label: str, run_call) -> None:
     # device time by family, from the kernel names (first match wins); the
     # GroupNorm family holds the statistics launches of the fused conv too
     families = (("flash_attention", ("flash_",)),
-                ("conv3x3 kernel", ("conv3x3_kernel",)),
+                ("conv3x3 kernel", ("conv3x3_kernel", "conv3x3_bf16_kernel")),
                 ("conv3x3 int8 kernel", ("conv3x3_int8_kernel",)),
                 ("group_norm", ("_gn_",)), ("layer_norm", ("_ln_kernel",)),
                 ("cudnn conv", ("fprop", "conv")),
@@ -1351,6 +1430,13 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    SM_COUNT[0] = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True).stdout.strip().splitlines()
+    if clock and clock[0].strip().isdigit():
+        SM_CLOCK_HZ[0] = float(clock[0]) * 1e6
+    log(sms=SM_COUNT[0], max_sm_clock_hz=SM_CLOCK_HZ[0])
     import triton
 
     log(torch=torch.__version__, cuda=torch.version.cuda,
@@ -1358,12 +1444,9 @@ def main() -> None:
         capability=list(torch.cuda.get_device_capability(0)))
     t0 = time.perf_counter()
     nvcc_logs = _build.build(_build.SOURCES)
-    for name, text in nvcc_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(nvcc=name, ptxas=line.strip())
     log(phase="build", sources=list(_build.SOURCES),
         seconds=time.perf_counter() - t0)
+    kernel_resources(nvcc_logs)
 
     # phase 2: kernels against their plain versions, and their times
     t0 = time.perf_counter()

@@ -3,54 +3,71 @@
 // Replaces the TPU kernel powerpaint_tpu/ops/flash_attention.py::_flash_kernel
 // (launched by _flash_bnsd's pl.pallas_call). Same function: online-softmax
 // attention with fp32 running max, denominator and accumulator, the softmax
-// scale times log2(e) folded into q and exp2 in place of exp, ragged q rows
-// and kv columns masked.
+// scale times log2(e) folded into q (rounded to the input type, as the TPU
+// kernel does) and exp2 in place of exp, ragged q rows and kv columns
+// masked. Every block owns its q rows and loops over all kv tiles in one
+// order, so a row's result does not depend on the batch or on the run.
+// (B, S, N, D) is read through its strides (D contiguous): no host copy.
 //
-// Common design (first versions: simple and right, not yet at the bound):
-// - One block of 128 threads per (batch*head, 64-row q tile, slice of
-//   head-dim output columns). The TPU's sequential kv grid axis is a loop
-//   over 64-row kv tiles inside the block; m, l and the output accumulator
-//   live in registers for the whole loop.
-// - (B, S, N, D) is read through its strides (D contiguous), so the host
-//   needs no transpose copy. q rows >= Sq and kv rows >= Skv are loaded as
-//   zeros; their scores are masked to -1e30 and their rows never stored.
-// - The TPU's ones-column on v is gone: each row keeps its own l.
-// - The output columns are split over gridDim.z in slices of 8*NC columns,
-//   NC chosen per D (40 -> one slice of 40, 80 -> 80, 160 -> two of 80,
-//   512 -> four of 128), so the accumulator stays at most 64 floats per
-//   thread. A slice recomputes the scores; at D = 512 (the VAE's one-head
-//   attention) that is the price of fitting in registers, where a 64x512
-//   fp32 accumulator would not.
-//
-// bf16 (the main path): flash_bf16_kernel runs both products on the tensor
-// cores with mma.sync m16n8k16 (bf16 operands, fp32 accumulation). Each of
-// the 4 warps owns 16 q rows. q (pre-scaled, rounded to bf16 as the TPU
-// kernel does) and k tiles sit row-major in shared memory with the head dim
-// zero-padded to a multiple of 16 (40 -> 48); v is stored transposed so
-// that each B fragment is one 32-bit shared load. The score fragments are
-// exponentiated in registers and reused as the A operand of P @ V (the
-// m16n8 accumulator layout of two adjacent score tiles is the m16k16
-// operand layout), so P never goes through shared memory. Global loads are
-// 16 bytes wide where D and the strides are multiples of 8. Bound on the
-// card: the tensor-core rate at SD head dims, but this version is held
-// back by what it does not overlap: tile loads are synchronous (no
-// cp.async / TMA pipeline) and mma.sync reaches only part of the wgmma
-// rate.
+// bf16 (the main path), flash_bf16_kernel. What bounds it on an H100: the
+// tensor-core rate (4 B S^2 N D operations at 989 TFLOP/s: 0.043 ms at the
+// UNet's (2, 4096, 4096, 8, 40)) and, at D = 40, the exp2 rate as well: one
+// MUFU.EX2 per score, 16 per SM per clock, 0.064 ms at that shape, above
+// the tensor-core bound. The design:
+// - One block per (64 * NWG q rows, batch * head, z slice of DO output
+//   columns): NWG consumer warpgroups of 64 q rows each and one producer
+//   warpgroup. D <= 256 is one slice; D = 512 (the VAE) two slices of 256.
+// - Products on wgmma. s = q k^T: m64nBKk16 with q and k from shared memory
+//   (K-major, 128-byte swizzle), KSTEPS k16 steps over the shape's largest
+//   D padded to 16 (40 -> 48; the pad zero-filled by the copies), unrolled.
+//   o += p v: m64nDOk16 with p from registers (the score accumulator of
+//   two neighbouring 8-column blocks is the k16 A fragment, so p never goes
+//   through shared memory) and v read MN-major from the same swizzled tile
+//   layout (wgmma transposes it; no transposed stores). PV at D = 40 runs
+//   n40 directly.
+// - Loads: the producer warpgroup fills a ring of STAGES k/v stages with
+//   16-byte cp.async copies (zero-filled past Skv and D); each thread's
+//   copies report to the stage's mbarrier when they land, so several stages
+//   are in flight while the consumers compute; consumers free a stage
+//   through a second mbarrier. q is loaded once by its consumers. D, a
+//   stride or a base off 16 bytes takes element loads instead.
+// - The exp2 work overlaps the products twice over: each warpgroup issues
+//   tile it's q k^T and tile it - 1's p v together and exponentiates tile
+//   it while p v runs (o is rescaled once it is done), and the two
+//   warpgroups issue independently, so one's softmax runs under the
+//   other's products.
+// - Registers: setmaxnreg moves them from the producer (40) to the
+//   consumers (232): DO / 2 accumulators, BK / 2 scores, two sets of p of
+//   BK / 4 each.
+// - Shared memory (bytes, 128-byte rows, QB = ceil(16 KSTEPS / 64)): q
+//   128 * 64 * QB per warpgroup, each stage BK * 128 * (QB + ceil(DO / 64)):
+//   113 KB at D = 40 (3 stages of 128 kv rows), 161 KB at D = 80, 145 KB at
+//   160, 161 KB at 512 (two stages of 32 rows).
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): 0.198 ms at
+// (2, 4096, 4096, 8, 40), 1.23x SDPA's 0.161 in the same run (the mma.sync
+// version took 0.494); 0.461 ms at the VAE's (1, 4096, 4096, 1, 512), 1.38x
+// SDPA. What holds it back: ptxas reports the wgmma of every bf16
+// instantiation serialised (its C7513 warning), which can keep the exp2
+// work from overlapping the products as designed, and each block re-reads
+// all of k and v from L2 for 128 q rows.
 //
 // fp32 (checks and the CPU-comparable reference): flash_f32_kernel does all
 // arithmetic as fp32 FMA on the CUDA cores (67 TFLOP/s on an H100 SXM), a
 // 4x8 register tile of scores per thread fed from shared memory in
-// head-dim chunks of 32, so any D works.
+// head-dim chunks of 32, so any D works; the output columns are split over
+// gridDim.z in slices of 8 * NC.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BQ = 64;        // q rows per block
-constexpr int BK = 64;        // kv rows per tile
-constexpr int THREADS = 128;  // 4 warps
+constexpr int BQ = 64;        // fp32: q rows per block
+constexpr int BK = 64;        // fp32: kv rows per tile
+constexpr int THREADS = 128;  // fp32: 4 warps
 constexpr float NEG_BIG = -1e30f;
 
 struct Strides {
@@ -212,190 +229,322 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16)
+// bf16: wgmma, a producer warpgroup and a ring of kv stages
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
-constexpr int LDV = BK + 8;  // row stride of the transposed v tile
+using namespace hopper;
 
 union Pack8 {  // eight bf16 (as raw 16-bit words) in one 16-byte word
   uint4 u;
   unsigned short h[8];
 };
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a @ b: a 16x16 (row), b 16x8 (col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Eight consecutive head-dim values of one row, zero past the row count or
-// past D; 16-byte loads when `vec` (D and the strides multiples of 8, the
-// base 16-byte aligned), else element by element.
-__device__ __forceinline__ Pack8 load8(const bf16* base, long long stride,
-                                       int row, int rows, int col, int D,
-                                       bool vec) {
+// past D, element by element (the path for D or strides that are not a
+// multiple of 8 elements, or bases not 16-byte aligned).
+__device__ __forceinline__ Pack8 load8_scalar(const bf16* base, long long stride, int row,
+                                              int rows, int col, int D) {
   Pack8 p;
   p.u = make_uint4(0u, 0u, 0u, 0u);
-  if (row >= rows || col >= D) return p;
+  if (row >= rows) return p;
   const bf16* src = base + row * stride + col;
-  if (vec) {
-    p.u = *reinterpret_cast<const uint4*>(src);
-  } else {
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (col + e < D) p.h[e] = __bfloat16_as_ushort(src[e]);
-  }
+  for (int e = 0; e < 8; ++e)
+    if (col + e < D) p.h[e] = __bfloat16_as_ushort(src[e]);
   return p;
 }
 
-template <int NT>
-__global__ void __launch_bounds__(THREADS)
-flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int N,
-                  int Sq, int Skv, int D, int DP, Strides qs, Strides ks,
-                  Strides vs, Strides os, float scale_log2, bool vec) {
-  constexpr int DO = 8 * NT;  // output columns of this block
-  const int ld = DP + 8;      // row stride of the q and k tiles
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_bf16);  // [BQ][ld]
-  bf16* Ks = Qs + BQ * ld;                        // [BK][ld]
-  bf16* Vt = Ks + BK * ld;                        // [DO][LDV], v transposed
+struct BfParams {
+  const bf16 *q, *k, *v;
+  bf16* o;
+  int N, Sq, Skv, D;
+  Strides qs, ks, vs, os;
+  float scale_log2;
+  bool vec;  // 16-byte copies: D and the strides multiples of 8, bases aligned
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int g = (tid & 31) >> 2;  // fragment row group
-  const int t4 = tid & 3;         // thread in group
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / N;
-  const int h = blockIdx.y % N;
-  const int d0 = blockIdx.z * DO;
-  const bf16* qb = q + b * qs.b + h * qs.n;
-  const bf16* kb = k + b * ks.b + h * ks.n;
-  const bf16* vb = v + b * vs.b + h * vs.n;
-  bf16* ob = o + b * os.b + h * os.n;
-  const int chunks = DP / 8;
-
-  // q tile, times scale * log2 e, rounded to bf16
-  for (int idx = tid; idx < BQ * chunks; idx += THREADS) {
-    const int r = idx / chunks, c = (idx % chunks) * 8;
-    Pack8 p = load8(qb, qs.s, q0 + r, Sq, c, D, vec);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      p.h[e] = __bfloat16_as_ushort(__float2bfloat16(
-          __bfloat162float(__ushort_as_bfloat16(p.h[e])) * scale_log2));
-    *reinterpret_cast<uint4*>(Qs + r * ld + c) = p.u;
+// The two products of a consumer warpgroup by shape: scores 64 x BK (A = q,
+// B = k, both from shared memory), output 64 x DO (A = p from registers,
+// B = v).
+template <int BK>
+struct ScoreMma;
+template <>
+struct ScoreMma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int s) {
+    wgmma_ss_n128(d, a, b, s);
   }
+};
+template <>
+struct ScoreMma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int s) {
+    wgmma_ss_n64(d, a, b, s);
+  }
+};
+template <>
+struct ScoreMma<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b, int s) {
+    wgmma_ss_n32(d, a, b, s);
+  }
+};
+template <int DO>
+struct ValueMma;
+#define PPT_VALUE_MMA(N)                                                              \
+  template <>                                                                         \
+  struct ValueMma<N> {                                                                \
+    static __device__ __forceinline__ void run(float (&d)[N / 2], const uint32_t (&a)[4], \
+                                               uint64_t b) {                         \
+      wgmma_rs_n##N(d, a, b, 1);                                                      \
+    }                                                                                 \
+  };
+PPT_VALUE_MMA(40)
+PPT_VALUE_MMA(64)
+PPT_VALUE_MMA(80)
+PPT_VALUE_MMA(160)
+PPT_VALUE_MMA(256)
+#undef PPT_VALUE_MMA
 
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m0 = NEG_BIG, m1 = NEG_BIG;  // rows g and g + 8 of this warp
-  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
-  const bf16* qr0 = Qs + (warp * 16 + g) * ld;
-  const bf16* qr1 = qr0 + 8 * ld;
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += BK) {
-    __syncthreads();  // earlier readers of Ks / Vt are done
-    for (int idx = tid; idx < BK * chunks; idx += THREADS) {
-      const int r = idx / chunks, c = (idx % chunks) * 8;
-      *reinterpret_cast<uint4*>(Ks + r * ld + c) =
-          load8(kb, ks.s, kv0 + r, Skv, c, D, vec).u;
+// DO output columns per block (one z slice), BK kv rows per stage, NWG
+// consumer warpgroups of 64 q rows each, STAGES kv stages in the ring,
+// KSTEPS k16 steps of q k^T (the head dims the shape takes, zero-padded).
+template <int DO, int BK, int NWG, int STAGES, int KSTEPS>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+    flash_bf16_kernel(const BfParams p) {
+  constexpr int VB = (DO + 63) / 64;          // 64-column blocks of a v tile
+  constexpr int VC = DO / 8;                  // 16-byte chunks of a v row
+  constexpr int QB = (KSTEPS * 16 + 63) / 64;  // 64-column blocks of a q or k tile
+  constexpr int KC = KSTEPS * 2;              // 16-byte chunks of a q or k row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [NWG][QB][64][128 B]
+  const uint32_t k_s = q_s + NWG * QB * 64 * 128;               // [STAGES][QB][BK][128 B]
+  const uint32_t v_s = k_s + STAGES * QB * BK * 128;            // [STAGES][VB][BK][128 B]
+  const uint32_t full = v_s + STAGES * VB * BK * 128;           // [STAGES] mbarriers
+  const uint32_t empty = full + STAGES * 8;                     // [STAGES]
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;  // warpgroups 0 .. NWG - 1 compute, NWG loads
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 128);      // every producer thread's copies
+      mbar_init(empty + 8 * s, NWG * 4); // every consumer warp done reading
     }
-    // neighbouring threads take neighbouring kv rows, so the transposed
-    // 16-bit stores of a warp fall in distinct banks
-    for (int idx = tid; idx < BK * NT; idx += THREADS) {
-      const int r = idx % BK, c = (idx / BK) * 8;
-      const Pack8 p = load8(vb, vs.s, kv0 + r, Skv, d0 + c, D, vec);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(c + e) * LDV + r] = __ushort_as_bfloat16(p.h[e]);
-    }
-    __syncthreads();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // ---- scores: 16 rows x 64 kv columns per warp, 8 tiles of 16x8 ----
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    for (int kc = 0; kc < DP; kc += 16) {
-      const uint32_t a[4] = {lds32(qr0 + kc + 2 * t4), lds32(qr1 + kc + 2 * t4),
-                             lds32(qr0 + kc + 8 + 2 * t4),
-                             lds32(qr1 + kc + 8 + 2 * t4)};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* kr = Ks + (j * 8 + g) * ld + kc + 2 * t4;
-        mma_16816(s[j], a, lds32(kr), lds32(kr + 8));
+  const int b = blockIdx.y / p.N;
+  const int h = blockIdx.y % p.N;
+  const int d0 = blockIdx.z * DO;
+  const int n_tiles = (p.Skv + BK - 1) / BK;
+
+  if (wg == NWG) {
+    // ---- producer: k and v tiles into the ring, as 16-byte cp.async
+    // copies (zero-filled past Skv and past D) whose completion each thread
+    // reports to the stage's barrier, so several stages are in flight.
+    if constexpr (NWG == 2) setmaxnreg_dec<40>();
+    const int t = tid - NWG * 128;
+    const bf16* kb = p.k + b * p.ks.b + h * p.ks.n;
+    const bf16* vb = p.v + b * p.vs.b + h * p.vs.n;
+    const int kr0 = t / KC, kc0 = t - kr0 * KC, kdr = 128 / KC, kdc = 128 - kdr * KC;
+    const int vr0 = t / VC, vc0 = t - vr0 * VC, vdr = 128 / VC, vdc = 128 - vdr * VC;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+      const int kv0 = it * BK;
+      const uint32_t kt = k_s + s * QB * BK * 128, vt = v_s + s * VB * BK * 128;
+      if (p.vec) {
+        // thread t takes (row, chunk) pairs t, t + 128, ... of each tile,
+        // walked without a division per copy
+        for (int r = kr0, c = kc0; r < BK; r += kdr, c += kdc) {
+          if (c >= KC) c -= KC, ++r;
+          if (r >= BK) break;
+          const bool ok = kv0 + r < p.Skv && c * 8 < p.D;
+          cp_async16(kt + swz(r, c, BK), ok ? kb + (kv0 + r) * p.ks.s + c * 8 : kb, ok);
+        }
+        for (int r = vr0, c = vc0; r < BK; r += vdr, c += vdc) {
+          if (c >= VC) c -= VC, ++r;
+          if (r >= BK) break;
+          const bool ok = kv0 + r < p.Skv && d0 + c * 8 < p.D;
+          cp_async16(vt + swz(r, c, BK), ok ? vb + (kv0 + r) * p.vs.s + d0 + c * 8 : vb, ok);
+        }
+        mbar_arrive_cp_async(full + 8 * s);
+      } else {
+        for (int i = t; i < BK * KC; i += 128) {
+          const int r = i / KC, c = i - r * KC;
+          st_shared16(kt + swz(r, c, BK), load8_scalar(kb, p.ks.s, kv0 + r, p.Skv, c * 8, p.D).u);
+        }
+        for (int i = t; i < BK * VC; i += 128) {
+          const int r = i / VC, c = i - r * VC;
+          st_shared16(vt + swz(r, c, BK),
+                      load8_scalar(vb, p.vs.s, kv0 + r, p.Skv, d0 + c * 8, p.D).u);
+        }
+        fence_proxy_async();
+        mbar_arrive(full + 8 * s);
       }
     }
+    cp_async_wait_all();  // no copy outlives the block
+    return;
+  }
 
-    // ---- online softmax in log2 units; rows g (e = 0, 1), g + 8 (2, 3) ----
+  // ---- consumers: warpgroup wg owns q rows q0 .. q0 + 63
+  if constexpr (NWG == 2) setmaxnreg_inc<232>();
+  const int wt = tid & 127;
+  const int wq = wt >> 5;            // warp in the warpgroup: rows 16 wq ..
+  const int g = (wt & 31) >> 2;      // fragment row group
+  const int t4 = wt & 3;             // thread in group
+  const int q0 = blockIdx.x * (64 * NWG) + wg * 64;
+  const uint32_t qt = q_s + wg * QB * 64 * 128;
+
+  // q tile, times scale * log2 e, rounded to bf16, once
+  {
+    const bf16* qb = p.q + b * p.qs.b + h * p.qs.n;
+    for (int i = wt; i < 64 * KC; i += 128) {
+      const int r = i / KC, c = i - r * KC;
+      Pack8 v;
+      if (p.vec) {
+        v.u = make_uint4(0u, 0u, 0u, 0u);
+        if (q0 + r < p.Sq && c * 8 < p.D)
+          v.u = *reinterpret_cast<const uint4*>(qb + (q0 + r) * p.qs.s + c * 8);
+      } else {
+        v = load8_scalar(qb, p.qs.s, q0 + r, p.Sq, c * 8, p.D);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v.h[e] = __bfloat16_as_ushort(__float2bfloat16(
+            __bfloat162float(__ushort_as_bfloat16(v.h[e])) * p.scale_log2));
+      st_shared16(qt + swz(r, c, 64), v.u);
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+  }
+
+  float o[DO / 2];
+#pragma unroll
+  for (int i = 0; i < DO / 2; ++i) o[i] = 0.f;
+  float m0 = NEG_BIG, m1 = NEG_BIG;  // rows g and g + 8 of this warp's 16
+  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+  float alpha0, alpha1;              // the last tile's rescale of o
+  float sc[BK / 2];         // scores of the tile in flight
+  uint32_t pa[BK / 16][4];  // p of the tile whose p v is next, bf16 A fragments
+  uint32_t pn[BK / 16][4];  // p of the tile just exponentiated
+
+  // s = q k^T of stage s: 64 x BK, k16 steps over the padded head dim
+  auto scores = [&](int s) {
+    const uint32_t kt = k_s + s * QB * BK * 128;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const uint32_t off = (ks & 3) * 32;  // k16 step inside a 128-byte row
+      ScoreMma<BK>::run(sc, desc_sw128(qt + (ks >> 2) * 64 * 128 + off, 16, 1024),
+                        desc_sw128(kt + (ks >> 2) * BK * 128 + off, 16, 1024), ks > 0);
+    }
+  };
+  // o += p v of stage s: p from registers (the score accumulator of two
+  // neighbouring 8-column blocks is the k16 A fragment), v MN-major
+  auto values = [&](int s) {
+    const uint32_t vt = v_s + s * VB * BK * 128;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      ValueMma<DO>::run(o, pa[kk], desc_sw128(vt + kk * 16 * 128, BK * 128, 1024));
+  };
+  // online softmax of tile it in log2 units, rows g (e = 0, 1) and g + 8
+  // (2, 3): m, l and alpha updated, p into pn; columns past Skv (the last
+  // tile only) masked first
+  auto softmax = [&](int it) {
+    const int kv0 = it * BK;
+    if (kv0 + BK > p.Skv) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const int col = kv0 + j * 8 + 2 * t4;
+        if (col >= p.Skv) sc[4 * j] = sc[4 * j + 2] = NEG_BIG;
+        if (col + 1 >= p.Skv) sc[4 * j + 1] = sc[4 * j + 3] = NEG_BIG;
+      }
+    }
     float mx0 = NEG_BIG, mx1 = NEG_BIG;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = kv0 + j * 8 + 2 * t4;
-      if (col >= Skv) s[j][0] = s[j][2] = NEG_BIG;
-      if (col + 1 >= Skv) s[j][1] = s[j][3] = NEG_BIG;
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+    alpha0 = ex2(m0 - mn0);
+    alpha1 = ex2(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn0);
-      s[j][1] = exp2f(s[j][1] - mn0);
-      s[j][2] = exp2f(s[j][2] - mn1);
-      s[j][3] = exp2f(s[j][3] - mn1);
-      rs0 += s[j][0] + s[j][1];
-      rs1 += s[j][2] + s[j][3];
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p0 = ex2(sc[4 * j] - mn0), p1 = ex2(sc[4 * j + 1] - mn0);
+      const float p2 = ex2(sc[4 * j + 2] - mn1), p3 = ex2(sc[4 * j + 3] - mn1);
+      rs0 += p0 + p1;
+      rs1 += p2 + p3;
+      pn[j >> 1][2 * (j & 1)] = pack_bf16(p0, p1);
+      pn[j >> 1][2 * (j & 1) + 1] = pack_bf16(p2, p3);
     }
     l0 = l0 * alpha0 + rs0;
     l1 = l1 * alpha1 + rs1;
+  };
+  auto rescale = [&]() {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= alpha0;
-      acc[n][1] *= alpha0;
-      acc[n][2] *= alpha1;
-      acc[n][3] *= alpha1;
+    for (int i = 0; i < DO / 8; ++i) {
+      o[4 * i] *= alpha0;
+      o[4 * i + 1] *= alpha0;
+      o[4 * i + 2] *= alpha1;
+      o[4 * i + 3] *= alpha1;
     }
+  };
+  auto release = [&](int s) {
+    __syncwarp();
+    if ((wt & 31) == 0) mbar_arrive(empty + 8 * s);
+  };
+  auto take_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[kk][e] = pn[kk][e];
+  };
 
-    // ---- acc += p @ v[:, d0:d0+DO], p straight from the score tiles ----
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const bf16* vr = Vt + (n * 8 + g) * LDV + kk * 16 + 2 * t4;
-        mma_16816(acc[n], a, lds32(vr), lds32(vr + 8));
-      }
-    }
+  // Tile it's scores are issued before tile it - 1's p v, so the exp2 work
+  // of tile it overlaps that product on the tensor cores; o is rescaled
+  // once the product is done.
+  mbar_wait(full, 0);
+  fence_proxy_async();
+  wgmma_fence();
+  scores(0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(0);
+  take_p();
+  for (int it = 1; it < n_tiles; ++it) {
+    const int s = it % STAGES, prev = (it - 1) % STAGES;
+    mbar_wait(full + 8 * s, (it / STAGES) & 1);
+    fence_proxy_async();
+    fence_regs(pa);
+    fence_regs(o);
+    wgmma_fence();
+    scores(s);
+    wgmma_commit();
+    values(prev);
+    wgmma_commit();
+    wgmma_wait<1>();  // the scores are in
+    fence_regs(sc);
+    softmax(it);
+    wgmma_wait<0>();  // p v of tile it - 1 is done
+    fence_regs(pa);   // p stays live (and unwritten) while the product reads it
+    fence_regs(o);
+    release(prev);
+    rescale();
+    take_p();
   }
+  wgmma_fence();
+  values((n_tiles - 1) % STAGES);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  release((n_tiles - 1) % STAGES);
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -403,20 +552,29 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 1.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
-  const int row0 = q0 + warp * 16 + g;
+  const int row0 = q0 + wq * 16 + g;
   const int row1 = row0 + 8;
+  bf16* ob = p.o + b * p.os.b + h * p.os.n;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = d0 + n * 8 + 2 * t4;
+  for (int i = 0; i < DO / 8; ++i) {
+    const int col = d0 + i * 8 + 2 * t4;
+    if (p.vec && col + 1 < p.D) {  // even strides and D: 4-byte pairs
+      if (row0 < p.Sq)
+        *reinterpret_cast<uint32_t*>(ob + row0 * p.os.s + col) =
+            pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+      if (row1 < p.Sq)
+        *reinterpret_cast<uint32_t*>(ob + row1 * p.os.s + col) =
+            pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+      continue;
+    }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      if (col + e >= D) continue;
-      if (row0 < Sq) ob[row0 * os.s + col + e] = __float2bfloat16(acc[n][e] * inv0);
-      if (row1 < Sq) ob[row1 * os.s + col + e] = __float2bfloat16(acc[n][2 + e] * inv1);
+      if (col + e >= p.D) continue;
+      if (row0 < p.Sq) ob[row0 * p.os.s + col + e] = __float2bfloat16(o[4 * i + e] * inv0);
+      if (row1 < p.Sq) ob[row1 * p.os.s + col + e] = __float2bfloat16(o[4 * i + 2 + e] * inv1);
     }
   }
 }
-
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
@@ -449,31 +607,65 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <int NT>
+// The bf16 kernel's shape for head dim D (mirrored by
+// ops/flash_attention.py::bf16_config): output columns per z slice, kv rows
+// per stage, consumer warpgroups, stages. Every D up to 256 is one slice;
+// D up to 512 is two slices of 256 with one consumer warpgroup (the q tile
+// of 64 x 512 and two stages of k and v fill the shared memory).
+struct BfConfig {
+  int DO, BK, NWG, STAGES, KSTEPS;
+};
+
+BfConfig bf16_config(int D) {
+  if (D <= 40) return {40, 128, 2, 3, 3};
+  if (D <= 64) return {64, 128, 2, 3, 4};
+  if (D <= 80) return {80, 128, 2, 2, 5};
+  if (D <= 160) return {160, 64, 2, 2, 10};
+  if (D <= 256) return {256, 64, 2, 2, 16};
+  return {256, 32, 1, 2, 32};
+}
+
+size_t bf16_smem_bytes(const BfConfig& c) {
+  const int qb = (c.KSTEPS * 16 + 63) / 64, vb = (c.DO + 63) / 64;
+  return 1024 + (size_t)128 * (c.NWG * qb * 64 + c.STAGES * (qb + vb) * c.BK) +
+         16 * c.STAGES;
+}
+
+template <int DO, int BK, int NWG, int STAGES, int KSTEPS>
 cudaError_t launch_bf16(const Args& a) {
-  const int dp = (a.D + 15) / 16 * 16;  // head dim padded for k16 steps
-  const size_t smem =
-      sizeof(bf16) * ((size_t)(BQ + BK) * (dp + 8) + (size_t)8 * NT * LDV);
-  const Strides* in[3] = {&a.qs, &a.ks, &a.vs};
-  bool vec = a.D % 8 == 0 && aligned16(a.q) && aligned16(a.k) &&
-             aligned16(a.v);
-  for (const Strides* s : in)
-    vec = vec && s->b % 8 == 0 && s->s % 8 == 0 && s->n % 8 == 0;
-  auto kernel = flash_bf16_kernel<NT>;
+  const size_t smem = bf16_smem_bytes(BfConfig{DO, BK, NWG, STAGES, KSTEPS});
+  const Strides* st[4] = {&a.qs, &a.ks, &a.vs, &a.os};
+  bool vec = a.D % 8 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+             aligned16(a.o);
+  for (const Strides* s : st) vec = vec && s->b % 8 == 0 && s->s % 8 == 0 && s->n % 8 == 0;
+  auto kernel = flash_bf16_kernel<DO, BK, NWG, STAGES, KSTEPS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.N, (a.D + 8 * NT - 1) / (8 * NT));
-  kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.N, a.Sq,
-      a.Skv, a.D, dp, a.qs, a.ks, a.vs, a.os, a.scale_log2, vec);
+  const BfParams p{static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                   static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
+                   a.N, a.Sq, a.Skv, a.D, a.qs, a.ks, a.vs, a.os, a.scale_log2, vec};
+  const dim3 grid((a.Sq + 64 * NWG - 1) / (64 * NWG), a.B * a.N, (a.D + DO - 1) / DO);
+  kernel<<<grid, 128 * (NWG + 1), smem, a.stream>>>(p);
   return cudaGetLastError();
 }
 
-// Output columns per block are 8*NC for NC in {5, 8, 10, 16}: the choice
-// with the fewest column slices (each recomputes the scores), then the
-// least padding.
+cudaError_t dispatch_bf16(const Args& a) {
+  if (a.D > 512) return cudaErrorInvalidValue;
+  const BfConfig c = bf16_config(a.D);
+  switch (c.DO) {
+    case 40: return launch_bf16<40, 128, 2, 3, 3>(a);
+    case 64: return launch_bf16<64, 128, 2, 3, 4>(a);
+    case 80: return launch_bf16<80, 128, 2, 2, 5>(a);
+    case 160: return launch_bf16<160, 64, 2, 2, 10>(a);
+    default:
+      return c.NWG == 2 ? launch_bf16<256, 64, 2, 2, 16>(a) : launch_bf16<256, 32, 1, 2, 32>(a);
+  }
+}
+
+// Output columns per block of the fp32 kernel are 8*NC for NC in {5, 8,
+// 10, 16}: the choice with the fewest column slices (each recomputes the
+// scores), then the least padding.
 int pick_nc(int D) {
   const int options[4] = {5, 8, 10, 16};
   int best = 16, best_slices = 1 << 30, best_cols = 1 << 30;
@@ -489,20 +681,33 @@ int pick_nc(int D) {
   return best;
 }
 
-cudaError_t dispatch(const Args& a, bool is_bf16) {
+cudaError_t dispatch_f32(const Args& a) {
   switch (pick_nc(a.D)) {
-    case 5: return is_bf16 ? launch_bf16<5>(a) : launch_f32<5>(a);
-    case 8: return is_bf16 ? launch_bf16<8>(a) : launch_f32<8>(a);
-    case 10: return is_bf16 ? launch_bf16<10>(a) : launch_f32<10>(a);
-    default: return is_bf16 ? launch_bf16<16>(a) : launch_f32<16>(a);
+    case 5: return launch_f32<5>(a);
+    case 8: return launch_f32<8>(a);
+    case 10: return launch_f32<10>(a);
+    default: return launch_f32<16>(a);
   }
 }
 
 }  // namespace
 
+// The bf16 kernel's shape for head dim D: out[0..5] = output columns per
+// slice, kv rows per stage, consumer warpgroups, stages, slices, shared
+// memory bytes. Returns 0, or cudaErrorInvalidValue past D = 512.
+extern "C" int ppt_flash_attention_bf16_config(int D, long long* out) {
+  if (D <= 0 || D > 512) return (int)cudaErrorInvalidValue;
+  const BfConfig c = bf16_config(D);
+  const long long v[6] = {c.DO, c.BK, c.NWG, c.STAGES, (D + c.DO - 1) / c.DO,
+                          (long long)bf16_smem_bytes(c)};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
 // q, k, v: (B, Sq|Skv, N, D) and o: (B, Sq, N, D), all of one dtype (fp32
-// or bf16), D contiguous. strides: 12 element strides, (batch, seq, head)
-// for q, k, v, o in that order. Returns the CUDA error code of the launch.
+// or bf16), D contiguous (bf16: D at most 512). strides: 12 element
+// strides, (batch, seq, head) for q, k, v, o in that order. Returns the CUDA
+// error code of the launch.
 extern "C" int ppt_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, int is_bf16, int B, int N, int Sq,
                                    int Skv, int D, const long long* strides,
@@ -515,5 +720,5 @@ extern "C" int ppt_flash_attention(const void* q, const void* k, const void* v,
                Strides{strides[6], strides[7], strides[8]},
                Strides{strides[9], strides[10], strides[11]},
                scale_log2, static_cast<cudaStream_t>(stream)};
-  return (int)dispatch(a, is_bf16 != 0);
+  return (int)(is_bf16 != 0 ? dispatch_bf16(a) : dispatch_f32(a));
 }

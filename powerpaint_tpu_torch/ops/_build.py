@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use into a shared library with
 a plain C interface, ``_build/lib<name>-<hash>.so`` inside the package
-(``_build/`` is git-ignored), named by a hash of the source and the flags so
-an edited source is rebuilt. Nothing is built when a module is imported:
-nvcc and the card exist only on the GPU host.
+(``_build/`` is git-ignored), named by a hash of the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source is rebuilt.
+Nothing is built when a module is imported: nvcc and the card exist only
+on the GPU host.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

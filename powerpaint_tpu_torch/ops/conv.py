@@ -54,6 +54,43 @@ def conv3x3_gn_silu_plain(x: torch.Tensor, weight: torch.Tensor,
     return conv3x3_plain(h, weight, bias)
 
 
+def bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
+              sms: int = 132) -> dict:
+    """How the bf16 kernel cuts a shape, as ``plan_bf16`` in
+    ``csrc/conv3x3.cu`` does it (a card test holds the two together): 8 x 8
+    pixel tiles of one image, two a block; the Cout tile ``bn`` of (256,
+    160, 128, 64) and the K split into ``splits`` runs of ``per``
+    64-channel chunks that an estimate of the clocks of a two-image batch
+    finds fastest, among the tiles that pad Cout least (never from ``b``,
+    so an image's sums run in the same order in any batch; ties keep the
+    wider tile and fewer splits); shared memory in bytes."""
+    tiles_img = -(-h // 8) * -(-w // 8)
+    n_chunks = -(-cin // 64)
+    options = (256, 160, 128, 64)
+    least = min(-(-cout // n) * n for n in options)
+    best = None
+    for bn in options:
+        n_tiles = -(-cout // bn)
+        if n_tiles * bn > least:
+            continue
+        t_mma = max(bn / 2.0, 16.0 + bn / 4.0)
+        for want in range(1, n_chunks + 1):
+            per = -(-n_chunks // want)
+            splits = -(-n_chunks // per)
+            if splits != want:
+                continue
+            waves = float(-(-(tiles_img * n_tiles * splits) // sms))
+            cost = waves * (per * 72.0 * t_mma + 6000.0 +
+                            (12.0 * splits * bn if splits > 1 else 0.0))
+            if best is None or cost < best[0]:
+                best = (cost, bn, n_tiles, per, splits)
+    _, bn, n_tiles, per, splits = best
+    stages = min(8, 160 * 1024 // (bn * 128))
+    smem = 1024 + 2 * 2 * 13 * 1024 + stages * bn * 128 + 8 * (6 + 2 * stages)
+    return dict(bn=bn, tiles=b * tiles_img, blocks=-(-(b * tiles_img) // 2),
+                n_tiles=n_tiles, splits=splits, per=per, smem=smem)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = _build.load("conv3x3")

@@ -36,6 +36,28 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def bf16_config(d: int) -> dict:
+    """The bf16 kernel's shape for head dim ``d``, as ``bf16_config`` in
+    ``csrc/flash_attention.cu`` chooses it (a card test holds the two
+    together): output columns per z slice (``do``), kv rows per stage
+    (``bk``), consumer warpgroups of 64 q rows (``nwg``), ring stages,
+    slices, and the dynamic shared memory in bytes."""
+    if not 0 < d <= 512:
+        raise ValueError(f"the bf16 kernel takes head dims 1..512, got {d}")
+    for top, cfg in ((40, (40, 128, 2, 3)), (64, (64, 128, 2, 3)),
+                     (80, (80, 128, 2, 2)), (160, (160, 64, 2, 2)),
+                     (256, (256, 64, 2, 2)), (512, (256, 32, 1, 2))):
+        if d <= top:
+            break
+    do, bk, nwg, stages = cfg
+    # q k^T runs over the shape's largest head dim padded to 16 (zeros past d)
+    qb = -(-(-(-top // 16) * 16) // 64)  # 64-column blocks of q and k
+    vb = -(-do // 64)
+    smem = 1024 + 128 * (nwg * qb * 64 + stages * (qb + vb) * bk) + 16 * stages
+    return dict(do=do, bk=bk, nwg=nwg, stages=stages, slices=-(-d // do),
+                smem=smem)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("flash_attention").ppt_flash_attention
@@ -83,6 +105,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k and v must lie on one CUDA device")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention needs the head dim contiguous")
+    if q.dtype == torch.bfloat16 and q.shape[-1] > 512:
+        raise ValueError(f"the bf16 kernel takes head dims up to 512, got "
+                         f"{q.shape[-1]}")
     d = q.shape[-1]
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
     out = _launch(q, k, v, scale)

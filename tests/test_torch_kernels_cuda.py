@@ -235,3 +235,109 @@ def test_conv3x3_rejects_what_it_cannot_take(dev):
         conv.conv3x3(x.half(), wt.half())
     with pytest.raises(ValueError):
         conv.conv3x3(x.permute(0, 2, 1, 3), wt)
+
+
+# ---------------------------------------------------------------------------
+# the wgmma designs of the bf16 flash attention and conv kernels
+# ---------------------------------------------------------------------------
+
+
+def test_flash_attention_config_matches_its_source(dev):
+    import ctypes
+
+    from powerpaint_tpu_torch.ops import _build
+
+    fn = _build.load("flash_attention").ppt_flash_attention_bf16_config
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 6)()
+    for d in range(1, 513):
+        assert fn(d, out) == 0
+        c = fa.bf16_config(d)
+        assert list(out) == [c[k] for k in ("do", "bk", "nwg", "stages", "slices",
+                                            "smem")], d
+    assert fn(513, out) != 0
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
+@pytest.mark.parametrize("sq,skv", [(300, 77), (77, 300), (129, 129)])
+@pytest.mark.parametrize("layout", ["contiguous", "strided heads"])
+def test_flash_attention_bf16_head_dims(dev, d, sq, skv, layout):
+    """Every head dim the main paths launch (and 64), ragged Sq and Skv off
+    every tile, heads read through their strides; a two-image batch is
+    bitwise each image alone, and two runs are bitwise equal."""
+    n = 1 if d == 512 else 3
+
+    def make(s, seed):
+        if layout == "contiguous":
+            return _randn(dev, 2, s, n, d, dtype=torch.bfloat16, seed=seed)
+        packed = _randn(dev, 2, s, n, 2, d, dtype=torch.bfloat16, seed=seed)
+        return packed[:, :, :, 1]  # head stride 2 d, row stride 2 n d
+
+    q, k, v = make(sq, 21), make(skv, 22), make(skv, 23)
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    atol = 2.0 ** -7 * float(want.float().abs().max()) + 1e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert torch.equal(fa.flash_attention(q, k, v), got)
+    for i in range(2):
+        alone = fa.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+        assert torch.equal(alone, got[i:i + 1])
+
+
+def test_conv3x3_plan_matches_its_source(dev):
+    import ctypes
+
+    from powerpaint_tpu_torch.ops import _build
+
+    fn = _build.load("conv3x3").ppt_conv3x3_bf16_plan
+    fn.restype = None
+    out = (ctypes.c_longlong * 7)()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape in [(2, 64, 64, 320, 320), (2, 16, 16, 2560, 1280), (2, 8, 8, 1280, 1280),
+                  (1, 512, 512, 128, 128), (3, 9, 13, 64, 200), (1, 1, 1, 64, 64),
+                  (2, 32, 32, 640, 640), (1, 5, 7, 20, 12)]:
+        fn(*shape, sms, out)
+        p = conv.bf16_plan(*shape, sms=sms)
+        assert list(out) == [p[k] for k in ("bn", "tiles", "blocks", "n_tiles", "splits",
+                                            "per", "smem")], shape
+
+
+# (B, H, W, Cin, Cout, groups): Cout off every N tile (200 on a 256 tile, 40
+# on 64), W below 8 and off the 8-pixel tile, H = 1, a block whose two
+# tiles are two images (8 x 8 x batch 2), split K (deep levels), the VAE's
+# wide maps cut small.
+WGMMA_CONV_SHAPES = [(2, 9, 13, 64, 200, 32), (2, 8, 5, 96, 40, 32),
+                     (2, 1, 19, 128, 64, 32), (2, 8, 8, 320, 320, 32),
+                     (2, 8, 8, 1280, 1280, 32), (2, 16, 16, 640, 640, 32),
+                     (1, 24, 40, 128, 256, 32), (3, 6, 6, 64, 160, 16)]
+
+
+@pytest.mark.parametrize("shape", WGMMA_CONV_SHAPES, ids=str)
+@pytest.mark.parametrize("fused", [True, False], ids=["gn_silu", "plain"])
+def test_conv3x3_bf16_tiles(dev, shape, fused):
+    """The bf16 kernel against its plain version where its tiles are
+    ragged; beta = 0.5 makes a nonzero SAME pad show; every image of the
+    batch alone gets the same bits, and two runs are bitwise equal."""
+    b, h, w, cin, cout, groups = shape
+    x = (_randn(dev, b, h, w, cin, seed=30) * 2 - 0.3).bfloat16()
+    wt = (_randn(dev, cout, cin, 3, 3, seed=31) / (3 * cin ** 0.5)).bfloat16()
+    wt = wt.contiguous(memory_format=torch.channels_last)
+    bias = (0.1 * _randn(dev, cout, seed=32)).bfloat16()
+    gamma = 1 + 0.1 * _randn(dev, cin, seed=33)
+    beta = 0.5 + 0.1 * _randn(dev, cin, seed=34)
+    kw = dict(num_groups=groups, eps=1e-5)
+    if fused:
+        run = lambda x: conv.conv3x3_gn_silu(x, wt, bias, gamma, beta, **kw)
+        want = conv.conv3x3_gn_silu_plain(x, wt, bias, gamma, beta, **kw)
+    else:
+        run = lambda x: conv.conv3x3(x, wt, bias)
+        want = conv.conv3x3_plain(x, wt, bias)
+    torch.backends.cudnn.allow_tf32 = False
+    got = run(x)
+    torch.cuda.synchronize()
+    atol = 2.0 ** -7 * float(want.float().abs().max()) + 1e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    torch.backends.cudnn.allow_tf32 = True
+    assert torch.equal(run(x), got)
+    for i in range(b):
+        assert torch.equal(run(x[i:i + 1].contiguous()), got[i:i + 1])
