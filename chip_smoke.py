@@ -9,22 +9,30 @@ Phases, in order; any failure exits non-zero:
    versions, then the build of the CUDA sources in
    ``powerpaint_tpu_torch/csrc`` (one nvcc each, started together) with its
    time, each kernel's registers, spills and ptxas performance warnings,
-   and the count of HGMMA (wgmma) instructions in its SASS.
+   and the count of wgmma instructions (HGMMA, IGMMA) in its SASS.
 2. Kernel checks: each kernel of the main paths (flash attention, the 3x3
-   conv with and without its GroupNorm+SiLU prologue and its static-scale
-   int8 form, all in CUDA; GroupNorm(+SiLU) and LayerNorm in Triton)
-   against its plain PyTorch version at the main paths' shapes, in fp32
-   (TF32 off for matmuls and convs) and in bf16, and timed beside the plain
-   version, one PyTorch library call of the same function, and the
-   data-sheet bound. A kernel's ``ms`` and the library call's are device
+   conv with and without its GroupNorm+SiLU prologue, the static-scale
+   int8 conv, and GroupNorm in its four modes (statistics, apply, the
+   int8 units' GroupNorm+SiLU+quantise, and the quantiser of x alone), all
+   in CUDA; LayerNorm in Triton) against its plain PyTorch version at the
+   main paths' shapes, in fp32 (TF32 off for matmuls and convs) and in
+   bf16, and timed beside the plain version, one PyTorch library call of
+   the same function (or the chain of calls named), and the data-sheet
+   bound. The int8 units and the quantising modes must be bitwise equal to
+   their plain versions, and the statistics bitwise equal across the
+   modes. A kernel's ``ms`` and the library call's are device
    time (a CUDA graph of 20 calls replayed), ``stream_ms`` the same calls
    enqueued one by one (the host's pace where it is the slower),
    ``host_ms`` the host's enqueue alone; attention adds the exp2 floor
-   (one MUFU.EX2 per score), the convs their Cout tile and K split. Then
+   (one MUFU.EX2 per score), the convs their Cout tile and K split,
+   GroupNorm its form and cluster, the fused convs ``unfused_ms`` (the
+   GroupNorm kernel's apply mode, then the plain bf16 conv), the int8
+   units the time of their two launches apart. Then
    each kernel's batch invariance: a CFG batch of two requests (4 images)
    against one request (2 images), and the same for the cuBLAS and cuDNN
    calls the paths make; the bf16 flash attention and conv kernels must be
-   bitwise invariant and deterministic.
+   bitwise invariant and deterministic, and so must GroupNorm and the int8
+   unit.
 3. The ppt-v1 path: full width (860M-parameter 9-channel UNet, SD1.5 VAE,
    CLIP ViT-L/14 text with 30 task-token rows), random weights from a
    seed, bf16, a 512x512 image: the four tasks at 20 DDIM steps with
@@ -47,7 +55,8 @@ Phases, in order; any failure exits non-zero:
    at the rest; the script prints seconds per image, the PSNR of each int8
    image against the bf16 image of the same seed, and the share of
    post-SiLU activations the static scale saturates in one call's first
-   step.
+   step. Each ResNet unit's launches are counted by its quantiser or its
+   statistics launch too, exactly.
 6. The command line, ``serve.cli.main`` in this process: ppt-v1 with int8
    on, a 512x512 PNG and mask written by the script, 20 steps, its launch
    counts, the PNG it writes and its output line.
@@ -304,39 +313,95 @@ def check_kernels(device) -> list:
     log(phase="kernel checks", kernel="flash_attention",
         seconds=time.perf_counter() - t0)
 
-    # ---- kernel 2: GroupNorm (+ SiLU)
+    # ---- kernel 2: GroupNorm in its four modes (csrc/group_norm.cu)
     t0 = time.perf_counter()
+    sms = SM_COUNT[0]
     for shape, eps, silu in GN_SHAPES:
-        c = shape[-1]
+        b, sz, c = shape
         for dtype in (torch.float32, torch.bfloat16):
             x = (randn(*shape) * 2 - 0.3).to(dtype)
             w = 1 + 0.1 * randn(c)
             bb = 0.1 * randn(c)
             kw = dict(num_groups=32, eps=eps, silu=silu)
+            qkw = dict(num_groups=32, eps=eps, x_scale=X_SCALE)
+            plan = norms.gn_plan(sz, c, 32, x.element_size(), sms=sms)
+            form = dict(form="resident" if plan["resident"] else "streamed",
+                        cluster=plan["cluster"], span=plan["span"],
+                        blocks=b * (plan["spans"] * plan["cluster"] if plan["resident"]
+                                    else plan["chunks"]))
             got = norms.group_norm(x, w, bb, **kw)
             torch.cuda.synchronize()
             want = norms.group_norm_plain(x, w, bb, **kw)
             err = float((got.float() - want.float()).abs().max())
-            record("group_norm", shape, dtype, err, tolerance(dtype, want))
+            record("group_norm", shape, dtype, err, tolerance(dtype, want), **form)
+            # the statistics: every mode's bits equal, close to the plain ones
+            stats = [norms._launch_gn(x, None, None, 32, eps, 0)[1],
+                     norms._launch_gn(x, w, bb, 32, eps, 1, silu=silu)[1],
+                     norms._launch_gn(x, w, bb, 32, eps, 2, x_scale=X_SCALE)[1]]
+            mean, rstd = norms.group_norm_stats(x, 32, eps)
+            same = all(torch.equal(st, stats[0]) for st in stats) and \
+                torch.equal(mean, stats[0][0]) and torch.equal(rstd, stats[0][1])
+            p_mean, p_rstd = norms.group_norm_stats_plain(x, 32, eps)
+            err = max(float((mean - p_mean).abs().max()),
+                      float(((rstd - p_rstd) / p_rstd).abs().max()))
+            record("group_norm_stats", shape, dtype, err, 1e-4,
+                   ok=err <= 1e-4 and same, modes_bitwise_equal=same, **form)
+            # the quantisers: bitwise their plain versions
+            q = norms.gn_silu_quantize_int8(x, w, bb, **qkw)
+            want_q = norms.gn_silu_quantize_int8_plain(x, w, bb, **qkw)
+            err = float((q.float() - want_q.float()).abs().max())
+            record("gn_silu_quantize_int8", shape, dtype, err, 0.0,
+                   ok=torch.equal(q, want_q),
+                   levels_differing=int((q != want_q).sum()), **form)
+            q = norms.quantize_int8(x, x_scale=X_SCALE)
+            want_q = norms.quantize_int8_plain(x, x_scale=X_SCALE)
+            err = float((q.float() - want_q.float()).abs().max())
+            record("quantize_int8", shape, dtype, err, 0.0, ok=torch.equal(q, want_q),
+                   levels_differing=int((q != want_q).sum()))
             if dtype != torch.bfloat16:
                 continue
-            # cuDNN's / ATen's NCHW group norm on the channels-last view
-            x_nchw = x.reshape(shape[0], -1, 1, c).permute(0, 3, 1, 2)
+            # ATen's NCHW group norm on the channels-last view
+            x_nchw = x.reshape(b, -1, 1, c).permute(0, 3, 1, 2)
             wl, bl = w.to(dtype), bb.to(dtype)
+            inv = norms.inv_scale(X_SCALE)
+            F = torch.nn.functional
 
             def library(x_nchw=x_nchw, wl=wl, bl=bl, eps=eps, silu=silu):
-                y = torch.nn.functional.group_norm(x_nchw, 32, wl, bl, eps)
-                return torch.nn.functional.silu(y) if silu else y
+                y = F.group_norm(x_nchw, 32, wl, bl, eps)
+                return F.silu(y) if silu else y
 
-            nbytes = 2.0 * 2 * x.numel()
-            timings.setdefault("group_norm", []).append(dict(
-                shape=list(shape), silu=silu,
-                ms=graph_ms(lambda: norms.group_norm(x, w, bb, **kw)),
-                stream_ms=cuda_ms(lambda: norms.group_norm(x, w, bb, **kw)),
-                host_ms=host_ms(lambda: norms.group_norm(x, w, bb, **kw)),
-                plain_ms=cuda_ms(lambda: norms.group_norm_plain(x, w, bb, **kw)),
-                library_ms=graph_ms(library),
-                bound=bound_ms(0.0, nbytes)))
+            def library_q(x_nchw=x_nchw, wl=wl, bl=bl, eps=eps):
+                y = F.silu(F.group_norm(x_nchw.float(), 32, wl.float(), bl.float(), eps))
+                return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8)
+
+            xg = x.reshape(b, -1, 32, c // 32)
+            n_el = float(x.numel())
+            iters = 5 if x.numel() >= 2 ** 24 else 20
+            gt = lambda fn: graph_ms(fn, iters=iters)
+            rows = (
+                ("group_norm", lambda: norms.group_norm(x, w, bb, **kw),
+                 lambda: norms.group_norm_plain(x, w, bb, **kw), library,
+                 "F.group_norm" + (" then F.silu" if silu else ""), 4.0 * n_el),
+                ("group_norm_stats", lambda: norms.group_norm_stats(x, 32, eps),
+                 lambda: norms.group_norm_stats_plain(x, 32, eps),
+                 lambda: torch.var_mean(xg, dim=(1, 3), correction=0),
+                 "torch.var_mean over the groups (variance, not its 1/sqrt)",
+                 2.0 * n_el),
+                ("gn_silu_quantize_int8", lambda: norms.gn_silu_quantize_int8(x, w, bb, **qkw),
+                 lambda: norms.gn_silu_quantize_int8_plain(x, w, bb, **qkw), library_q,
+                 "F.group_norm, F.silu, then round, clamp and int8 in fp32 (a chain)",
+                 3.0 * n_el),
+                ("quantize_int8", lambda: norms.quantize_int8(x, x_scale=X_SCALE),
+                 lambda: norms.quantize_int8_plain(x, x_scale=X_SCALE),
+                 lambda: torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8),
+                 "round, clamp and int8 (a chain)", 3.0 * n_el))
+            for name, fn, ref, lib, scope, nbytes in rows:
+                timings.setdefault(name, []).append(dict(
+                    shape=list(shape), silu=silu or name == "gn_silu_quantize_int8",
+                    **form, ms=gt(fn), stream_ms=cuda_ms(fn, iters=iters),
+                    host_ms=host_ms(fn, iters=iters), plain_ms=cuda_ms(ref, iters=iters),
+                    library_ms=gt(lib), library_scope=scope,
+                    bound=bound_ms(0.0, nbytes)))
     log(phase="kernel checks", kernel="group_norm",
         seconds=time.perf_counter() - t0)
 
@@ -417,10 +482,18 @@ def check_kernels(device) -> list:
                     nbytes += 8.0 * cin  # gamma, beta in fp32
                 iters = 5 if h * w >= 512 * 512 else 20
                 plan = conv.bf16_plan(b, h, w, cin, cout, sms=SM_COUNT[0])
+                extra = {}
+                if fused:
+                    # evidence for an open question, run by no path: the
+                    # GroupNorm kernel's apply mode, then the plain conv
+                    extra["unfused_ms"] = graph_ms(lambda: conv.conv3x3(
+                        norms.group_norm(x, gamma, beta, num_groups=groups,
+                                         eps=1e-5, silu=True), wt, bias),
+                        iters=iters)
                 timings.setdefault(name, []).append(dict(
                     shape=[b, h, w, cin, cout],
                     bn=plan["bn"], splits=plan["splits"], smem_bytes=plan["smem"],
-                    ms=graph_ms(fn, iters=iters),
+                    **extra, ms=graph_ms(fn, iters=iters),
                     stream_ms=cuda_ms(fn, iters=iters),
                     host_ms=host_ms(fn, iters=iters),
                     plain_ms=cuda_ms(ref, iters=iters),
@@ -428,8 +501,8 @@ def check_kernels(device) -> list:
                     bound=bound_ms(flops, nbytes)))
     log(phase="kernel checks", kernel="conv3x3", seconds=time.perf_counter() - t0)
 
-    # ---- kernels 6 and 7: the static-scale int8 conv with / without the
-    # GN+SiLU prologue
+    # ---- kernels 6 and 7: the static-scale int8 units with / without
+    # GroupNorm + SiLU: the quantiser, then the int8 conv
     t0 = time.perf_counter()
     for (b, h, w, cin, cout, groups) in INT8_SHAPES:
         dtypes = (torch.float32,) if cin == 20 else (torch.float32,
@@ -461,8 +534,11 @@ def check_kernels(device) -> list:
                 want = ref()
                 err, ok, flips = int8_check(got, want, x, w_q, w_s, bias,
                                             fused, gn, groups)
+                # bitwise: the plain version takes the statistics mode's
+                # bits and rounds the same IEEE operations
                 record(name, (b, h, w, cin, cout), dtype, err,
-                       "int8_check's flip bound", ok=ok, flip_candidates=flips,
+                       "bitwise (and int8_check's flip bound)",
+                       ok=ok and torch.equal(got, want), flip_candidates=flips,
                        outputs_differing=int((got != want).sum()))
                 check(torch.equal(again, got), f"{name} {x.shape}: two calls differ")
                 # each image of a batch equals the same image alone
@@ -490,8 +566,19 @@ def check_kernels(device) -> list:
                     x, bf16_w, None, gamma, beta, num_groups=groups, eps=1e-5))
                     if fused else (lambda: conv.conv3x3(x, bf16_w, None)))
                 iters = 5 if h * w >= 256 * 256 else 20
+                # the unit's two launches apart: the quantiser, then the
+                # int8 conv on its output
+                quant = ((lambda: norms.gn_silu_quantize_int8(
+                    x, *gn, num_groups=groups, eps=1e-5, x_scale=X_SCALE))
+                    if fused else (lambda: norms.quantize_int8(x, x_scale=X_SCALE)))
+                q = quant()
+                plan = conv.int8_plan(b, h, w, cin, cout, sms=SM_COUNT[0])
                 timings.setdefault(name, []).append(dict(
                     shape=[b, h, w, cin, cout],
+                    bn=plan["bn"], splits=plan["splits"], smem_bytes=plan["smem"],
+                    quantize_ms=graph_ms(quant, iters=iters),
+                    product_ms=graph_ms(lambda: conv.int8_product(
+                        q, w_q, w_s, bias, X_SCALE, dtype), iters=iters),
                     ms=graph_ms(fn, iters=iters),
                     stream_ms=cuda_ms(fn, iters=iters),
                     host_ms=host_ms(fn, iters=iters),
@@ -530,11 +617,11 @@ def int8_check(got, want, x, w_q, w_s, bias, fused, gn, groups,
     3x3 x Cin window, plus one rounding step of the output type (2^-7 for
     bf16, 2^-22 for fp32) of |out| + |bias| (a reference may fuse the
     epilogue's multiply and add, rounding once at the product's scale)."""
-    from powerpaint_tpu_torch.ops import conv
+    from powerpaint_tpu_torch.ops import norms
 
     F = torch.nn.functional
     if fused:
-        y = conv.gn_silu_fp32(x, *gn, num_groups=groups, eps=1e-5)
+        y = norms.gn_silu_fp32(x, *gn, num_groups=groups, eps=1e-5)
     else:
         y = x.float()
     v = (y * (1.0 / x_scale)).abs()
@@ -558,8 +645,9 @@ def batch_invariance(device) -> None:
     one request (the first 2), CLIP's 8 rows against 4, the VAE's 2 images
     against 1, at fp32 (TF32 off) and bf16. The library calls are logged,
     not checked (a batch-variant library call is not a fault of the port);
-    the bf16 flash attention and conv kernels (the wgmma designs) must be
-    bitwise invariant and give the same bits on a second run."""
+    the bf16 flash attention and conv kernels (the wgmma designs), and
+    GroupNorm and the int8 unit at both types, must be bitwise invariant
+    and give the same bits on a second run."""
     from powerpaint_tpu_torch.ops import conv
     from powerpaint_tpu_torch.ops import flash_attention as fa
     from powerpaint_tpu_torch.ops import norms
@@ -640,9 +728,11 @@ def batch_invariance(device) -> None:
                 bitwise=bitwise, deterministic=again,
                 max_abs_diff=float(d.max()),
                 max_abs_out=float(few.float().abs().max()))
-            if dtype == torch.bfloat16 and name.split(",")[0] in (
-                    "flash_attention", "conv3x3_gn_silu", "conv3x3"):
-                check(bitwise and again, f"{name} bf16: batch-variant or "
+            kernel = name.split(",")[0]
+            if kernel in ("group_norm", "conv3x3_gn_silu_int8") or (
+                    dtype == torch.bfloat16 and kernel in (
+                        "flash_attention", "conv3x3_gn_silu", "conv3x3")):
+                check(bitwise and again, f"{name} {dtype}: batch-variant or "
                       f"nondeterministic (bitwise {bitwise}, repeat {again})")
     torch.backends.cudnn.allow_tf32 = True
 
@@ -651,15 +741,17 @@ def batch_invariance(device) -> None:
 # phases 3 to 6: the main paths
 # ---------------------------------------------------------------------------
 
-KERNELS = ("flash_attention", "group_norm", "layer_norm", "conv3x3_gn_silu",
-           "conv3x3", "conv3x3_gn_silu_int8", "conv3x3_int8")
+KERNELS = ("flash_attention", "group_norm", "group_norm_stats",
+           "gn_silu_quantize_int8", "quantize_int8", "layer_norm",
+           "conv3x3_gn_silu", "conv3x3", "conv3x3_gn_silu_int8", "conv3x3_int8")
 
 
 def unet_launches(u, with_out_norm: bool = True) -> dict:
     """Launches of one UNet (or BrushNet, which has no conv_norm_out)
     evaluation, CFG in the batch: every transformer runs 2 attentions, 3
-    LayerNorms and its GroupNorm; every ResNet unit 2 fused GN+SiLU convs;
-    every upsampler one plain conv."""
+    LayerNorms and its GroupNorm; every ResNet unit 2 fused GN+SiLU convs,
+    each after its GroupNorm statistics launch; every upsampler one plain
+    conv."""
     n_levels = len(u.block_out_channels)
     n_tf = (sum(k.startswith("CrossAttn") for k in u.down_block_types)
             * u.layers_per_block
@@ -668,6 +760,7 @@ def unet_launches(u, with_out_norm: bool = True) -> dict:
     n_res = n_levels * u.layers_per_block + 2 + n_levels * (u.layers_per_block + 1)
     return {"flash_attention": 2 * n_tf, "layer_norm": 3 * n_tf,
             "group_norm": n_tf + int(with_out_norm),
+            "group_norm_stats": 2 * n_res,
             "conv3x3_gn_silu": 2 * n_res, "conv3x3": n_levels - 1}
 
 
@@ -677,7 +770,7 @@ def vae_launches(v, decoder: bool) -> dict:
     levels = len(v.block_out_channels)
     n_res = levels * (v.layers_per_block + int(decoder)) + 2
     return {"flash_attention": 1, "layer_norm": 0, "group_norm": 2,
-            "conv3x3_gn_silu": 2 * n_res,
+            "group_norm_stats": 2 * n_res, "conv3x3_gn_silu": 2 * n_res,
             "conv3x3": levels - 1 if decoder else 0}
 
 
@@ -747,14 +840,16 @@ def vae_sites(v, h: int, w: int, decoder: bool) -> list:
 
 def int8_split(launches: dict, sites: list) -> dict:
     """``launches`` with int8 on: the fused GroupNorm+SiLU convs at the
-    sites ``int8_site`` admits move to the int8 kernel."""
+    sites ``int8_site`` admits move to the int8 unit, their statistics
+    launch to its quantiser."""
     from powerpaint_tpu_torch.ops.conv import int8_site
 
     check(len(sites) == launches["conv3x3_gn_silu"],
           f"{len(sites)} ResNet sites for {launches['conv3x3_gn_silu']} units")
     n = sum(int8_site(*site) for site in sites)
     return {**launches, "conv3x3_gn_silu": len(sites) - n,
-            "conv3x3_gn_silu_int8": n}
+            "group_norm_stats": len(sites) - n,
+            "conv3x3_gn_silu_int8": n, "gn_silu_quantize_int8": n}
 
 
 def _total(*parts) -> dict:
@@ -803,12 +898,14 @@ def expected_launches_v2(cfg, steps: int, int8_hw=None) -> dict:
 
 
 def counters():
-    from powerpaint_tpu_torch.ops import conv
+    from powerpaint_tpu_torch.ops import conv, norms
     from powerpaint_tpu_torch.ops.flash_attention import flash_attention
-    from powerpaint_tpu_torch.ops.norms import group_norm, layer_norm
 
-    return {"flash_attention": flash_attention, "group_norm": group_norm,
-            "layer_norm": layer_norm, "conv3x3_gn_silu": conv.conv3x3_gn_silu,
+    return {"flash_attention": flash_attention, "group_norm": norms.group_norm,
+            "group_norm_stats": norms.group_norm_stats,
+            "gn_silu_quantize_int8": norms.gn_silu_quantize_int8,
+            "quantize_int8": norms.quantize_int8,
+            "layer_norm": norms.layer_norm, "conv3x3_gn_silu": conv.conv3x3_gn_silu,
             "conv3x3": conv.conv3x3,
             "conv3x3_gn_silu_int8": conv.conv3x3_gn_silu_int8,
             "conv3x3_int8": conv.conv3x3_int8}
@@ -1046,7 +1143,8 @@ def saturation_share(pipe, models, run_call) -> dict:
     plain prologue's fp32 values) with |y| / x_scale > 127, which the
     static scale clips."""
     from powerpaint_tpu_torch.models.layers import Conv2D
-    from powerpaint_tpu_torch.ops.conv import gn_silu_fp32, int8_site
+    from powerpaint_tpu_torch.ops.conv import int8_site
+    from powerpaint_tpu_torch.ops.norms import gn_silu_fp32, group_norm_stats
 
     stats = {"saturated": 0, "values": 0, "sites": 0}
     active = [True]
@@ -1056,8 +1154,10 @@ def saturation_share(pipe, models, run_call) -> dict:
         if not active[0] or gn is None or \
                 not int8_site(*x.shape[1:], mod.out_channels):
             return
+        n = group_norm_stats.launches  # the hook's own launch is not the call's
         y = gn_silu_fp32(x.contiguous(), gn.weight, gn.bias,
                          num_groups=gn.num_groups, eps=gn.eps)
+        group_norm_stats.launches = n
         stats["saturated"] += int((y.abs() / mod.int8_x_scale > 127).sum())
         stats["values"] += y.numel()
         stats["sites"] += 1
@@ -1189,10 +1289,11 @@ def run_cli(device) -> dict:
 
 def kernel_resources(nvcc_logs: dict) -> None:
     """Each compiled kernel's registers, static shared memory and spills
-    (``nvcc -Xptxas -v``) and ptxas's performance warnings, and, where
-    ``cuobjdump`` exists, the count of HGMMA (wgmma) instructions in its
-    SASS. The bf16 kernels' dynamic shared memory is in their kernel lines
-    (``smem_bytes``)."""
+    (``nvcc -Xptxas -v``) and ptxas's performance warnings, the GroupNorm
+    kernel's form and cluster size at each checked shape, and, where
+    ``cuobjdump`` exists, the count of wgmma instructions in its SASS by
+    mnemonic (HGMMA for bf16, IGMMA for int8). The conv and attention kernels' dynamic shared memory is in their
+    kernel lines (``smem_bytes``)."""
     import re
     import shutil
 
@@ -1219,6 +1320,16 @@ def kernel_resources(nvcc_logs: dict) -> None:
                 log(nvcc=name, kernel=entry, registers=int(m.group(1)),
                     static_smem=int(smem.group(1)) if smem else 0, **props)
                 entry = None
+    # group_norm.cu's cluster size and form at each GroupNorm shape checked
+    from powerpaint_tpu_torch.ops.norms import gn_plan
+
+    for shape, _, _ in GN_SHAPES:
+        for esize, dtype in ((4, "float32"), (2, "bfloat16")):
+            p = gn_plan(shape[1], shape[2], 32, esize, sms=SM_COUNT[0])
+            log(nvcc="group_norm", shape=list(shape), dtype=dtype,
+                form="resident" if p["resident"] else "streamed",
+                cluster=p["cluster"], span=p["span"], rows=p["rows"],
+                smem_bytes=p["smem"])
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in _build.SOURCES:
         try:
@@ -1231,10 +1342,12 @@ def kernel_resources(nvcc_logs: dict) -> None:
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                counts[fn] = 0
-            elif fn is not None and "HGMMA" in line:
-                counts[fn] += 1
-        log(cuobjdump=name, hgmma_per_kernel=counts)
+                counts[fn] = {}
+                continue
+            m = re.search(r"\b([HIQ]GMMA)\.", line)  # bf16 / int8 / fp8 wgmma
+            if fn is not None and m:
+                counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
+        log(cuobjdump=name, gmma_per_kernel=counts)
 
 
 def profile_call(label: str, run_call) -> None:
@@ -1264,11 +1377,14 @@ def profile_call(label: str, run_call) -> None:
         return
     kernels.sort(key=lambda k: -k[1])
     # device time by family, from the kernel names (first match wins); the
-    # GroupNorm family holds the statistics launches of the fused conv too
+    # GroupNorm family holds the statistics launches of the fused conv and
+    # the int8 units' quantisers too
     families = (("flash_attention", ("flash_",)),
                 ("conv3x3 kernel", ("conv3x3_kernel", "conv3x3_bf16_kernel")),
                 ("conv3x3 int8 kernel", ("conv3x3_int8_kernel",)),
-                ("group_norm", ("_gn_",)), ("layer_norm", ("_ln_kernel",)),
+                ("group_norm", ("gn_resident_kernel", "gn_partial_kernel",
+                                "gn_finish_kernel", "quantize_kernel")),
+                ("layer_norm", ("_ln_kernel",)),
                 ("cudnn conv", ("fprop", "conv")),
                 ("matmul", ("gemm", "nvjet", "cutlass")))
     by_family = {}
@@ -1396,8 +1512,17 @@ META = {
         route="cuda", source="powerpaint_tpu_torch/csrc/flash_attention.cu",
         replaces="powerpaint_tpu/ops/flash_attention.py:28"),
     "group_norm": dict(
-        route="triton", source="powerpaint_tpu_torch/ops/norms.py",
+        route="cuda", source="powerpaint_tpu_torch/csrc/group_norm.cu",
         replaces="powerpaint_tpu/ops/norms_pallas.py:78"),
+    "group_norm_stats": dict(
+        route="cuda", source="powerpaint_tpu_torch/csrc/group_norm.cu",
+        replaces="powerpaint_tpu/ops/norms_pallas.py:78"),
+    "gn_silu_quantize_int8": dict(
+        route="cuda", source="powerpaint_tpu_torch/csrc/group_norm.cu",
+        replaces="powerpaint_tpu/ops/conv_pallas.py:295"),
+    "quantize_int8": dict(
+        route="cuda", source="powerpaint_tpu_torch/csrc/group_norm.cu",
+        replaces="powerpaint_tpu/ops/conv_pallas.py:272"),
     "layer_norm": dict(
         route="triton", source="powerpaint_tpu_torch/ops/norms.py",
         replaces="powerpaint_tpu/ops/norms_pallas.py:27"),
@@ -1488,7 +1613,8 @@ def main() -> None:
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"],
             checks=summary[name]["checks"],
-            **{k: head[k] for k in ("library_scope", "bf16_kernel_ms")
+            **{k: head[k] for k in ("library_scope", "bf16_kernel_ms",
+                                    "quantize_ms", "product_ms", "unfused_ms")
                if k in head}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

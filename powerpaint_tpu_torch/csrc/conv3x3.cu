@@ -81,7 +81,6 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <cuda.h>  // CUtensorMap and its enums (the function comes from the runtime)
 #include <string.h>
 
 #include <algorithm>
@@ -851,17 +850,6 @@ __global__ void __launch_bounds__(384, 1)
 // launch
 // ---------------------------------------------------------------------------
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  return sms;
-}
-
 // fp32: K splits for a grid of `tiles` output tiles: enough blocks for two
 // per SM, each split keeping at least 4 chunks, no split empty.
 int pick_splits(long long tiles, int n_chunks) {
@@ -983,39 +971,6 @@ BfPlan plan_bf16(int B, int H, int W, int Cin, int Cout, int sms) {
   return pl;
 }
 
-// The driver's cuTensorMapEncodeTiled, found through the runtime (the
-// library links no libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status) ==
-            cudaSuccess &&
-        status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A bf16 tensor map over `rank` dims (innermost first, byte strides of the
-// outer ones), boxes of `box`, 128-byte swizzle, zeros outside.
-bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-              const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 template <int BN>
 cudaError_t launch_bf16(const BfParams& p, const BfPlan& pl, bool gn, cudaStream_t stream) {
   auto kernel = gn ? conv3x3_bf16_kernel<BN, true> : conv3x3_bf16_kernel<BN, false>;
@@ -1039,7 +994,8 @@ cudaError_t launch_bf16(const BfParams& p, const BfPlan& pl, bool gn, cudaStream
     const cuuint64_t wd[3] = {(cuuint64_t)p.Cin, 9, (cuuint64_t)p.Cout};
     const cuuint64_t wstr[2] = {row, row * 9};
     const cuuint32_t wb[3] = {KC, 1, BN};
-    if (!bf16_map(&xmap, p.x, 4, xd, xs, xb) || !bf16_map(&wmap, p.w, 3, wd, wstr, wb))
+    if (!tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.x, 4, xd, xs, xb) ||
+        !tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.w, 3, wd, wstr, wb))
       return cudaErrorInvalidValue;
   }
   kernel<<<dim3(pl.blocks, pl.n_tiles, pl.splits), 384, smem, stream>>>(p, xmap, wmap);
@@ -1066,7 +1022,7 @@ extern "C" long long ppt_conv3x3_workspace(int B, int H, int W, int Cin,
                                            int Cout, int is_bf16,
                                            long long* counters) {
   if (is_bf16) {
-    const BfPlan pl = plan_bf16(B, H, W, Cin, Cout, sm_count());
+    const BfPlan pl = plan_bf16(B, H, W, Cin, Cout, hopper::sm_count());
     *counters = pl.counters;
     return pl.ws_floats;
   }
@@ -1093,7 +1049,7 @@ extern "C" int ppt_conv3x3(const void* x, const void* w, const void* bias,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    const BfPlan pl = plan_bf16(B, H, W, Cin, Cout, sm_count());
+    const BfPlan pl = plan_bf16(B, H, W, Cin, Cout, hopper::sm_count());
     if ((long long)B * H * W > 2147483647LL || pl.n_tiles > 65535 || pl.splits > 65535 ||
         (pl.splits > 1 && (ws == nullptr || counters == nullptr)))
       return (int)cudaErrorInvalidValue;

@@ -1,567 +1,595 @@
-// Static-scale int8 W8A8 3x3 stride-1 SAME convolution on NHWC tensors for
-// Hopper (sm_90a), with an optional GroupNorm + SiLU prologue, bound with
-// ctypes.
+// Static-scale int8 W8A8 3x3 stride-1 SAME convolution of a quantised NHWC
+// activation for Hopper (sm_90a), on wgmma s8 fed by TMA, bound with ctypes.
 //
-// Replaces the TPU kernels of powerpaint_tpu/ops/conv_pallas.py launched by
-// _int8_conv_call's pl.pallas_call: _int8_fused_kernel (conv3x3_gn_silu_int8)
-// and _int8_kernel (conv3x3_int8). Both compute
-//   y   = silu(GN(x)) in fp32 (prologue on), or x itself (prologue off)
+// Replaces the products and the dequantisation of the TPU kernels of
+// powerpaint_tpu/ops/conv_pallas.py launched by _int8_conv_call's
+// pl.pallas_call, _int8_fused_kernel (conv3x3_gn_silu_int8) and _int8_kernel
+// (conv3x3_int8). Their function is
 //   q   = clip(round_half_even(y * inv_x_scale), -127, 127)       int8
 //   acc = sum over taps and Cin of q * w_q                         int32, exact
-//   out = (float)acc * (w_scale[oc] * x_scale) + bias[oc]          fp32 -> x's dtype
-// with x_scale one static per-tensor scale and w_q, w_scale the per-output-
-// channel int8 weights of ops.conv.quantize_weights_int8. One kernel does
-// both; the prologue is a template flag.
+//   out = (float)acc * (w_scale[oc] * x_scale) + bias[oc]          fp32 -> out dtype
+// with y = silu(GN(x)) or x. The quantiser runs first, in
+// csrc/group_norm.cu (one launch that also takes the GroupNorm statistics),
+// which writes q to device memory; this kernel reads q. So an int8 unit is
+// two launches and this kernel has no prologue: the IEEE-exact prologue
+// (expf, true division, no contraction) that bound the first version ran
+// at CUDA-core speed beside the products. q is 1 byte an element: writing
+// and reading it back costs about 1.2 us at (2, 64, 64, 320).
 //
 // What bounds it: operations. At the UNet's (2, 64, 64, 320 -> 320) the
 // work is 15.1 G integer operations, 0.0076 ms at the H100 SXM's 1979 dense
-// int8 TOP/s, against 0.0019 ms to move x (bf16), the int8 weights and the
-// output once. So it is an implicit GEMM on the int8 tensor cores; what the
-// fusion saves is the normalised, quantised activation's trip through
-// device memory.
+// int8 TOP/s, against 0.0019 ms to move q, the weights and the output once.
 //
-// Design (first version, right before fast; the tiling is that of
-// csrc/conv3x3.cu, whose notes explain it):
-// - GEMM view: M = output pixels, N = Cout, K = 9 * Cin. A block of 256
-//   threads computes 128 pixels x 64 channels; its 8 warps 32 x 32 each.
-//   The pixel tile is TH flattened (batch, row) rows x TW columns, read
-//   with its 3x3 neighbourhood as a (TH + 2) x (TW + 2) slab.
-// - K runs over Cin chunks of 32, one mma.sync m16n8k32 (s8 x s8 -> s32)
-//   step. Per chunk the block copies the slab's raw channels (fp32 or bf16)
-//   into a staging buffer and the 9 taps' 64 x 32 int8 weight slices into
-//   shared memory with cp.async, double-buffered, one barrier a chunk. The
-//   weight is read as (Cout, 3, 3, Cin) int8.
-// - Prologue, once per slab element, by the thread that copied it: the
-//   GroupNorm, (x - mean) * (rstd * gamma) + beta, then y / (1 + exp(-y)) * y
-//   in IEEE fp32 operations (no contraction into FMAs, no fast exp), so the
-//   activation is the plain PyTorch version's to the last bit wherever exp
-//   agrees; then the quantiser (__float2int_rn rounds half to even, as
-//   jnp.round), clamped to +-127, written to an int8 slab. Pixels outside
-//   the image and channels past Cin are written as 0: SAME padding of the
-//   quantised activation (0 quantises to 0).
-// - The 9 taps read shifted rows of the int8 slab through ldmatrix, each
-//   lane pointing at its own slab row (a zero row where the pixel's source
-//   is outside its image). 48-byte rows keep ldmatrix conflict-free; the
-//   fragment layouts of m16n8k32.s8 are those of m16n8k16.bf16 byte for
-//   byte, so the addressing is csrc/conv3x3.cu's.
-// - Epilogue: the int32 sum converted to fp32 (round to nearest), times
-//   w_scale * x_scale (formed first), plus the fp32 bias, each one IEEE
-//   operation as in the plain version, then one rounding to x's dtype.
-// - Where the output tiles give fewer than two blocks per SM, K is split
-//   over blocks. int32 sums are exact, so the splits add into one zeroed
-//   int32 workspace with atomics in any order and the result does not
-//   depend on it; the last block of a tile (a counter per tile) applies the
-//   epilogue.
+// Design: the bf16 kernel of csrc/conv3x3.cu with its prologue off, in int8.
+// - 320 threads. Two consumer warpgroups, each owning an 8 x 8 pixel tile
+//   of one image and a Cout tile of BN in {64, 128, 160, 256} (S32S8S8
+//   wgmma shapes), issue only wgmma m64nBNk32 s32.s8.s8, A and B from
+//   shared memory, both K-major (8-bit wgmma takes no transpose), int32
+//   accumulators in registers. One thread of warp 8 issues the slab's TMA,
+//   one of warp 9 the weights'.
+// - K runs over 128-channel chunks: one 128-byte row a pixel, so the slab,
+//   its 128-byte swizzle, the tap offsets into the resident slab (dy * 1280
+//   + dx * 128 bytes, base offset 0, measured on the card for the bf16
+//   kernel) and the weight ring are the bf16 kernel's byte for byte, with
+//   k32 steps of 32 bytes. Chosen over 64-channel chunks with the 64-byte
+//   swizzle, which divide every site's Cin but need a new descriptor layout
+//   whose absolute-address swizzle would have to be measured again: at Cin
+//   320 and 960 the last chunk is partly zero-filled (17% and 6% of the
+//   products wasted at those sites).
+// - TMA: the slab as two 128 x 10 x 10 boxes of q viewed as (Cin, W, H, B),
+//   zero-filled outside the tensor, which is the SAME padding of the
+//   quantised activation (0 quantises to 0) and the Cin tail; the weights
+//   as one 128 x 1 x BN box of w_q viewed as (Cin, 9, Cout) a tap, read as
+//   (Cout, 3, 3, Cin) with no repack, through a ring of up to 8 stages. TMA
+//   writes through the async proxy that wgmma reads, so no proxy fence on
+//   the products' path. Cin must be a multiple of 16 (TMA strides); the
+//   wrapper pads the rare other shapes with zero channels.
+// - Epilogue: (float)acc * (w_scale * x_scale) + bias, each an IEEE
+//   operation in the plain version's order, one rounding to the output
+//   type: bitwise the plain version.
+// - K split where output tiles are few (8 x 8 x 1280): the splits of one
+//   tile are one thread-block cluster along z (1, 2, 4 or 8 blocks). Each
+//   non-leading block leaves its int32 sums in its shared memory; the
+//   leader adds them over distributed shared memory (exact, so any order
+//   gives the same bits) and writes the tile. No workspace and nothing to
+//   zero. The plan (plan_int8, mirrored by ops/conv.py::int8_plan) is an
+//   estimate of the clocks of a two-image batch, never of B.
+// What holds it back (chip_smoke.py's times, PERF.md): not the products.
+// Throwaway builds on the card at (2, 64, 64, 320 -> 320) (not kept): without
+// the wgmma, or without the epilogue's stores, the kernel kept most of its
+// time, and with the weights loaded once in place of every tap almost all
+// of it (so L2 weight traffic is not the limit either). One wave of 128
+// blocks leaves the fill, the per-tap hand-overs and the epilogue exposed;
+// a persistent grid that overlaps one tile's epilogue with the next one's
+// loads is the next step.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <string.h>
+
 #include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;       // output pixels per block
-constexpr int BN = 64;        // output channels per block
-constexpr int THREADS = 256;  // 8 warps: 4 along the pixels x 2 along Cout
-constexpr int MAX_TW = 16;    // tile width in pixels
-constexpr int BK = 32;        // channels per K chunk: one m16n8k32 step
-constexpr int LDQ = BK + 16;  // int8 rows of 48 bytes: conflict-free ldmatrix
-
+using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
+constexpr int KC = 128;                    // int8 channels per K chunk: one 128-byte row
+constexpr int TILE = 8;                    // a consumer warpgroup's pixels: 8 x 8
+constexpr int SW = TILE + 2;               // slab pixels per slab row
+constexpr int SEG = SW * SW;               // slab pixels per warpgroup tile
+constexpr int SEG_BYTES = 13 * 1024;       // a tile's slab, 1024-byte aligned
+constexpr int SLAB_BYTES = 2 * SEG_BYTES;  // one stage: both warpgroups' slabs
+constexpr int THREADS = 320;               // 2 consumer warpgroups + 2 producer warps
+constexpr int W_BUDGET = 160 * 1024;       // bytes of the weight ring
+constexpr int MAX_SPLITS = 8;              // a portable cluster
+
+template <int BN>
+__host__ __device__ constexpr int w_stages() {
+  return W_BUDGET / (BN * 128) < 8 ? W_BUDGET / (BN * 128) : 8;
+}
+
+template <int BN>
+constexpr size_t smem_bytes() {
+  return 1024 + 2 * SLAB_BYTES + (size_t)w_stages<BN>() * BN * 128 + 8 * (4 + 2 * w_stages<BN>());
+}
+
 struct Params {
-  const void* x;        // (B, H, W, Cin), fp32 or bf16
-  const int8_t* w;      // (Cout, 3, 3, Cin)
-  const float* w_scale; // (Cout)
-  const float* bias;    // (Cout) or null
-  const float* mean;    // (B, G), prologue only
-  const float* rstd;    // (B, G)
-  const float* gamma;   // (Cin)
-  const float* beta;    // (Cin)
-  void* out;            // (B, H, W, Cout), x's dtype
-  float x_scale, inv_x_scale;
-  int B, H, W, Cin, Cout, G;
-  int TH, TW;           // pixel tile: TH flattened rows x TW columns
-  int NB;               // most batches one slab touches
-  bool xvec, wvec;      // 16-byte copies of x / of w
-  int col_tiles;        // tiles along W; blockIdx.z = split * col_tiles + tile
-  int splits;           // K splits; > 1: int32 sums through ws
-  int* ws;              // (B*H*W, Cout) int32, zeroed
-  unsigned int* counters;  // one per output tile, zeroed
+  const float* w_scale;  // (Cout)
+  const float* bias;     // (Cout) or null
+  void* out;             // (B, H, W, Cout), fp32 or bf16
+  float x_scale;
+  int B, H, W, Cin, Cout;
+  int tiles_w, tiles_img, tiles;  // 8 x 8 pixel tiles: along W, per image, all
+  int splits, per;                // K splits (the cluster along z), chunks per split
 };
 
-template <typename T>
-__device__ __forceinline__ T zero();
-template <>
-__device__ __forceinline__ float zero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ bf16 zero<bf16>() { return __float2bfloat16(0.f); }
-template <>
-__device__ __forceinline__ int8_t zero<int8_t>() { return 0; }
-
-__device__ __forceinline__ void store_out(float* o, float v) { *o = v; }
-__device__ __forceinline__ void store_out(bf16* o, float v) {
-  *o = __float2bfloat16(v);
+// m64nNk32 products, s8 x s8 -> s32: d = A B + (scale_d ? d : 0), A and B
+// K-major from shared memory. The accumulator layout is the bf16 wgmma's:
+// thread t of warp w holds rows 16 w + t / 4 (d[4 i], d[4 i + 1]) and
+// 16 w + t / 4 + 8 (d[4 i + 2], d[4 i + 3]) at columns 8 i + 2 (t % 4), + 1.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// One 16-byte vector global -> shared: cp.async (zero-filled when !valid) on
-// the aligned path, element by element otherwise (zero past n_valid).
-template <typename T>
-__device__ __forceinline__ void copy_vec(T* dst, const T* src, bool valid,
-                                         int n_valid, bool vec) {
-  constexpr int VEC = 16 / sizeof(T);
-  if (vec) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_n160(int (&d)[80], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void mma_s8(int (&d)[BN / 2], uint64_t a, uint64_t b);
+template <>
+__device__ __forceinline__ void mma_s8<64>(int (&d)[32], uint64_t a, uint64_t b) {
+  wgmma_s8_n64(d, a, b, 1);
+}
+template <>
+__device__ __forceinline__ void mma_s8<128>(int (&d)[64], uint64_t a, uint64_t b) {
+  wgmma_s8_n128(d, a, b, 1);
+}
+template <>
+__device__ __forceinline__ void mma_s8<160>(int (&d)[80], uint64_t a, uint64_t b) {
+  wgmma_s8_n160(d, a, b, 1);
+}
+template <>
+__device__ __forceinline__ void mma_s8<256>(int (&d)[128], uint64_t a, uint64_t b) {
+  wgmma_s8_n256(d, a, b, 1);
+}
+
+__device__ __forceinline__ void st_shared_s32(uint32_t dst, int v) {
+  asm volatile("st.shared.s32 [%0], %1;\n" ::"r"(dst), "r"(v) : "memory");
+}
+
+// Warpgroup tile w (0, 1) of this block: image b, first row h0, first
+// column w0; false (and an all-padding tile) past the last tile.
+__device__ __forceinline__ bool tile_of(const Params& p, int w, int& b, int& h0, int& w0) {
+  const int t = 2 * blockIdx.x + w;
+  if (t >= p.tiles) {
+    b = 0;
+    h0 = p.H + 1;  // every slab row outside the image
+    w0 = 0;
+    return false;
+  }
+  b = t / p.tiles_img;
+  const int r = t - b * p.tiles_img;
+  h0 = (r / p.tiles_w) * TILE;
+  w0 = (r % p.tiles_w) * TILE;
+  return true;
+}
+
+__device__ __forceinline__ void store_pair(float* o, float v0, float v1, bool both) {
+  if (both) {
+    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
   } else {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      dst[e] = (valid && e < n_valid) ? src[e] : zero<T>();
+    o[0] = v0;
+  }
+}
+__device__ __forceinline__ void store_pair(bf16* o, float v0, float v1, bool both) {
+  if (both) {
+    *reinterpret_cast<uint32_t*>(o) = pack_bf16(v0, v1);
+  } else {
+    o[0] = __float2bfloat16(v0);
   }
 }
 
-// Four bytes global -> shared, zero-filled when !valid.
-__device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// c += a @ b: a 16x32 (row), b 32x8 (col), s8 in, s32 accumulate (exact)
-__device__ __forceinline__ void mma_16832(int (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// One tap of one K chunk. a_addr[mt]: the shared address of the slab row
-// (and 16-byte k half) this lane hands ldmatrix for row tile mt; b_addr: the
-// lane's address in this tap's weight slice. acc[mt][nt][e] is the C
-// fragment: rows 16 mt + g (e = 0, 1) and + 8 (e = 2, 3), columns
-// 8 nt + 2 t4 + (e & 1) of the warp's 32 x 32 sub-tile.
-__device__ __forceinline__ void tap_product(const uint32_t (&a_addr)[2],
-                                            uint32_t b_addr,
-                                            int (&acc)[2][4][4]) {
-  uint32_t a[2][4], b[2][4];
-  ldsm_x4(a_addr[0], a[0]);
-  ldsm_x4(a_addr[1], a[1]);
-  ldsm_x4(b_addr, b[0]);              // n tiles 0, 1
-  ldsm_x4(b_addr + 16 * LDQ, b[1]);   // n tiles 2, 3
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      mma_16832(acc[mt][nt], a[mt], b[nt >> 1][2 * (nt & 1)],
-                b[nt >> 1][2 * (nt & 1) + 1]);
-}
-
-__host__ __device__ inline int slab_pixels(int TH, int TW) {
-  return (TH + 2) * (TW + 2);
-}
-
-// Prologue parameters of one K chunk (fp32): gamma[BK], beta[BK],
-// mean[NB][BK], rstd[NB][BK] for the slab's batches and the chunk's groups.
-__host__ __device__ inline int param_floats(int NB) { return 2 * BK * (1 + NB); }
-
-// [3][params] + [2][slab pixels][BK] staging (x's type) + [2][slab pixels]
-// [LDQ] int8 + [2][9][BN][LDQ] int8 weights + one zero row of LDQ
-template <typename T>
-size_t smem_bytes(int TH, int TW, int NB, bool gn) {
-  const size_t sp = slab_pixels(TH, TW);
-  return (gn ? 3 * sizeof(float) * param_floats(NB) : 0) +
-         2 * sp * BK * sizeof(T) + (2 * sp + 2 * 9 * BN + 1) * LDQ;
-}
-
-// Sixteen bytes of channels in shared memory as fp32.
-__device__ __forceinline__ void load_vec(const bf16* q, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(q);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load_vec(const float* q, float (&v)[4]) {
-  const float4 f = *reinterpret_cast<const float4*>(q);
-  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-}
-
-// VEC quantised values -> VEC bytes of the int8 slab.
-__device__ __forceinline__ void store_q(int8_t* dst, const int (&q)[8]) {
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int e = 0; e < 8; ++e) w[e >> 2] |= (uint32_t)(q[e] & 0xff) << (8 * (e & 3));
-  *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
-}
-__device__ __forceinline__ void store_q(int8_t* dst, const int (&q)[4]) {
-  uint32_t w = 0u;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) w |= (uint32_t)(q[e] & 0xff) << (8 * e);
-  *reinterpret_cast<uint32_t*>(dst) = w;
-}
-
-template <typename T, bool GN>
-__global__ void __launch_bounds__(THREADS, 2) conv3x3_int8_kernel(Params p) {
-  constexpr int VEC = 16 / sizeof(T);  // channels per 16-byte staging vector
-  constexpr int NV = BK / VEC;         // staging vectors per slab pixel
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int TH = p.TH, TW = p.TW, SW = TW + 2;
-  const int SP = slab_pixels(TH, TW);
-  const int PF = GN ? param_floats(p.NB) : 0;
-  float* params = reinterpret_cast<float*>(smem_raw);    // [3][PF]
-  T* stage = reinterpret_cast<T*>(params + 3 * PF);       // [2][SP][BK]
-  int8_t* slab = reinterpret_cast<int8_t*>(stage + 2 * SP * BK);  // [2][SP][LDQ]
-  int8_t* wts = slab + 2 * SP * LDQ;                      // [2][9][BN][LDQ]
-  int8_t* zero_row = wts + 2 * 9 * BN * LDQ;              // [LDQ]
-
-  const T* __restrict__ x = static_cast<const T*>(p.x);
-  const int8_t* __restrict__ w = p.w;
+// Block (blockIdx.x, blockIdx.y, blockIdx.z): two 8 x 8 pixel tiles (one
+// per consumer warpgroup) x BN output channels x K split blockIdx.z (the
+// block's rank in its cluster). qmap: q as (Cin, W, H, B), boxes of
+// 128 x 10 x 10 x 1; wmap: w_q as (Cin, 9, Cout), boxes of 128 x 1 x BN; both
+// 128-byte swizzled. TO: the output type.
+template <int BN, typename TO>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv3x3_int8_kernel(const Params p, const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap wmap) {
+  constexpr int WST = w_stages<BN>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t slab_s = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [2][2][SEG_BYTES]
+  const uint32_t w_s = slab_s + 2 * SLAB_BYTES;                    // [WST][BN][128 B]
+  const uint32_t x_full = w_s + WST * BN * 128;                    // [2] mbarriers
+  const uint32_t slab_empty = x_full + 16;                         // [2]
+  const uint32_t w_full = slab_empty + 16;                         // [WST]
+  const uint32_t w_empty = w_full + 8 * WST;                       // [WST]
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int n0 = blockIdx.x * BN;
-  const int r0 = blockIdx.y * TH;  // first flattened (batch, row) row
-  const int col_tile = blockIdx.z % p.col_tiles;
-  const int split = blockIdx.z / p.col_tiles;
-  const int w0 = col_tile * TW;    // first column
-  const int rows_total = p.B * p.H;
-  const int Cin = p.Cin;
-  const int gs = GN ? Cin / p.G : 1;        // channels per group
-  const int b_lo = max(r0 - 1, 0) / p.H;    // the slab's first batch
-  if (tid < LDQ) zero_row[tid] = 0;
-
-  // The slab row each lane hands ldmatrix for its 16-row tiles (lanes
-  // 16-31 at the upper 16 bytes of k). Tile pixel m -> (i, j).
-  int base[2], hrow[2];
-  bool mok[2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int m = wm * 32 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int i = m / TW, j = m - i * TW;
-    mok[mt] = i < TH && r0 + i < rows_total && w0 + j < p.W;
-    hrow[mt] = (r0 + i) % p.H;
-    base[mt] = i * SW + j;  // slab pixel of tap (0, 0)
+  if (tid == 256) tma_prefetch(&qmap);
+  if (tid == 288) tma_prefetch(&wmap);
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(x_full + 8 * s, 1);      // the slab's TMA
+      mbar_init(slab_empty + 8 * s, 8);  // every consumer warp
+    }
+    for (int s = 0; s < WST; ++s) {
+      mbar_init(w_full + 8 * s, 1);      // the weight slice's TMA
+      mbar_init(w_empty + 8 * s, 8);
+    }
+    mbar_init_fence();
   }
-  const int a_k = (lane >> 4) * 16;  // byte offset of this lane's k half
-  const int b_off = (wn * 32 + (lane & 7) + (lane >> 4) * 8) * LDQ +
-                    ((lane >> 3) & 1) * 16;
-
-  // K chunk k -> buffer `buf`: the slab's raw channels into the staging
-  // buffer and the 9 taps' int8 weight slices, as 16-byte vectors. Thread
-  // tid copies staging vectors tid, tid + THREADS, ... and later quantises
-  // exactly those.
-  auto load_chunk = [&](int k, int buf) {
-    const int c0 = k * BK;
-    T* st = stage + buf * SP * BK;
-    for (int idx = tid; idx < SP * NV; idx += THREADS) {
-      const int sp = idx / NV, v = idx - sp * NV;
-      const int si = sp / SW, sj = sp - si * SW;
-      const int row = r0 - 1 + si, col = w0 - 1 + sj;
-      const int c = c0 + v * VEC;
-      const bool ok = row >= 0 && row < rows_total && col >= 0 && col < p.W &&
-                      c < Cin;
-      const T* src = ok ? x + ((long long)row * p.W + col) * Cin + c : x;
-      copy_vec(st + sp * BK + v * VEC, src, ok, Cin - c, p.xvec);
-    }
-    int8_t* wt = wts + buf * 9 * BN * LDQ;
-    for (int idx = tid; idx < 9 * BN * 2; idx += THREADS) {
-      const int tn = idx >> 1, v = idx & 1;  // tn = tap * BN + n
-      const int tap = tn / BN, n = tn - tap * BN;
-      const int c = c0 + v * 16;
-      const bool ok = n0 + n < p.Cout && c < Cin;
-      const int8_t* src = ok ? w + ((long long)(n0 + n) * 9 + tap) * Cin + c : w;
-      copy_vec(wt + tn * LDQ + v * 16, src, ok, Cin - c, p.wvec);
-    }
-  };
-
-  // K chunk k's prologue parameters -> parameter buffer `pbuf`.
-  auto load_params = [&](int k, int pbuf) {
-    const int c0 = k * BK;
-    float* prm = params + pbuf * PF;
-    const int g_lo = c0 / gs;
-    for (int idx = tid; idx < PF; idx += THREADS) {
-      const float* src;
-      bool ok;
-      if (idx < 2 * BK) {
-        const int c = c0 + idx % BK;
-        ok = c < Cin;
-        src = (idx < BK ? p.gamma : p.beta) + c;
-      } else {
-        const int r = (idx - 2 * BK) % (p.NB * BK);
-        const int b = b_lo + r / BK, gi = g_lo + r % BK;
-        ok = b < p.B && gi < p.G;
-        src = (idx - 2 * BK < p.NB * BK ? p.mean : p.rstd) + b * p.G + gi;
-      }
-      copy4(prm + idx, ok ? src : p.gamma, ok);
-    }
-  };
-
-  // The staging vectors of chunk k this thread copied -> int8 slab `buf`:
-  // GroupNorm + SiLU (prologue on), then the quantiser; zeros outside the
-  // image and past Cin.
-  auto quantise = [&](int k, int buf, int pbuf) {
-    const int c0 = k * BK;
-    const T* st = stage + buf * SP * BK;
-    int8_t* sl = slab + buf * SP * LDQ;
-    const float* prm = params + pbuf * PF;
-    const float* mean = prm + 2 * BK;       // [NB][BK]
-    const float* rstd = mean + p.NB * BK;   // [NB][BK]
-    const int g_lo = c0 / gs;
-    for (int idx = tid; idx < SP * NV; idx += THREADS) {
-      const int sp = idx / NV, v = idx - sp * NV;
-      const int si = sp / SW, sj = sp - si * SW;
-      const int row = r0 - 1 + si, col = w0 - 1 + sj;
-      const bool inside = row >= 0 && row < rows_total && col >= 0 && col < p.W;
-      float d[VEC];
-      load_vec(st + sp * BK + v * VEC, d);
-      int q[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const int cl = v * VEC + e;  // channel within the chunk
-        float y = d[e];
-        if (GN) {
-          if (inside && c0 + cl < Cin) {
-            const int b = row / p.H - b_lo;
-            const int gi = (c0 + cl) / gs - g_lo;
-            const float sc = __fmul_rn(rstd[b * BK + gi], prm[cl]);
-            y = __fadd_rn(__fmul_rn(__fsub_rn(y, mean[b * BK + gi]), sc),
-                          prm[BK + cl]);
-            y = __fmul_rn(y, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-y))));
-          } else {
-            y = 0.f;
-          }
-        }
-        const int qi = __float2int_rn(__fmul_rn(y, p.inv_x_scale));
-        q[e] = min(127, max(-127, qi));
-      }
-      store_q(sl + sp * LDQ + v * VEC, q);
-    }
-  };
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-
-  const uint32_t slab_s = static_cast<uint32_t>(__cvta_generic_to_shared(slab));
-  const uint32_t wts_s = static_cast<uint32_t>(__cvta_generic_to_shared(wts));
-  const uint32_t zero_s =
-      static_cast<uint32_t>(__cvta_generic_to_shared(zero_row)) + a_k;
-  // this block's K chunks: a contiguous share of ceil(Cin / BK)
-  const int per = ((Cin + BK - 1) / BK + p.splits - 1) / p.splits;
-  const int k_begin = split * per;
-  const int k_end = min((Cin + BK - 1) / BK, k_begin + per);
-  // Double-buffered copies, one barrier a chunk. Each thread quantises the
-  // staging vectors of chunk k it copied as soon as its own copies are in.
-  // Parameters run two chunks ahead of the data: those of chunk k were
-  // copied two iterations earlier and made visible by the last barrier.
-  if (GN) {
-    load_params(k_begin, 0);
-    if (k_begin + 1 < k_end) load_params(k_begin + 1, 1);
-  }
-  load_chunk(k_begin, 0);
-  cp_async_commit();
-  cp_async_wait_all();
   __syncthreads();
-  for (int k = k_begin; k < k_end; ++k) {
-    const int it = k - k_begin, buf = it & 1;
-    cp_async_wait_all();  // this thread's copies of chunk k are in
-    quantise(k, buf, it % 3);
-    __syncthreads();  // chunk k is quantised; every reader of chunk k - 1 done
-    if (k + 1 < k_end) load_chunk(k + 1, buf ^ 1);
-    if (GN && k + 2 < k_end) load_params(k + 2, (it + 2) % 3);
-    cp_async_commit();
-    const uint32_t sl_s = slab_s + buf * SP * LDQ;
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap - dy * 3;
-      uint32_t a_addr[2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int hh = hrow[mt] + dy - 1;  // source row in its image
-        a_addr[mt] = (mok[mt] && hh >= 0 && hh < p.H)
-                         ? sl_s + (base[mt] + dy * SW + dx) * LDQ + a_k
-                         : zero_s;
-      }
-      tap_product(a_addr, wts_s + (buf * 9 + tap) * BN * LDQ + b_off, acc);
-    }
-  }
 
-  // Epilogue. f(out index, channel, int32 sum) for each of this thread's
-  // outputs inside the tensor.
-  auto each_out = [&](auto&& f) {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = wm * 32 + mt * 16 + g + 8 * h;
-        const int i = m / TW, j = m - i * TW;
-        if (i >= TH || r0 + i >= rows_total || w0 + j >= p.W) continue;
-        const long long pix = (long long)(r0 + i) * p.W + w0 + j;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = n0 + wn * 32 + nt * 8 + 2 * t4 + e;
-            if (col < p.Cout) f(pix * p.Cout + col, col, acc[mt][nt][2 * h + e]);
-          }
+  const int n0 = blockIdx.y * BN;
+  const int k_begin = blockIdx.z * p.per;
+  const int nk = min((p.Cin + KC - 1) / KC, k_begin + p.per) - k_begin;
+  const bool split = p.splits > 1;
+
+  if (tid >= 256) {
+    if (tid == 256) {
+      // ---- slab producer: each chunk's slab (the two tiles' 10 x 10
+      // pixels with their halo, 128 channels) into one of two stages, once
+      // the consumers are done with the chunk two back.
+      int b0, h00, w00, b1, h01, w01;
+      tile_of(p, 0, b0, h00, w00);
+      tile_of(p, 1, b1, h01, w01);
+      for (int kl = 0; kl < nk; ++kl) {
+        const int s = kl & 1, c0 = (k_begin + kl) * KC;
+        mbar_wait(slab_empty + 8 * s, ((kl >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(x_full + 8 * s, 2 * SEG * 128);
+        tma_load_4d(slab_s + s * SLAB_BYTES, &qmap, x_full + 8 * s, c0, w00 - 1, h00 - 1, b0);
+        tma_load_4d(slab_s + s * SLAB_BYTES + SEG_BYTES, &qmap, x_full + 8 * s, c0, w01 - 1,
+                    h01 - 1, b1);
       }
-  };
-  T* __restrict__ out = static_cast<T*>(p.out);
-  auto finish = [&](long long o, int col, int a) {
-    float v = __fmul_rn(__int2float_rn(a), __fmul_rn(p.w_scale[col], p.x_scale));
-    if (p.bias != nullptr) v = __fadd_rn(v, p.bias[col]);
-    store_out(out + o, v);
-  };
-  if (p.splits == 1) {
-    each_out(finish);
+    } else if (tid == 288) {
+      // ---- weight producer: the BN x 128 slice of each (chunk, tap) into
+      // a ring of WST stages, zero past Cout and Cin.
+      int it = 0;
+      for (int kl = 0; kl < nk; ++kl) {
+        const int c0 = (k_begin + kl) * KC;
+        for (int tap = 0; tap < 9; ++tap, ++it) {
+          const int s = it % WST;
+          mbar_wait(w_empty + 8 * s, ((it / WST) & 1) ^ 1);
+          mbar_arrive_expect_tx(w_full + 8 * s, BN * 128);
+          tma_load_3d(w_s + s * BN * 128, &wmap, w_full + 8 * s, c0, tap, n0);
+        }
+      }
+    }
+    if (split) {  // the consumers' two cluster barriers below
+      cluster_sync();
+      cluster_sync();
+    }
     return;
   }
-  // Split K: every block adds its sums into ws (exact, so in any order);
-  // the last block of this output tile to arrive applies the epilogue.
-  each_out([&](long long o, int, int a) { atomicAdd(p.ws + o, a); });
-  __threadfence();
-  __syncthreads();
-  __shared__ bool last;
-  if (tid == 0) {
-    const int tile = (blockIdx.y * p.col_tiles + col_tile) * gridDim.x + blockIdx.x;
-    last = atomicAdd(p.counters + tile, 1u) == (unsigned)p.splits - 1;
+
+  // ---- consumers: warpgroup wg owns tile wg's 64 pixels x BN channels and
+  // issues only wgmma. Tap (dy, dx) reads the slab shifted by dy rows and
+  // dx pixels: a descriptor start (rows of 8 pixels, 1280 bytes apart).
+  const int wg = tid >> 7;
+  const int wt = tid & 127;
+  const int lane = wt & 31;
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  int prev_stage = -1;
+  for (int kl = 0; kl < nk; ++kl) {
+    const int ss = kl & 1;
+    mbar_wait(x_full + 8 * ss, (kl >> 1) & 1);
+    const uint32_t a_base = slab_s + ss * SLAB_BYTES + wg * SEG_BYTES;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int it = kl * 9 + tap, s = it % WST;
+      mbar_wait(w_full + 8 * s, (it / WST) & 1);
+      const uint32_t a0 = a_base + ((tap / 3) * SW + tap % 3) * 128;
+      const uint32_t b0 = w_s + s * BN * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        mma_s8<BN>(acc, desc_sw128(a0 + ks * 32, 16, SW * 128), desc_sw128(b0 + ks * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous tap's products are done
+      __syncwarp();
+      if (lane == 0) {
+        if (prev_stage >= 0) mbar_arrive(w_empty + 8 * prev_stage);
+        if (tap == 0 && kl > 0) mbar_arrive(slab_empty + 8 * ((kl - 1) & 1));
+      }
+      prev_stage = s;
+    }
   }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  each_out([&](long long o, int col, int) { finish(o, col, __ldcg(p.ws + o)); });
-}
+  wgmma_wait<0>();
+  fence_regs(acc);
 
-// K splits for a grid of `tiles` output tiles: enough blocks for two per SM,
-// each split keeping at least 4 chunks, no split empty.
-int pick_splits(long long tiles, int n_chunks) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
+  // ---- split K: the cluster's other blocks leave their sums in their
+  // shared memory (the slab and ring are free once both warpgroups are
+  // done); the leader (rank 0) adds them and writes the tile.
+  if (split) {
+    const bool leader = cluster_ctarank() == 0;
+    named_bar_sync(1, 256);
+    const uint32_t red = slab_s + tid * 4;  // [BN / 2][256] int32
+    if (!leader) {
+      fence_proxy_async();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) st_shared_s32(red + i * 1024, acc[i]);
+    }
+    cluster_sync();  // the partial sums are in place
+    if (leader) {
+      for (int r = 1; r < p.splits; ++r) {
+        const uint32_t peer = dsmem_addr(red, r);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += ld_dsmem_s32(peer + i * 1024);
+      }
+    }
+    cluster_sync();  // every block keeps its shared memory until the leader has read it
+    if (!leader) return;
   }
-  long long want = (2LL * sms + tiles - 1) / tiles;
-  want = std::min<long long>(want, n_chunks / 4);
-  if (want <= 1) return 1;
-  const int per = (n_chunks + (int)want - 1) / (int)want;
-  return (n_chunks + per - 1) / per;
-}
 
-// the opt-in limit is 227 KB a block, static shared memory included
-constexpr int kMaxSmem = 224 * 1024;
-
-template <typename T>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const bool gn = p.mean != nullptr;
-  const size_t smem = smem_bytes<T>(p.TH, p.TW, p.NB, gn);
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  const dim3 grid((p.Cout + BN - 1) / BN, (p.B * p.H + p.TH - 1) / p.TH,
-                  p.col_tiles * p.splits);
-  auto kernel = gn ? conv3x3_int8_kernel<T, true> : conv3x3_int8_kernel<T, false>;
-  static bool configured[2] = {false, false};
-  if (!configured[gn]) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    configured[gn] = true;
+  // ---- epilogue: dequantise in fp32, one rounding to TO. Accumulator row
+  // m = 16 wq + g + 8 hh is pixel (h0 + 2 wq + hh, w0 + g) of the tile; each
+  // thread holds channel pairs n0 + 8 i + 2 t4 (+ 1).
+  int b, h0, w0;
+  const bool valid = tile_of(p, wg, b, h0, w0);
+  const int wq = wt >> 5, g = lane >> 2, t4 = lane & 3;
+  TO* out = static_cast<TO*>(p.out);
+  const bool pairs = p.Cout % 2 == 0;
+  long long pix[2];
+  bool in[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int h = h0 + 2 * wq + hh, col = w0 + g;
+    in[hh] = valid && h < p.H && col < p.W;
+    pix[hh] = ((long long)b * p.H + h) * p.W + col;
   }
-  kernel<<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    const int co = n0 + 8 * i + 2 * t4;
+    if (co >= p.Cout) continue;
+    const bool two = co + 1 < p.Cout;
+    // the channels' constants once for both rows
+    const float s0 = __fmul_rn(p.w_scale[co], p.x_scale);
+    const float s1 = two ? __fmul_rn(p.w_scale[co + 1], p.x_scale) : 0.f;
+    const float b0 = p.bias != nullptr ? p.bias[co] : 0.f;
+    const float b1 = p.bias != nullptr && two ? p.bias[co + 1] : 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (!in[hh]) continue;
+      float v0 = __fmul_rn(__int2float_rn(acc[4 * i + 2 * hh]), s0);
+      float v1 = __fmul_rn(__int2float_rn(acc[4 * i + 2 * hh + 1]), s1);
+      if (p.bias != nullptr) {
+        v0 = __fadd_rn(v0, b0);
+        v1 = __fadd_rn(v1, b1);
+      }
+      TO* o = out + pix[hh] * p.Cout + co;
+      if (pairs) {
+        store_pair(o, v0, v1, true);
+      } else {
+        store_pair(o, v0, v1, false);
+        if (two) store_pair(o + 1, v1, 0.f, false);
+      }
+    }
+  }
 }
 
-bool aligned16(const void* q) {
-  return (reinterpret_cast<uintptr_t>(q) & 15u) == 0;
-}
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 
-struct Shape {
-  int TH, TW, col_tiles, splits;
-  long long tiles;  // output tiles
+// Mirrored by ops/conv.py::int8_plan: 8 x 8 pixel tiles, two a block; the
+// Cout tile BN of {64, 128, 160, 256} and the K split into `splits` (1, 2,
+// 4 or 8: a portable cluster) runs of `per` 128-channel chunks that an
+// estimate of the clocks of a two-image batch finds fastest, among the
+// tiles that pad Cout least (never from B; ties keep the wider tile and
+// fewer splits). m64nNk32 s8 takes the clocks of m64nNk16 bf16, so the
+// estimate is plan_bf16's.
+struct Plan {
+  int BN, tiles_w, tiles_img, tiles, blocks, n_tiles, splits, per;
+  size_t smem;
 };
 
-Shape plan(int B, int H, int W, int Cin, int Cout) {
-  Shape sh;
-  sh.TW = W < MAX_TW ? W : MAX_TW;
-  sh.TH = BM / sh.TW;
-  sh.col_tiles = (W + sh.TW - 1) / sh.TW;
-  sh.tiles = (long long)((Cout + BN - 1) / BN) *
-             ((B * (long long)H + sh.TH - 1) / sh.TH) * sh.col_tiles;
-  sh.splits = pick_splits(sh.tiles, (Cin + BK - 1) / BK);
-  return sh;
+Plan plan_int8(int B, int H, int W, int Cin, int Cout, int sms) {
+  Plan pl;
+  pl.tiles_w = (W + TILE - 1) / TILE;
+  pl.tiles_img = (H + TILE - 1) / TILE * pl.tiles_w;
+  pl.tiles = B * pl.tiles_img;
+  pl.blocks = (pl.tiles + 1) / 2;
+  const int n_chunks = (Cin + KC - 1) / KC;
+  const int options[4] = {256, 160, 128, 64};
+  long long least = 1LL << 40;
+  for (int bn : options) least = std::min(least, (long long)(Cout + bn - 1) / bn * bn);
+  double best = 1e300;
+  for (int bn : options) {
+    const int n_tiles = (Cout + bn - 1) / bn;
+    if ((long long)n_tiles * bn > least) continue;
+    const double t_mma = std::max(bn / 2.0, 16.0 + bn / 4.0);
+    for (int want = 1; want <= MAX_SPLITS && want <= n_chunks; want *= 2) {
+      const int per = (n_chunks + want - 1) / want;
+      const int splits = (n_chunks + per - 1) / per;
+      if (splits != want) continue;
+      const long long blocks2 = (long long)pl.tiles_img * n_tiles * splits;
+      const double waves = (double)((blocks2 + sms - 1) / sms);
+      const double cost = waves * (per * 72.0 * t_mma + 6000.0 +
+                                   (splits > 1 ? 12.0 * splits * bn : 0.0));
+      if (cost < best) {
+        best = cost;
+        pl.BN = bn;
+        pl.n_tiles = n_tiles;
+        pl.per = per;
+        pl.splits = splits;
+      }
+    }
+  }
+  switch (pl.BN) {
+    case 64: pl.smem = smem_bytes<64>(); break;
+    case 128: pl.smem = smem_bytes<128>(); break;
+    case 160: pl.smem = smem_bytes<160>(); break;
+    default: pl.smem = smem_bytes<256>(); break;
+  }
+  return pl;
 }
+
+template <int BN, typename TO>
+cudaError_t launch(const Params& p, const Plan& pl, const int8_t* q, const int8_t* w,
+                   cudaStream_t stream) {
+  auto kernel = conv3x3_int8_kernel<BN, TO>;
+  constexpr size_t smem = smem_bytes<BN>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  CUtensorMap qmap, wmap;
+  memset(&qmap, 0, sizeof(qmap));
+  memset(&wmap, 0, sizeof(wmap));
+  const cuuint64_t row = (cuuint64_t)p.Cin;
+  const cuuint64_t qd[4] = {(cuuint64_t)p.Cin, (cuuint64_t)p.W, (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const cuuint64_t qs[3] = {row, row * p.W, row * p.W * p.H};
+  const cuuint32_t qb[4] = {KC, SW, SW, 1};
+  const cuuint64_t wd[3] = {(cuuint64_t)p.Cin, 9, (cuuint64_t)p.Cout};
+  const cuuint64_t ws[2] = {row, row * 9};
+  const cuuint32_t wb[3] = {KC, 1, BN};
+  if (!tensor_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, 4, qd, qs, qb) ||
+      !tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, 3, wd, ws, wb))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.blocks, pl.n_tiles, pl.splits);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = pl.splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p, qmap, wmap);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+bool aligned16(const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15u) == 0; }
 
 }  // namespace
 
-// The workspace ppt_conv3x3_int8 needs for this shape: returns the int32
-// elements of sums and sets *counters to the number of 32-bit tile
-// counters, all zeroed by the caller (both 0 when it does not split K).
-extern "C" long long ppt_conv3x3_int8_workspace(int B, int H, int W, int Cin,
-                                                int Cout, long long* counters) {
-  const Shape sh = plan(B, H, W, Cin, Cout);
-  *counters = sh.splits > 1 ? sh.tiles : 0;
-  return sh.splits > 1 ? (long long)B * H * W * Cout : 0;
+// The plan for a shape: out[0..6] = the Cout tile, 8 x 8 pixel tiles,
+// blocks along the pixels, Cout tiles, K splits, chunks per split, shared
+// memory bytes. `sms` is the SM count it plans for.
+extern "C" void ppt_conv3x3_int8_plan(int B, int H, int W, int Cin, int Cout, int sms,
+                                      long long* out) {
+  const Plan pl = plan_int8(B, H, W, Cin, Cout, sms);
+  const long long v[7] = {pl.BN, pl.tiles, pl.blocks, pl.n_tiles, pl.splits, pl.per,
+                          (long long)pl.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
 }
 
-// x: (B, H, W, Cin) fp32 or bf16; w: (Cout, 3, 3, Cin) int8; w_scale (Cout)
-// and bias (Cout, or null) fp32; out: (B, H, W, Cout) in x's dtype; all
-// contiguous. mean and rstd: (B, G) fp32, gamma and beta: (Cin) fp32, all
-// null for the form without the prologue. x_scale and inv_x_scale: the
-// static activation scale and its fp32 reciprocal. ws and counters: the
-// zeroed workspace ppt_conv3x3_int8_workspace sizes, or null when it is 0.
-// Returns the CUDA error code of the launch.
-extern "C" int ppt_conv3x3_int8(const void* x, const int8_t* w,
-                                const float* w_scale, const float* bias,
-                                const float* mean, const float* rstd,
-                                const float* gamma, const float* beta,
-                                void* out, int* ws, unsigned int* counters,
-                                float x_scale, float inv_x_scale, int is_bf16,
-                                int B, int H, int W, int Cin, int Cout, int G,
-                                void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
+// q: (B, H, W, Cin) int8, the quantised activation; w: (Cout, 3, 3, Cin)
+// int8; w_scale (Cout) and bias (Cout, or null) fp32; out: (B, H, W, Cout)
+// bf16 when out_bf16, else fp32; all contiguous, q and w 16-byte aligned,
+// Cin a multiple of 16. Returns the CUDA error code of the launch.
+extern "C" int ppt_conv3x3_int8(const int8_t* q, const int8_t* w, const float* w_scale,
+                                const float* bias, void* out, float x_scale, int out_bf16,
+                                int B, int H, int W, int Cin, int Cout, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % 16 != 0 ||
+      !aligned16(q) || !aligned16(w) || w_scale == nullptr || out == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (mean != nullptr && (G <= 0 || Cin % G != 0))
+  const Plan pl = plan_int8(B, H, W, Cin, Cout, hopper::sm_count());
+  if ((long long)B * H * W > 2147483647LL || pl.n_tiles > 65535)
     return (int)cudaErrorInvalidValue;
-  const Shape sh = plan(B, H, W, Cin, Cout);
-  if ((long long)B * H > 2147483647LL - sh.TH ||
-      ((long long)B * H + sh.TH - 1) / sh.TH > 65535 ||
-      (long long)sh.col_tiles * sh.splits > 65535 ||
-      (sh.splits > 1 && (ws == nullptr || counters == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const int xvec_elems = is_bf16 ? 8 : 4;
-  const int NB = std::min(B, (sh.TH + 2 + H - 1) / H + 1);
-  Params p{x, w, w_scale, bias, mean, rstd, gamma, beta, out,
-           x_scale, inv_x_scale, B, H, W, Cin, Cout, G, sh.TH, sh.TW, NB,
-           Cin % xvec_elems == 0 && aligned16(x),
-           Cin % 16 == 0 && aligned16(w),
-           sh.col_tiles, sh.splits, ws, counters};
+  const Params p{w_scale, bias, out, x_scale, B, H, W, Cin, Cout,
+                 (W + TILE - 1) / TILE, pl.tiles_img, pl.tiles, pl.splits, pl.per};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch<bf16>(p, s) : launch<float>(p, s));
+  switch (pl.BN) {
+    case 64: return (int)(out_bf16 ? launch<64, bf16>(p, pl, q, w, s) : launch<64, float>(p, pl, q, w, s));
+    case 128: return (int)(out_bf16 ? launch<128, bf16>(p, pl, q, w, s) : launch<128, float>(p, pl, q, w, s));
+    case 160: return (int)(out_bf16 ? launch<160, bf16>(p, pl, q, w, s) : launch<160, float>(p, pl, q, w, s));
+    default: return (int)(out_bf16 ? launch<256, bf16>(p, pl, q, w, s) : launch<256, float>(p, pl, q, w, s));
+  }
 }

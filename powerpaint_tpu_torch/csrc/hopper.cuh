@@ -1,8 +1,10 @@
 // PTX building blocks shared by the Hopper (sm_90a) kernels of this
-// directory: mbarriers, cp.async, proxy fences, named barriers, register
-// hand-over between warpgroups, and wgmma with its shared-memory matrix
-// descriptors. Included by flash_attention.cu and conv3x3.cu (each built
-// as its own library; the build hashes this header with each source).
+// directory: mbarriers, cp.async, TMA, proxy fences, named barriers,
+// cluster barriers and distributed shared memory, register hand-over
+// between warpgroups, and wgmma with its shared-memory matrix descriptors;
+// and the host side's SM count and tensor-map encoder. Included by every
+// source here (each built as its own library; the build hashes this header
+// with each source).
 //
 // The shared-memory operand layout of every wgmma here: rows of 64 bf16
 // (128 bytes), and the 16-byte chunk c of the row at byte address A stored
@@ -15,11 +17,58 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
+
+// ---- host -------------------------------------------------------------------
+
+// The current device's SM count, asked once.
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A tensor map of `type` elements over `rank` dims (innermost first, byte
+// strides of the outer ones), boxes of `box`, 128-byte swizzle, zeros
+// outside the tensor. cuTensorMapEncodeTiled (a libcuda entry point) is
+// found through the runtime, so no library links libcuda. False if it is
+// not found or refuses the map.
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status) !=
+            cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      return false;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// ---- device -----------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -99,6 +148,12 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint3
       : "memory");
 }
 
+// Bring a tensor map (a __grid_constant__ kernel parameter) into the TMA
+// unit's descriptor cache ahead of its first copy.
+__device__ __forceinline__ void tma_prefetch(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -128,6 +183,46 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- thread-block clusters ----------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives (release: its earlier
+// shared-memory writes become visible to the cluster) and later waits
+// (acquire) for all the others; the two halves may be split.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The address in block `rank` of the cluster of the shared-memory word at
+// this block's address `addr` (distributed shared memory).
+__device__ __forceinline__ uint32_t dsmem_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_dsmem_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ int ld_dsmem_s32(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 template <int N>
@@ -182,6 +277,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 template <int M, int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {

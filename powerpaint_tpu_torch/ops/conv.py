@@ -6,10 +6,11 @@ GroupNorm + SiLU prologue.
 ``powerpaint_tpu/ops/conv_pallas.py::_fused_kernel`` and ``_plain_kernel``.
 Both wrap one hand-written CUDA kernel, ``csrc/conv3x3.cu`` (an implicit
 GEMM on the tensor cores, the prologue a compile-time flag); the GroupNorm
-statistics come first from ``ops.norms.group_norm_stats``, so a ResNet unit
-costs two Triton launches and one conv launch, and the normalised activation
-never goes through device memory. What bounds the kernel and what its design
-does about it is written at the top of the ``.cu`` source.
+statistics come first from ``ops.norms.group_norm_stats`` (one launch of
+``csrc/group_norm.cu`` at the UNet's maps), so a ResNet unit costs two
+launches, and the normalised activation never goes through device memory.
+What bounds the kernel and what its design does about it is written at the
+top of the ``.cu`` source.
 
 Activations are (B, H, W, C) and the weight is PyTorch's (Cout, Cin, 3, 3);
 the kernel reads it as (Cout, 3, 3, Cin), which is that weight in
@@ -19,8 +20,9 @@ raises; for a CPU tensor it runs its ``*_plain`` version (GroupNorm then
 ``F.conv2d``), which is also the kernel's oracle.
 
 The static-scale int8 forms of both (``conv3x3_gn_silu_int8``,
-``conv3x3_int8``, the JAX package's ``POWERPAINT_INT8`` path) wrap a second
-kernel, ``csrc/conv3x3_int8.cu``; they are described below.
+``conv3x3_int8``, the JAX package's ``POWERPAINT_INT8`` path) quantise the
+activation with ``ops.norms`` and run a second kernel,
+``csrc/conv3x3_int8.cu``; they are described below.
 """
 
 from __future__ import annotations
@@ -29,12 +31,18 @@ import ctypes
 import functools
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from powerpaint_tpu_torch.ops import _build
-from powerpaint_tpu_torch.ops.norms import group_norm_plain, group_norm_stats
+from powerpaint_tpu_torch.ops.norms import (
+    gn_silu_quantize_int8,
+    gn_silu_quantize_int8_plain,
+    group_norm_plain,
+    group_norm_stats,
+    quantize_int8,
+    quantize_int8_plain,
+)
 
 
 def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -197,8 +205,11 @@ conv3x3_gn_silu.launches = 0
 # per-tensor scale, q = clip(round_half_even(y * (1 / x_scale)), -127, 127);
 # int8 weights with one scale per output channel (``quantize_weights_int8``);
 # exact int32 sums; out = acc * (w_scale * x_scale) + bias in fp32, then x's
-# dtype. Both wrap ``csrc/conv3x3_int8.cu`` (the GN+SiLU+quantise prologue a
-# compile-time flag). ``int8_site`` is the JAX package's rule for which
+# dtype. On the card each is two launches: the quantiser of
+# ``ops.norms`` (``gn_silu_quantize_int8``, one launch with its GroupNorm
+# statistics at the UNet's maps; or ``quantize_int8``), then the int8
+# implicit GEMM ``csrc/conv3x3_int8.cu`` (wgmma s8 fed by TMA) on the
+# quantised activation. ``int8_site`` is the JAX package's rule for which
 # ResNet units run quantised; the others keep the bf16 kernel above.
 # ---------------------------------------------------------------------------
 
@@ -215,33 +226,11 @@ def quantize_weights_int8(weight: torch.Tensor):
     return w_q.to(torch.int8).permute(0, 2, 3, 1).contiguous(), scale
 
 
-def _inv_scale(x_scale: float) -> float:
-    # the quantiser multiplies by 1 / x_scale rounded once to fp32, as the
-    # TPU kernel's inv_x_scale
-    return float(np.float32(1.0 / float(x_scale)))
-
-
-def gn_silu_fp32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
-                 num_groups: int, eps: float) -> torch.Tensor:
-    """The int8 prologue's activation before quantisation: GroupNorm with
-    ``group_norm_stats`` statistics, ``(x - mean) * (rstd * gamma) + beta``,
-    then ``y * sigmoid(y)``, kept in fp32 (the bf16 path rounds it to x's
-    dtype; the quantiser does not)."""
-    b, c = x.shape[0], x.shape[-1]
-    mean, rstd = group_norm_stats(x, num_groups, eps)
-    rep = c // num_groups
-    mean = mean.repeat_interleave(rep, dim=1)[:, None, None, :]
-    scale = rstd.repeat_interleave(rep, dim=1)[:, None, None, :] * gamma.float()
-    y = (x.float() - mean) * scale + beta.float()
-    return y * torch.sigmoid(y)
-
-
-def _int8_product_plain(y: torch.Tensor, w_q: torch.Tensor,
+def _int8_product_plain(q: torch.Tensor, w_q: torch.Tensor,
                         w_scale: torch.Tensor, bias: Optional[torch.Tensor],
                         x_scale: float, dtype: torch.dtype) -> torch.Tensor:
-    """Quantise fp32 NHWC ``y``, sum the int8 products exactly (float64
-    holds every int32 sum), dequantise in fp32 and cast to ``dtype``."""
-    q = torch.clamp(torch.round(y * _inv_scale(x_scale)), -127, 127)
+    """The int8 products of quantised NHWC ``q`` summed exactly (float64
+    holds every int32 sum), dequantised in fp32, cast to ``dtype``."""
     acc = F.conv2d(q.permute(0, 3, 1, 2).double(),
                    w_q.permute(0, 3, 1, 2).double(), padding=1)
     out = acc.permute(0, 2, 3, 1).float() * (w_scale.float() * float(x_scale))
@@ -254,7 +243,8 @@ def conv3x3_int8_plain(x: torch.Tensor, w_q: torch.Tensor,
                        w_scale: torch.Tensor, bias: Optional[torch.Tensor], *,
                        x_scale: float) -> torch.Tensor:
     """``conv3x3_int8`` in plain PyTorch: x itself is quantised."""
-    return _int8_product_plain(x.float(), w_q, w_scale, bias, x_scale, x.dtype)
+    q = quantize_int8_plain(x, x_scale=x_scale)
+    return _int8_product_plain(q, w_q, w_scale, bias, x_scale, x.dtype)
 
 
 def conv3x3_gn_silu_int8_plain(x: torch.Tensor, w_q: torch.Tensor,
@@ -264,21 +254,53 @@ def conv3x3_gn_silu_int8_plain(x: torch.Tensor, w_q: torch.Tensor,
                                x_scale: float, num_groups: int,
                                eps: float) -> torch.Tensor:
     """``conv3x3_gn_silu_int8`` in plain PyTorch."""
-    y = gn_silu_fp32(x, gamma, beta, num_groups=num_groups, eps=eps)
-    return _int8_product_plain(y, w_q, w_scale, bias, x_scale, x.dtype)
+    q = gn_silu_quantize_int8_plain(x, gamma, beta, num_groups=num_groups,
+                                    eps=eps, x_scale=x_scale)
+    return _int8_product_plain(q, w_q, w_scale, bias, x_scale, x.dtype)
+
+
+def int8_plan(b: int, h: int, w: int, cin: int, cout: int,
+              sms: int = 132) -> dict:
+    """How the int8 kernel cuts a shape, as ``plan_int8`` in
+    ``csrc/conv3x3_int8.cu`` does it (a card test holds the two together):
+    ``bf16_plan``'s 8 x 8 pixel tiles, Cout tiles and clock estimate, over
+    128-channel K chunks, with the K split (a cluster of blocks) one of 1,
+    2, 4 or 8; never from ``b``."""
+    tiles_img = -(-h // 8) * -(-w // 8)
+    n_chunks = -(-cin // 128)
+    options = (256, 160, 128, 64)
+    least = min(-(-cout // n) * n for n in options)
+    best = None
+    for bn in options:
+        n_tiles = -(-cout // bn)
+        if n_tiles * bn > least:
+            continue
+        t_mma = max(bn / 2.0, 16.0 + bn / 4.0)
+        want = 1
+        while want <= 8 and want <= n_chunks:
+            per = -(-n_chunks // want)
+            splits = -(-n_chunks // per)
+            if splits == want:
+                waves = float(-(-(tiles_img * n_tiles * splits) // sms))
+                cost = waves * (per * 72.0 * t_mma + 6000.0 +
+                                (12.0 * splits * bn if splits > 1 else 0.0))
+                if best is None or cost < best[0]:
+                    best = (cost, bn, n_tiles, per, splits)
+            want *= 2
+    _, bn, n_tiles, per, splits = best
+    stages = min(8, 160 * 1024 // (bn * 128))
+    smem = 1024 + 2 * 2 * 13 * 1024 + stages * bn * 128 + 8 * (4 + 2 * stages)
+    return dict(bn=bn, tiles=b * tiles_img, blocks=-(-(b * tiles_img) // 2),
+                n_tiles=n_tiles, splits=splits, per=per, smem=smem)
 
 
 @functools.lru_cache(maxsize=None)
 def _int8_kernel():
-    lib = _build.load("conv3x3_int8")
-    fn = lib.ppt_conv3x3_int8
+    fn = _build.load("conv3x3_int8").ppt_conv3x3_int8
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    ws = lib.ppt_conv3x3_int8_workspace
-    ws.restype = ctypes.c_longlong
-    ws.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-    return fn, ws
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    return fn
 
 
 def _check_int8(name, x, w_q, w_scale, bias):
@@ -300,28 +322,28 @@ def _check_int8(name, x, w_q, w_scale, bias):
         raise ValueError(f"{name}: w_q must be on {x.device}")
 
 
-def _launch_int8(x, w_q, w_scale, bias, x_scale, gn) -> torch.Tensor:
-    b, h, w, cin = x.shape
+def int8_product(q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                 bias: Optional[torch.Tensor], x_scale: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The int8 conv kernel alone on a quantised (B, H, W, Cin) int8
+    activation on the card -> (B, H, W, Cout) in ``dtype``: the second
+    launch of the int8 units (not counted; the units count themselves).
+    A Cin off 16 (test shapes only) is padded with zero channels, which
+    the TMA strides need and which add nothing to the sums."""
+    b, h, w, cin = q.shape
     cout = w_q.shape[0]
-    kernel, workspace = _int8_kernel()
-    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    # zeroed int32 sums and tile counters where the kernel splits K
-    n_counters = ctypes.c_longlong(0)
-    n_ws = workspace(b, h, w, cin, cout, ctypes.byref(n_counters))
-    ws = counters = None
-    if n_ws:
-        ws = torch.zeros(n_ws + n_counters.value, dtype=torch.int32,
-                         device=x.device)
-        ws, counters = ws[:n_ws], ws[n_ws:]
-    mean, rstd, gamma, beta = gn if gn is not None else (None,) * 4
-    groups = mean.shape[1] if gn is not None else 0
-    ptr = (lambda t: None if t is None else t.data_ptr())
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = kernel(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), ptr(bias),
-                 ptr(mean), ptr(rstd), ptr(gamma), ptr(beta), out.data_ptr(),
-                 ptr(ws), ptr(counters), float(x_scale), _inv_scale(x_scale),
-                 int(x.dtype == torch.bfloat16), b, h, w, cin, cout, groups,
-                 stream)
+    if cin % 16:
+        pad = 16 - cin % 16
+        q = F.pad(q, (0, pad)).contiguous()
+        w_q = F.pad(w_q, (0, pad)).contiguous()
+        cin += pad
+    out = torch.empty((b, h, w, cout), dtype=dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _int8_kernel()(q.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+                         None if bias is None else bias.data_ptr(),
+                         out.data_ptr(), float(x_scale),
+                         int(dtype == torch.bfloat16), b, h, w, cin, cout,
+                         stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_int8 kernel launch failed: CUDA error {err}")
     return out
@@ -336,7 +358,8 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if not x.is_cuda:
         return conv3x3_int8_plain(x, w_q, w_scale, bias, x_scale=x_scale)
     _check_int8("conv3x3_int8", x, w_q, w_scale, bias)
-    out = _launch_int8(x, w_q, w_scale, bias, x_scale, None)
+    q = quantize_int8(x, x_scale=x_scale)
+    out = int8_product(q, w_q, w_scale, bias, x_scale, x.dtype)
     conv3x3_int8.launches += 1
     return out
 
@@ -359,8 +382,9 @@ def conv3x3_gn_silu_int8(x: torch.Tensor, w_q: torch.Tensor,
                 t.device != x.device or not t.is_contiguous():
             raise ValueError(f"conv3x3_gn_silu_int8: gamma/beta must be "
                              f"({cin},) fp32 on {x.device}")
-    mean, rstd = group_norm_stats(x, num_groups, eps)
-    out = _launch_int8(x, w_q, w_scale, bias, x_scale, (mean, rstd, gamma, beta))
+    q = gn_silu_quantize_int8(x, gamma, beta, num_groups=num_groups, eps=eps,
+                              x_scale=x_scale)
+    out = int8_product(q, w_q, w_scale, bias, x_scale, x.dtype)
     conv3x3_gn_silu_int8.launches += 1
     return out
 

@@ -1,44 +1,47 @@
-"""GroupNorm (+ SiLU) and LayerNorm: Triton kernels and their plain versions.
+"""GroupNorm (+ SiLU), its statistics, the int8 activation quantisers and
+LayerNorm: a CUDA kernel, a Triton kernel and their plain versions.
 
-Public functions keep the JAX package's layout: ``group_norm`` takes
+Public functions keep the JAX package's layout: the GroupNorm family takes
 (B, ..., C) with channels last (an NCHW tensor in channels_last memory,
 permuted to NHWC, is such a view), ``layer_norm`` normalizes the last axis.
-For a CUDA tensor each launches its Triton kernel or raises; for a CPU
-tensor each runs its ``*_plain`` version, which is also the kernels'
-oracle.
+For a CUDA tensor each launches its kernel or raises; for a CPU tensor
+each runs its ``*_plain`` version, which is also the kernel's oracle.
 
-Kernel 2, ``group_norm``, replaces the TPU kernel
-``powerpaint_tpu/ops/norms_pallas.py::_gn_kernel`` (``group_norm_fused``).
-It is bound by memory: a read and a write of x is the least it could move.
-The TPU kernel held one whole feature map in VMEM and took single-pass
-E[x^2] - mean^2 statistics; neither carries over. Here three launches:
-(1) per-(batch, chunk of rows) partial statistics of every group, each
-tile read in full rows of C (coalesced) as a [rows, groups, group width]
-block, mean and M2 taken two-pass inside the tile, so a 262144 x 128 VAE
-map spreads over thousands of programs; (2) per (batch, group), Chan's
-merge of the partials into mean and 1/std, exact to fp32 rounding at any
-size; (3) normalize, gamma/beta, optional SiLU, one more read and the
-write. That is two reads and one write: 1.5x the bound.
+The GroupNorm family (``group_norm``, ``group_norm_stats``,
+``gn_silu_quantize_int8``, ``quantize_int8``) is one CUDA source,
+``csrc/group_norm.cu``, replacing the TPU kernel
+``powerpaint_tpu/ops/norms_pallas.py::_gn_kernel`` (``group_norm_fused``),
+the statistics the conv kernels take, and the activation quantiser of the
+int8 conv kernels. Where a map fits the shared memory of a thread-block
+cluster (every UNet and BrushNet map at 512^2) it is one launch that reads
+x once and writes once; the VAE's largest maps take two. How it cuts a
+shape is mirrored here by ``gn_plan``; what bounds it and what its design
+does about it is written at the top of the source. Statistics are the same
+bits in every mode for one tensor, so ``gn_silu_quantize_int8`` quantises
+exactly what its plain version (``group_norm_stats``, then PyTorch's fp32
+operations) quantises.
 
-Kernel 3, ``layer_norm``, replaces ``norms_pallas.py::_ln_kernel``
-(``layer_norm_fused``): one program per row, the row held in registers
-(BLOCK = next power of two >= C, C <= 1280 on the main path), two-pass fp32
-statistics, gamma/beta. One read and one write, the bound itself.
-
-Triton exists only on the GPU host: it is imported, and the kernels are
+``layer_norm`` replaces ``norms_pallas.py::_ln_kernel``
+(``layer_norm_fused``): a Triton kernel, one program per row, the row held
+in registers (BLOCK = next power of two >= C, C <= 1280 on the main path),
+two-pass fp32 statistics, gamma/beta. One read and one write, the bound
+itself. Triton exists only on the GPU host: it is imported, and the kernel
 compiled, at the first launch. Until then ``tl`` below is None; the kernel
-bodies resolve it at compile time.
+body resolves it at compile time.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-import types
 from typing import Tuple
 
+import numpy as np
 import torch
 
-tl = None  # triton.language, bound by _kernels() at the first launch
+from powerpaint_tpu_torch.ops import _build
+
+tl = None  # triton.language, bound by _ln() at the first launch
 
 
 # ---------------------------------------------------------------------------
@@ -73,86 +76,256 @@ def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (out * gamma.float() + beta.float()).to(x.dtype)
 
 
+def group_norm_stats_plain(x: torch.Tensor, num_groups: int,
+                           eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-pass fp32 mean and 1/sqrt(var + eps) per (batch, group), each
+    (B, G)."""
+    b, c = x.shape[0], x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    xf = x.float().reshape(b, -1, num_groups, c // num_groups)
+    mean = xf.mean(dim=(1, 3))
+    var = (xf - mean[:, None, :, None]).square().mean(dim=(1, 3))
+    return mean, torch.rsqrt(var + eps)
+
+
+def inv_scale(x_scale: float) -> float:
+    """1 / x_scale rounded once to fp32: the quantiser multiplies by it, as
+    the TPU kernels' inv_x_scale."""
+    return float(np.float32(1.0 / float(x_scale)))
+
+
+def gn_silu_fp32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
+                 num_groups: int, eps: float) -> torch.Tensor:
+    """The int8 units' activation before quantisation: GroupNorm with
+    ``group_norm_stats`` statistics, ``(x - mean) * (rstd * gamma) + beta``,
+    then ``y * sigmoid(y)``, kept in fp32 (the bf16 path rounds it to x's
+    dtype; the quantiser does not)."""
+    c = x.shape[-1]
+    mean, rstd = group_norm_stats(x, num_groups, eps)
+    rep = c // num_groups
+    view = (x.shape[0],) + (1,) * (x.dim() - 2) + (c,)
+    mean = mean.repeat_interleave(rep, dim=1).reshape(view)
+    scale = rstd.repeat_interleave(rep, dim=1).reshape(view) * gamma.float()
+    y = (x.float() - mean) * scale + beta.float()
+    return y * torch.sigmoid(y)
+
+
+def _quantize_plain(y: torch.Tensor, x_scale: float) -> torch.Tensor:
+    return torch.clamp(torch.round(y * inv_scale(x_scale)), -127, 127).to(torch.int8)
+
+
+def quantize_int8_plain(x: torch.Tensor, *, x_scale: float) -> torch.Tensor:
+    """``clip(round_half_even(x * (1 / x_scale)), -127, 127)`` in fp32, int8."""
+    return _quantize_plain(x.float(), x_scale)
+
+
+def gn_silu_quantize_int8_plain(x: torch.Tensor, gamma: torch.Tensor,
+                                beta: torch.Tensor, *, num_groups: int,
+                                eps: float, x_scale: float) -> torch.Tensor:
+    """``gn_silu_fp32`` then the quantiser, int8 in x's shape."""
+    return _quantize_plain(gn_silu_fp32(x, gamma, beta, num_groups=num_groups,
+                                        eps=eps), x_scale)
+
+
 # ---------------------------------------------------------------------------
-# Triton kernels (compiled at the first launch)
+# GroupNorm family: csrc/group_norm.cu
 # ---------------------------------------------------------------------------
 
-
-def _gn_partial_kernel(X, PMEAN, PM2, S, C, GS, NG, n_chunks,
-                       BLOCK_S: "tl.constexpr", G: "tl.constexpr",
-                       GSP: "tl.constexpr"):
-    """Partial mean and M2 of every group over one chunk of rows."""
-    b = tl.program_id(0)
-    chunk = tl.program_id(1)
-    rows = chunk * BLOCK_S + tl.arange(0, BLOCK_S)
-    g = tl.arange(0, G)
-    j = tl.arange(0, GSP)
-    col = g[None, :, None] * GS + j[None, None, :]
-    mask = ((rows[:, None, None] < S) & (g[None, :, None] < NG)
-            & (j[None, None, :] < GS))
-    offs = (b.to(tl.int64) * S * C + rows[:, None, None].to(tl.int64) * C
-            + col)
-    x = tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
-    n_rows = tl.minimum(S - chunk * BLOCK_S, BLOCK_S)
-    cnt = (n_rows * GS).to(tl.float32)
-    mean = tl.sum(tl.sum(x, axis=2), axis=0) / cnt
-    dx = tl.where(mask, x - mean[None, :, None], 0.0)
-    m2 = tl.sum(tl.sum(dx * dx, axis=2), axis=0)
-    out = (b * n_chunks + chunk) * G + g
-    tl.store(PMEAN + out, mean)
-    tl.store(PM2 + out, m2)
+_RESIDENT_BYTES = 96 * 1024
+_MAX_CLUSTER = 16
+_MIN_ROWS = 128
+_STREAM_CHUNKS = 128
+_SUB_BYTES = 32 * 1024
+_STATS, _APPLY, _QUANT = 0, 1, 2
 
 
-def _gn_finalize_kernel(PMEAN, PM2, MEAN, RSTD, S, GS, NG, n_chunks, eps,
-                        BLOCK_S: "tl.constexpr", G: "tl.constexpr",
-                        BLOCK_N: "tl.constexpr"):
-    """Chan's merge of the partials of one (batch, group)."""
-    pid = tl.program_id(0)
-    b = pid // NG
-    g = pid % NG
-    total = S * GS * 1.0  # float even where Triton made S or GS a constant
-    acc = tl.zeros([BLOCK_N], dtype=tl.float32)
-    for start in range(0, n_chunks, BLOCK_N):
-        i = start + tl.arange(0, BLOCK_N)
-        m = i < n_chunks
-        mu = tl.load(PMEAN + (b * n_chunks + i) * G + g, mask=m, other=0.0)
-        n_i = (tl.minimum(S - i * BLOCK_S, BLOCK_S) * GS).to(tl.float32)
-        acc += tl.where(m, n_i * mu, 0.0)
-    mean = tl.sum(acc, axis=0) / total
-    acc = tl.zeros([BLOCK_N], dtype=tl.float32)
-    for start in range(0, n_chunks, BLOCK_N):
-        i = start + tl.arange(0, BLOCK_N)
-        m = i < n_chunks
-        mu = tl.load(PMEAN + (b * n_chunks + i) * G + g, mask=m, other=0.0)
-        m2 = tl.load(PM2 + (b * n_chunks + i) * G + g, mask=m, other=0.0)
-        n_i = (tl.minimum(S - i * BLOCK_S, BLOCK_S) * GS).to(tl.float32)
-        d = mu - mean
-        acc += tl.where(m, m2 + n_i * d * d, 0.0)
-    var = tl.sum(acc, axis=0) / total
-    tl.store(MEAN + pid, mean)
-    tl.store(RSTD + pid, 1.0 / tl.sqrt(var + eps))
+def gn_plan(s: int, c: int, groups: int, esize: int, sms: int = 132) -> dict:
+    """How ``csrc/group_norm.cu`` cuts a (B, S, C) map with ``groups``
+    groups of ``esize``-byte elements, as ``plan_gn`` there does it (a card
+    test holds the two together), never from B. Resident form: a cluster of
+    ``cluster`` blocks per (image, span of ``span`` channels, ``k`` groups),
+    each block holding ``rows`` rows in shared memory; the span is the
+    narrowest of whole groups whose row is a whole number of 32-byte
+    sectors (16-byte vectors where no such span fits), the cluster the
+    smallest power of two up to 16 whose tiles fit 96 KB, grown while a
+    two-image batch leaves SMs without a block and each block keeps 128
+    rows. Streamed form (no cluster
+    holds the map): ``chunks`` blocks of ``rows`` rows an image, each
+    staging sub-tiles of ``sub_rows`` rows. ``smem`` (and ``smem2``, the
+    streamed form's second launch) in bytes."""
+    gs = c // groups
+
+    def tile(span, n):
+        return -(-s // n) * span * esize
+
+    def cluster_for(span):
+        n = 1
+        while n < _MAX_CLUSTER and n < s and (
+                tile(span, n) > _RESIDENT_BYTES
+                or (2 * (c // span) * n < sms and -(-s // (2 * n)) >= _MIN_ROWS)):
+            n *= 2
+        return n if tile(span, n) <= _RESIDENT_BYTES else 0
+
+    span = n = 0
+    for align in (32, 16):
+        for k in range(1, groups + 1):
+            if groups % k or (k * gs * esize) % align:
+                continue
+            n = cluster_for(k * gs)
+            if n:
+                span = k * gs
+            break
+        if span:
+            break
+    if not span:
+        n = cluster_for(c)
+        span = c if n else 0
+    if span:
+        rows = -(-s // n)
+        k = span // gs
+        return dict(resident=1, span=span, spans=c // span, k=k, cluster=n,
+                    rows=rows, chunks=n, sub_rows=0,
+                    smem=-(-rows * span * esize // 16) * 16
+                    + 4 * (4 * span + 4 * k + max(2048, span, 2 * _MAX_CLUSTER * k)),
+                    smem2=0)
+    chunks = min(_STREAM_CHUNKS, s)
+    rows = -(-s // chunks)
+    sub_rows = max(1, min(rows, _SUB_BYTES // (c * esize)))
+    return dict(resident=0, span=c, spans=1, k=groups, cluster=1, rows=rows,
+                chunks=chunks, sub_rows=sub_rows,
+                smem=2 * (-(-sub_rows * c * esize // 16) * 16)
+                + 4 * (2 * groups + c + max(2048, c)),
+                smem2=4 * (3 * c + 2 * groups))
 
 
-def _gn_apply_kernel(X, Y, W, B, MEAN, RSTD, S, C, GS, NG,
-                     BLOCK_R: "tl.constexpr", CP: "tl.constexpr",
-                     SILU: "tl.constexpr"):
-    """(x - mean) * rstd * gamma + beta, then SiLU when asked."""
-    b = tl.program_id(0)
-    rows = tl.program_id(1) * BLOCK_R + tl.arange(0, BLOCK_R)
-    cols = tl.arange(0, CP)
-    cm = cols < C
-    grp = cols // GS
-    mean = tl.load(MEAN + b * NG + grp, mask=cm, other=0.0)
-    rstd = tl.load(RSTD + b * NG + grp, mask=cm, other=0.0)
-    w = tl.load(W + cols, mask=cm, other=0.0).to(tl.float32)
-    bias = tl.load(B + cols, mask=cm, other=0.0).to(tl.float32)
-    mask = (rows[:, None] < S) & cm[None, :]
-    offs = b.to(tl.int64) * S * C + rows[:, None].to(tl.int64) * C + cols[None, :]
-    x = tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
-    y = (x - mean[None, :]) * rstd[None, :] * w[None, :] + bias[None, :]
-    if SILU:
-        y = y / (1.0 + tl.exp(-y))
-    tl.store(Y + offs, y.to(Y.dtype.element_ty), mask=mask)
+@functools.lru_cache(maxsize=None)
+def _gn_lib():
+    lib = _build.load("group_norm")
+    fn = lib.ppt_group_norm
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    ws = lib.ppt_group_norm_workspace
+    ws.restype = ctypes.c_longlong
+    ws.argtypes = [ctypes.c_int] * 5
+    qz = lib.ppt_quantize_int8
+    qz.restype = ctypes.c_int
+    qz.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    return fn, ws, qz
+
+
+def _check_x(x, name):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name} takes fp32 or bf16, got {x.dtype}")
+    if x.dim() < 2 or not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous (B, ..., C) tensor")
+
+
+def _check_affine(x, gamma, beta, name):
+    c = x.shape[-1]
+    for p in (gamma, beta):
+        if p.shape != (c,) or p.dtype != torch.float32 or \
+                p.device != x.device or not p.is_contiguous():
+            raise ValueError(f"{name}: gamma/beta must be ({c},) fp32 on {x.device}")
+
+
+def _launch_gn(x, gamma, beta, num_groups, eps, mode, *, silu=False,
+               x_scale=None, cluster=0):
+    """One call of ``ppt_group_norm``: returns (output or None, (2, B, G)
+    statistics). ``cluster`` > 0 forces the resident form's cluster size
+    (the card tests' refusal check)."""
+    b, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (b * c)
+    if c % num_groups or not 0 < num_groups <= 256:
+        raise ValueError(f"{tuple(x.shape)} does not split into {num_groups} "
+                         "groups (1 to 256)")
+    fn, ws, _ = _gn_lib()
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    stats = torch.empty((2, b, num_groups), dtype=torch.float32, device=x.device)
+    n_part = ws(b, s, c, num_groups, is_bf16)
+    part = (torch.empty(n_part, dtype=torch.float32, device=x.device)
+            if n_part else None)
+    out = q = None
+    if mode == _APPLY:
+        out = torch.empty_like(x)
+    elif mode == _QUANT:
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), ptr(gamma), ptr(beta), ptr(out), ptr(q),
+             stats.data_ptr(), ptr(part), float(eps),
+             inv_scale(x_scale) if x_scale is not None else 0.0, mode,
+             int(silu), is_bf16, b, s, c, num_groups, int(cluster), stream)
+    if err != 0:
+        raise RuntimeError(f"group_norm kernel launch failed: CUDA error {err}")
+    return (out if mode == _APPLY else q), stats
+
+
+def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
+               num_groups: int = 32, eps: float = 1e-6,
+               silu: bool = False) -> torch.Tensor:
+    """GroupNorm over (B, ..., C), statistics per (batch, group) in fp32,
+    then optional SiLU; output in x's dtype. gamma and beta (C,) fp32."""
+    if not x.is_cuda:
+        return group_norm_plain(x, gamma, beta, num_groups=num_groups,
+                                eps=eps, silu=silu)
+    _check_x(x, "group_norm")
+    _check_affine(x, gamma, beta, "group_norm")
+    out, _ = _launch_gn(x, gamma, beta, num_groups, eps, _APPLY, silu=silu)
+    group_norm.launches += 1
+    return out
+
+
+def group_norm_stats(x: torch.Tensor, num_groups: int,
+                     eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, group) fp32 mean and 1/sqrt(var + eps) of (B, ..., C),
+    each (B, G), for a consumer that applies the norm itself (the bf16
+    conv's GroupNorm+SiLU prologue, the int8 units' plain version)."""
+    if not x.is_cuda:
+        return group_norm_stats_plain(x, num_groups, eps)
+    _check_x(x, "group_norm_stats")
+    _, stats = _launch_gn(x, None, None, num_groups, eps, _STATS)
+    group_norm_stats.launches += 1
+    return stats[0], stats[1]
+
+
+def gn_silu_quantize_int8(x: torch.Tensor, gamma: torch.Tensor,
+                          beta: torch.Tensor, *, num_groups: int, eps: float,
+                          x_scale: float) -> torch.Tensor:
+    """The int8 units' activation: ``clip(round_half_even(silu(GN(x)) *
+    (1 / x_scale)), -127, 127)`` with fp32 statistics, int8 in x's shape;
+    bitwise ``gn_silu_quantize_int8_plain``. gamma and beta (C,) fp32."""
+    if not x.is_cuda:
+        return gn_silu_quantize_int8_plain(x, gamma, beta, num_groups=num_groups,
+                                           eps=eps, x_scale=x_scale)
+    _check_x(x, "gn_silu_quantize_int8")
+    _check_affine(x, gamma, beta, "gn_silu_quantize_int8")
+    q, _ = _launch_gn(x, gamma, beta, num_groups, eps, _QUANT, x_scale=x_scale)
+    gn_silu_quantize_int8.launches += 1
+    return q
+
+
+def quantize_int8(x: torch.Tensor, *, x_scale: float) -> torch.Tensor:
+    """``clip(round_half_even(x * (1 / x_scale)), -127, 127)``, int8 in x's
+    shape; bitwise ``quantize_int8_plain``."""
+    if not x.is_cuda:
+        return quantize_int8_plain(x, x_scale=x_scale)
+    _check_x(x, "quantize_int8")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    err = _gn_lib()[2](x.data_ptr(), q.data_ptr(), x.numel(),
+                       inv_scale(x_scale), int(x.dtype == torch.bfloat16),
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quantize_int8 kernel launch failed: CUDA error {err}")
+    quantize_int8.launches += 1
+    return q
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm: Triton (compiled at the first launch)
+# ---------------------------------------------------------------------------
 
 
 def _ln_kernel(X, Y, W, B, C, eps, BLOCK: "tl.constexpr"):
@@ -172,110 +345,17 @@ def _ln_kernel(X, Y, W, B, C, eps, BLOCK: "tl.constexpr"):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernels():
+def _ln():
     global tl
     import triton
     import triton.language as language
 
     tl = language
-    return types.SimpleNamespace(
-        gn_partial=triton.jit(_gn_partial_kernel),
-        gn_finalize=triton.jit(_gn_finalize_kernel),
-        gn_apply=triton.jit(_gn_apply_kernel),
-        ln=triton.jit(_ln_kernel),
-    )
+    return triton.jit(_ln_kernel)
 
 
 def _pow2(n: int) -> int:
     return 1 << max(0, (int(n) - 1).bit_length())
-
-
-_TILE = 4096  # elements per program in the GroupNorm tiles
-
-
-def _check(x, gamma, beta, name):
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name} takes fp32 or bf16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} needs a contiguous (B, ..., C) tensor")
-    c = x.shape[-1]
-    for p in (gamma, beta):
-        if p.shape != (c,) or p.device != x.device or not p.is_contiguous():
-            raise ValueError(f"{name}: gamma/beta must be ({c},) on {x.device}")
-
-
-def _launch_stats(x, num_groups, eps):
-    """Launches (1) and (2): (2, B, G) fp32 mean and 1/std."""
-    k = _kernels()
-    b, c = x.shape[0], x.shape[-1]
-    s = x.numel() // (b * c)
-    gs = c // num_groups
-    gp, gsp = _pow2(num_groups), _pow2(gs)
-    block_s = max(1, _TILE // (gp * gsp))
-    n_chunks = -(-s // block_s)
-    part = torch.empty((2, b, n_chunks, gp), dtype=torch.float32,
-                       device=x.device)
-    stats = torch.empty((2, b, num_groups), dtype=torch.float32,
-                        device=x.device)
-    k.gn_partial[(b, n_chunks)](
-        x, part[0], part[1], s, c, gs, num_groups, n_chunks,
-        BLOCK_S=block_s, G=gp, GSP=gsp, num_warps=4)
-    k.gn_finalize[(b * num_groups,)](
-        part[0], part[1], stats[0], stats[1], s, gs, num_groups, n_chunks,
-        float(eps), BLOCK_S=block_s, G=gp, BLOCK_N=1024, num_warps=4)
-    return stats
-
-
-def _launch_group_norm(x, gamma, beta, num_groups, eps, silu):
-    k = _kernels()
-    b, c = x.shape[0], x.shape[-1]
-    s = x.numel() // (b * c)
-    gs = c // num_groups
-    stats = _launch_stats(x, num_groups, eps)
-    out = torch.empty_like(x)
-    cp = _pow2(c)
-    block_r = max(1, _TILE // cp)
-    k.gn_apply[(b, -(-s // block_r))](
-        x, out, gamma, beta, stats[0], stats[1], s, c, gs, num_groups,
-        BLOCK_R=block_r, CP=cp, SILU=bool(silu), num_warps=4)
-    return out
-
-
-def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
-               num_groups: int = 32, eps: float = 1e-6,
-               silu: bool = False) -> torch.Tensor:
-    """GroupNorm over (B, ..., C), statistics per (batch, group) in fp32,
-    then optional SiLU; output in x's dtype."""
-    if not x.is_cuda:
-        return group_norm_plain(x, gamma, beta, num_groups=num_groups,
-                                eps=eps, silu=silu)
-    _check(x, gamma, beta, "group_norm")
-    if x.dim() < 2 or x.shape[-1] % num_groups:
-        raise ValueError(f"group_norm: {tuple(x.shape)} with {num_groups} groups")
-    out = _launch_group_norm(x, gamma, beta, num_groups, eps, silu)
-    group_norm.launches += 1
-    return out
-
-
-def group_norm_stats(x: torch.Tensor, num_groups: int,
-                     eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-(batch, group) fp32 mean and 1/sqrt(var + eps) of (B, ..., C),
-    each (B, G): the statistics pass of ``group_norm`` (launches (1) and
-    (2) on a CUDA tensor), for a consumer that applies the norm itself (the
-    GroupNorm+SiLU prologue of ``ops.conv.conv3x3_gn_silu``). Not counted
-    in ``group_norm.launches``."""
-    b, c = x.shape[0], x.shape[-1]
-    if c % num_groups:
-        raise ValueError(f"{c} channels do not split into {num_groups} groups")
-    if not x.is_cuda:
-        xf = x.float().reshape(b, -1, num_groups, c // num_groups)
-        mean = xf.mean(dim=(1, 3))
-        var = (xf - mean[:, None, :, None]).square().mean(dim=(1, 3))
-        return mean, torch.rsqrt(var + eps)
-    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
-        raise ValueError("group_norm_stats takes a contiguous fp32 or bf16 tensor")
-    stats = _launch_stats(x, num_groups, eps)
-    return stats[0], stats[1]
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
@@ -283,10 +363,15 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     """LayerNorm over the last axis, fp32 statistics; output in x's dtype."""
     if not x.is_cuda:
         return layer_norm_plain(x, gamma, beta, eps=eps)
-    _check(x, gamma, beta, "layer_norm")
+    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
+        raise ValueError(f"layer_norm takes a contiguous fp32 or bf16 tensor, "
+                         f"got {x.dtype}")
     c = x.shape[-1]
+    for p in (gamma, beta):
+        if p.shape != (c,) or p.device != x.device or not p.is_contiguous():
+            raise ValueError(f"layer_norm: gamma/beta must be ({c},) on {x.device}")
     out = torch.empty_like(x)
-    _kernels().ln[(x.numel() // c,)](
+    _ln()[(x.numel() // c,)](
         x, out, gamma, beta, c, float(eps), BLOCK=_pow2(c),
         num_warps=4 if c <= 1024 else 8)
     layer_norm.launches += 1
@@ -294,4 +379,7 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
 
 
 group_norm.launches = 0
+group_norm_stats.launches = 0
+gn_silu_quantize_int8.launches = 0
+quantize_int8.launches = 0
 layer_norm.launches = 0

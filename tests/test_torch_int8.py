@@ -21,7 +21,7 @@ from powerpaint_tpu.ops import conv_pallas
 from powerpaint_tpu_torch.core.config import ppt_v1_config, ppt_v2_config
 from powerpaint_tpu_torch.io.weights import build_models, init_state
 from powerpaint_tpu_torch.models.layers import Conv2D
-from powerpaint_tpu_torch.ops import conv
+from powerpaint_tpu_torch.ops import conv, norms
 from powerpaint_tpu_torch.pipelines.common import int8_x_scale
 from powerpaint_tpu_torch.testing import tiny_v1_config
 
@@ -177,3 +177,49 @@ def test_the_option_is_read_once_from_the_environment(monkeypatch):
     monkeypatch.setenv("POWERPAINT_INT8_XSCALE", "4")
     assert int8_x_scale(None) == 4.0 / 127.0
     assert int8_x_scale(False) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_quantisers_are_the_route_they_replace(dtype):
+    """The plain quantisers (the card kernel's oracles) against the
+    quantise-inside-the-product route the plain int8 units had: the same
+    int8 levels, and the plain units bitwise the old route's outputs. The
+    CPU wrappers run them and count no launch."""
+    rng = np.random.RandomState(3)
+    b, h, w, cin, cout, groups = 2, 6, 5, 48, 24, 16
+    x = torch.from_numpy((rng.randn(b, h, w, cin) * 2 - 0.3).astype(np.float32)).to(dtype)
+    x[0, 0, 0, :4] = torch.tensor([0.5, 1.5, -2.5, 300.0]) * (8.0 / 127.0)  # ties, clip
+    gamma = torch.from_numpy((1 + 0.1 * rng.randn(cin)).astype(np.float32))
+    beta = torch.from_numpy((0.5 + 0.1 * rng.randn(cin)).astype(np.float32))
+    w_q, w_s = conv.quantize_weights_int8(
+        torch.from_numpy((rng.randn(cout, cin, 3, 3) / 20).astype(np.float32)))
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32))
+    x_scale = 8.0 / 127.0
+    inv = float(np.float32(1.0 / x_scale))
+
+    def old_route(y):  # the former _int8_product_plain on fp32 y
+        q = torch.clamp(torch.round(y * inv), -127, 127)
+        acc = torch.nn.functional.conv2d(q.permute(0, 3, 1, 2).double(),
+                                         w_q.permute(0, 3, 1, 2).double(), padding=1)
+        out = acc.permute(0, 2, 3, 1).float() * (w_s * x_scale) + bias
+        return q, out.to(dtype)
+
+    kw = dict(num_groups=groups, eps=1e-5, x_scale=x_scale)
+    y = norms.gn_silu_fp32(x, gamma, beta, num_groups=groups, eps=1e-5)
+    for q, (want_q, want) in (
+            (norms.gn_silu_quantize_int8_plain(x, gamma, beta, **kw), old_route(y)),
+            (norms.quantize_int8_plain(x, x_scale=x_scale), old_route(x.float()))):
+        assert q.dtype == torch.int8 and q.shape == x.shape
+        assert torch.equal(q.float(), want_q)
+    assert [int(v) for v in norms.quantize_int8_plain(x, x_scale=x_scale)[0, 0, 0, :4]] == \
+        [0, 2, -2, 127]
+    assert torch.equal(conv.conv3x3_gn_silu_int8_plain(x, w_q, w_s, bias, gamma, beta, **kw),
+                       old_route(y)[1])
+    assert torch.equal(conv.conv3x3_int8_plain(x, w_q, w_s, bias, x_scale=x_scale),
+                       old_route(x.float())[1])
+    before = (norms.gn_silu_quantize_int8.launches, norms.quantize_int8.launches)
+    assert torch.equal(norms.gn_silu_quantize_int8(x, gamma, beta, **kw),
+                       norms.gn_silu_quantize_int8_plain(x, gamma, beta, **kw))
+    assert torch.equal(norms.quantize_int8(x, x_scale=x_scale),
+                       norms.quantize_int8_plain(x, x_scale=x_scale))
+    assert (norms.gn_silu_quantize_int8.launches, norms.quantize_int8.launches) == before

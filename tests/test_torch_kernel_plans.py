@@ -1,14 +1,17 @@
-"""How the port's bf16 kernels cut their work, from the pure Python mirrors
-of the CUDA sources' choices (``ops.flash_attention.bf16_config`` and
-``ops.conv.bf16_plan``; a card test in ``test_torch_kernels_cuda.py``
-holds each mirror to its source): every shape the main paths launch fits
-the card, the VAE's D = 512 takes at most two slices, and the conv's K
-splits do not depend on the batch."""
+"""How the port's kernels cut their work, from the pure Python mirrors of
+the CUDA sources' choices (``ops.flash_attention.bf16_config``,
+``ops.conv.bf16_plan``, ``ops.conv.int8_plan``, ``ops.norms.gn_plan``; a
+card test in ``test_torch_kernels_cuda.py`` holds each mirror to its
+source): every shape the main paths launch fits the card, the VAE's
+D = 512 takes at most two slices, the convs' K splits cover K and do not
+depend on the batch, and GroupNorm's form covers the map in shared memory
+that fits, one launch at every UNet and BrushNet map at 512^2."""
 
 import pytest
 
-from powerpaint_tpu_torch.ops.conv import bf16_plan
+from powerpaint_tpu_torch.ops.conv import bf16_plan, int8_plan
 from powerpaint_tpu_torch.ops.flash_attention import bf16_config
+from powerpaint_tpu_torch.ops.norms import gn_plan
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may take on an H100
 
@@ -70,3 +73,91 @@ def test_conv_plan_cout_tile_pads_least(cout):
 def test_conv_plan_main_path_shapes(shape, want):
     p = bf16_plan(2, *shape)
     assert (p["bn"], p["splits"]) == want
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=str)
+def test_int8_plan_is_batch_invariant_and_covers_k(shape):
+    h, w, cin, cout = shape
+    plans = [int8_plan(b, h, w, cin, cout) for b in (1, 2, 3, 4)]
+    n_chunks = -(-cin // 128)
+    for p in plans:
+        assert (p["bn"], p["splits"], p["per"]) == \
+            (plans[0]["bn"], plans[0]["splits"], plans[0]["per"])
+        assert p["splits"] in (1, 2, 4, 8)  # one portable cluster of splits
+        assert (p["splits"] - 1) * p["per"] < n_chunks <= p["splits"] * p["per"]
+        assert 2 * p["blocks"] >= p["tiles"] and p["n_tiles"] * p["bn"] >= cout
+        assert p["smem"] <= SMEM_LIMIT
+        # the split sums are reduced in the slab and weight ring's memory
+        assert 512 * p["bn"] <= p["smem"] - 1024
+
+
+# (H, W, Cin, Cout) -> (Cout tile, K splits) on 132 SMs
+@pytest.mark.parametrize("shape,want", [
+    ((64, 64, 320, 320), (160, 1)), ((64, 64, 960, 320), (160, 1)),
+    ((16, 16, 2560, 1280), (160, 4)), ((8, 8, 1280, 1280), (64, 4)),
+    ((256, 256, 128, 256), (256, 1))], ids=str)
+def test_int8_plan_main_path_shapes(shape, want):
+    p = int8_plan(2, *shape)
+    assert (p["bn"], p["splits"]) == want
+
+
+def _maps(h, w):
+    """(S, C) of every GroupNorm input of the UNet, BrushNet and VAE at an
+    h x w image: the ResNet units' and transformers' maps at each latent
+    level with the up-blocks' concatenated widths, the VAE's levels."""
+    maps = set()
+    for i, (ch, cat) in enumerate(((320, (320, 640, 960)), (640, (640, 960, 1280, 1920)),
+                                   (1280, (1280, 1920, 2560)), (1280, (1280, 2560)))):
+        s = (h // 8 >> i) * (w // 8 >> i)
+        maps.update((s, c) for c in (ch,) + cat)
+    for i, c in enumerate((128, 256, 512, 512)):
+        s = (h >> i) * (w >> i)
+        maps.update({(s, c), (s, 2 * c), (s, c // 2)} - {(s, 64)})
+    return sorted(maps)
+
+
+UNET_MAPS = [m for m in _maps(512, 512) if m[0] <= 4096]
+VAE_MAPS = [m for m in _maps(512, 512) if m[0] > 4096]
+RAGGED_MAPS = [(35, 20, 10), (7, 48, 24), (1, 64, 32), (5, 2560, 32), (100000, 96, 32)]
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+@pytest.mark.parametrize("case", [(s, c, 32) for s, c in UNET_MAPS + VAE_MAPS]
+                         + RAGGED_MAPS, ids=str)
+def test_gn_plan_fits_and_covers_the_map(case, esize):
+    s, c, groups = case
+    p = gn_plan(s, c, groups, esize)
+    gs = c // groups
+    assert p["smem"] <= 200 * 1024 and p["smem2"] <= 200 * 1024
+    if p["resident"]:
+        assert p["span"] % gs == 0 and p["spans"] * p["span"] == c
+        assert p["k"] * gs == p["span"]
+        assert p["cluster"] in (1, 2, 4, 8, 16) and p["chunks"] == p["cluster"]
+        assert p["rows"] == -(-s // p["cluster"])  # trailing blocks may hold none
+        assert p["rows"] * p["span"] * esize <= 96 * 1024
+        # whole 16-byte vectors a row where the row allows it
+        assert (p["span"] * esize) % 16 == 0 or p["span"] == c
+    else:
+        assert p["span"] == c and p["k"] == groups and p["cluster"] == 1
+        assert (p["chunks"] - 1) * p["rows"] < s <= p["chunks"] * p["rows"]
+        assert 1 <= p["sub_rows"] <= p["rows"]
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+def test_gn_plan_is_one_launch_at_every_unet_map(esize):
+    """The resident form (one launch) at every UNet and BrushNet map at
+    512^2; the VAE's full-size maps at 128 and 256 channels stream.
+    Nothing in the plan depends on the batch: it takes none."""
+    for s, c in UNET_MAPS:
+        assert gn_plan(s, c, 32, esize)["resident"] == 1, (s, c)
+    assert gn_plan(512 * 512, 256, 32, esize)["resident"] == 0
+    assert gn_plan(512 * 512, 128, 32, esize)["resident"] == 0
+
+
+# (S, C) -> (span, cluster) at bf16 on 132 SMs
+@pytest.mark.parametrize("case,want", [
+    ((4096, 320), (80, 16)), ((4096, 960), (120, 16)), ((1024, 640), (80, 8)),
+    ((256, 1280), (80, 2)), ((64, 2560), (80, 1))], ids=str)
+def test_gn_plan_main_path_shapes(case, want):
+    p = gn_plan(*case, 32, 2)
+    assert (p["span"], p["cluster"]) == want

@@ -168,9 +168,10 @@ def test_conv3x3_kernel(dev, shape, dtype, fused):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fused", [True, False], ids=["gn_silu", "plain"])
 def test_conv3x3_int8_kernel(dev, shape, dtype, fused):
-    """The static-scale int8 kernel against its plain version: within
-    chip_smoke.int8_check's flip bound (bitwise where no activation sits at
-    a rounding boundary), deterministic, batch-invariant."""
+    """The static-scale int8 unit (quantiser, then the wgmma int8 kernel)
+    against its plain version: bitwise (the plain version takes its
+    statistics from the same kernel's statistics mode and rounds the same
+    IEEE operations), deterministic, batch-invariant, one count a unit."""
     import chip_smoke
 
     b, h, w, cin, cout, groups = shape
@@ -188,14 +189,17 @@ def test_conv3x3_int8_kernel(dev, shape, dtype, fused):
         run = lambda x: conv.conv3x3_int8(x, w_q, w_s, bias, **kw)
         want = conv.conv3x3_int8_plain(x, w_q, w_s, bias, **kw)
     counter = conv.conv3x3_gn_silu_int8 if fused else conv.conv3x3_int8
-    before = counter.launches
+    quantiser = norms.gn_silu_quantize_int8 if fused else norms.quantize_int8
+    before, q_before = counter.launches, quantiser.launches
     got = run(x)
     torch.cuda.synchronize()
     assert counter.launches == before + 1
+    assert quantiser.launches == q_before + 1
     assert got.shape == (b, h, w, cout) and got.dtype == dtype
     err, ok, _ = chip_smoke.int8_check(got, want, x, w_q, w_s, bias, fused, gn,
                                        groups)
     assert ok, f"max |err| {err} beyond the flip bound"
+    assert torch.equal(got, want), f"{int((got != want).sum())} outputs differ"
     assert torch.equal(run(x), got)
     assert torch.equal(run(x[:1].contiguous()), got[:1])
 
@@ -341,3 +345,158 @@ def test_conv3x3_bf16_tiles(dev, shape, fused):
     assert torch.equal(run(x), got)
     for i in range(b):
         assert torch.equal(run(x[i:i + 1].contiguous()), got[i:i + 1])
+
+
+# ---------------------------------------------------------------------------
+# the int8 conv on wgmma s8 + TMA, and GroupNorm in CUDA with its modes
+# ---------------------------------------------------------------------------
+
+
+def test_conv3x3_int8_plan_matches_its_source(dev):
+    import ctypes
+
+    from powerpaint_tpu_torch.ops import _build
+
+    fn = _build.load("conv3x3_int8").ppt_conv3x3_int8_plan
+    fn.restype = None
+    out = (ctypes.c_longlong * 7)()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape in [(2, 64, 64, 320, 320), (2, 64, 64, 960, 320), (2, 16, 16, 2560, 1280),
+                  (2, 8, 8, 1280, 1280), (1, 256, 256, 128, 256), (1, 5, 7, 32, 12),
+                  (3, 9, 13, 64, 200), (1, 1, 1, 64, 64), (2, 32, 32, 1920, 640)]:
+        fn(*shape, sms, out)
+        p = conv.int8_plan(*shape, sms=sms)
+        assert list(out) == [p[k] for k in ("bn", "tiles", "blocks", "n_tiles", "splits",
+                                            "per", "smem")], shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False], ids=["gn_silu", "plain"])
+def test_conv3x3_int8_main_path_shapes(dev, dtype, fused):
+    """Every shape chip_smoke times (Cin off the 128-channel chunk, the
+    deep levels' split K, the VAE's map, a ragged one): bitwise the plain
+    version, and the first image alone bitwise its slice of the batch."""
+    import chip_smoke
+
+    for i, (b, h, w, cin, cout, groups) in enumerate(chip_smoke.INT8_SHAPES):
+        x = (_randn(dev, b, h, w, cin, seed=40 + i) * 2 - 0.3).to(dtype)
+        w_q, w_s = conv.quantize_weights_int8(
+            _randn(dev, cout, cin, 3, 3, seed=50 + i) / (3 * cin ** 0.5))
+        bias = 0.1 * _randn(dev, cout, seed=60 + i)
+        gn = (1 + 0.1 * _randn(dev, cin, seed=70 + i), 0.5 + 0.1 * _randn(dev, cin, seed=80 + i))
+        kw = dict(x_scale=chip_smoke.X_SCALE)
+        if fused:
+            kw.update(num_groups=groups, eps=1e-5)
+            run = lambda x: conv.conv3x3_gn_silu_int8(x, w_q, w_s, bias, *gn, **kw)
+            want = conv.conv3x3_gn_silu_int8_plain(x, w_q, w_s, bias, *gn, **kw)
+        else:
+            run = lambda x: conv.conv3x3_int8(x, w_q, w_s, bias, **kw)
+            want = conv.conv3x3_int8_plain(x, w_q, w_s, bias, **kw)
+        got = run(x)
+        assert torch.equal(got, want), (cin, cout, int((got != want).sum()))
+        assert torch.equal(run(x[:1].contiguous()), got[:1]), (cin, cout)
+
+
+# (B, S, C, groups): the UNet's and BrushNet's maps at 512^2 (resident), the
+# VAE's largest (streamed), and ragged ones: groups of 2 channels with rows
+# off the 16-byte vector (element copies), a row count below the cluster,
+# one row.
+GN_CASES = [(2, 4096, 320, 32), (2, 4096, 960, 32), (2, 1024, 640, 32), (2, 256, 1280, 32),
+            (2, 64, 2560, 32), (1, 262144, 128, 32), (1, 65536, 256, 32), (1, 4096, 512, 32),
+            (1, 35, 20, 10), (3, 7, 48, 24), (2, 1, 64, 32)]
+
+
+@pytest.mark.parametrize("case", GN_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_modes(dev, case, dtype):
+    """Every mode of csrc/group_norm.cu at its form for the shape: the
+    statistics bitwise equal across the modes and close to the plain
+    ones; the quantising mode bitwise its plain version (which takes the
+    statistics mode's bits); the apply mode within one rounding; every
+    image alone bitwise its slice of the batch."""
+    b, s, c, groups = case
+    x = (_randn(dev, b, s, c, seed=90) * 2 - 0.3).to(dtype)
+    gamma = 1 + 0.1 * _randn(dev, c, seed=91)
+    beta = 0.1 * _randn(dev, c, seed=92)
+    eps, x_scale = 1e-5, 8.0 / 127.0
+    outs, stats = {}, []
+    for mode, kw in ((0, {}), (1, dict(silu=True)), (2, dict(x_scale=x_scale))):
+        out, st = norms._launch_gn(x, None if mode == 0 else gamma,
+                                   None if mode == 0 else beta, groups, eps, mode, **kw)
+        outs[mode] = out
+        stats.append(st)
+    torch.cuda.synchronize()
+    assert torch.equal(stats[0], stats[1]) and torch.equal(stats[0], stats[2])
+    mean, rstd = norms.group_norm_stats(x, groups, eps)
+    assert torch.equal(mean, stats[0][0]) and torch.equal(rstd, stats[0][1])
+    want_mean, want_rstd = norms.group_norm_stats_plain(x, groups, eps)
+    torch.testing.assert_close(mean, want_mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, want_rstd, atol=0, rtol=1e-4)
+    q = norms.gn_silu_quantize_int8(x, gamma, beta, num_groups=groups, eps=eps,
+                                    x_scale=x_scale)
+    want_q = norms.gn_silu_quantize_int8_plain(x, gamma, beta, num_groups=groups, eps=eps,
+                                               x_scale=x_scale)
+    assert q.dtype == torch.int8 and torch.equal(q, outs[2]) and torch.equal(q, want_q)
+    y = norms.group_norm(x, gamma, beta, num_groups=groups, eps=eps, silu=True)
+    want_y = norms.group_norm_plain(x, gamma, beta, num_groups=groups, eps=eps, silu=True)
+    atol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * float(want_y.float().abs().max()) + 1e-2
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol, rtol=0)
+    assert torch.equal(y, outs[1])
+    if b > 1:
+        alone = norms.group_norm(x[:1].contiguous(), gamma, beta, num_groups=groups, eps=eps,
+                                 silu=True)
+        assert torch.equal(alone, y[:1])
+
+
+@pytest.mark.parametrize("n", [1, 7, 4096 * 320, 262144 * 128 + 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_kernel(dev, n, dtype):
+    x = (_randn(dev, 1, n, seed=93) * 6).to(dtype)
+    x[0, :1] = 0.5 * 8.0 / 127.0  # a value on a rounding boundary: half to even
+    before = norms.quantize_int8.launches
+    q = norms.quantize_int8(x, x_scale=8.0 / 127.0)
+    torch.cuda.synchronize()
+    assert norms.quantize_int8.launches == before + 1
+    assert q.dtype == torch.int8 and q.shape == x.shape
+    assert torch.equal(q, norms.quantize_int8_plain(x, x_scale=8.0 / 127.0))
+
+
+def test_group_norm_plan_matches_its_source(dev):
+    import ctypes
+
+    from powerpaint_tpu_torch.ops import _build
+
+    fn = _build.load("group_norm").ppt_group_norm_plan
+    fn.restype = None
+    out = (ctypes.c_longlong * 10)()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    keys = ("resident", "span", "spans", "k", "cluster", "rows", "chunks", "sub_rows",
+            "smem", "smem2")
+    for b, s, c, groups in GN_CASES + [(1, 16384, 512, 32), (2, 1024, 1920, 32),
+                                       (1, 65536, 128, 32), (1, 262144, 256, 32)]:
+        for esize in (2, 4):
+            fn(s, c, groups, esize, sms, out)
+            p = norms.gn_plan(s, c, groups, esize, sms=sms)
+            assert list(out) == [p[k] for k in keys], (s, c, groups, esize)
+
+
+def test_group_norm_refuses_what_it_cannot_take(dev):
+    x = _randn(dev, 2, 4096, 320)
+    gamma, beta = torch.ones(320, device=dev), torch.zeros(320, device=dev)
+    with pytest.raises(RuntimeError):  # a cluster of 32 blocks: no card holds it
+        norms._launch_gn(x, gamma, beta, 32, 1e-5, 1, cluster=32)
+    with pytest.raises(ValueError):  # gamma not fp32
+        norms.group_norm(x, gamma.bfloat16(), beta, num_groups=32)
+    with pytest.raises(ValueError):  # 320 channels do not split into 24 groups
+        norms.group_norm(x, gamma, beta, num_groups=24)
+    with pytest.raises(ValueError):
+        norms.gn_silu_quantize_int8(x.half(), gamma, beta, num_groups=32, eps=1e-5,
+                                    x_scale=0.1)
+    with pytest.raises(ValueError):
+        norms.quantize_int8(x.transpose(0, 1), x_scale=0.1)
+    # the forced cluster the plan would choose anyway launches
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out, _ = norms._launch_gn(x, gamma, beta, 32, 1e-5, 1,
+                              cluster=norms.gn_plan(4096, 320, 32, 4, sms=sms)["cluster"])
+    torch.testing.assert_close(out, norms.group_norm_plain(x, gamma, beta, eps=1e-5),
+                               atol=1e-4, rtol=0)
