@@ -5,34 +5,35 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. The card (``nvidia-smi`` name and power limit), the torch / CUDA / Triton
+1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, then the build of the CUDA sources in
    ``powerpaint_tpu_torch/csrc`` (one nvcc each, started together) with its
    time, each kernel's registers, spills and ptxas performance warnings,
-   and the count of wgmma instructions (HGMMA, IGMMA) in its SASS.
+   GroupNorm's and LayerNorm's cuts at the checked shapes, and the count
+   of wgmma instructions (HGMMA, IGMMA) in its SASS.
 2. Kernel checks: each kernel of the main paths (flash attention, the 3x3
    conv with and without its GroupNorm+SiLU prologue, the static-scale
    int8 conv, and GroupNorm in its four modes (statistics, apply, the
-   int8 units' GroupNorm+SiLU+quantise, and the quantiser of x alone), all
-   in CUDA; LayerNorm in Triton) against its plain PyTorch version at the
-   main paths' shapes, in fp32 (TF32 off for matmuls and convs) and in
-   bf16, and timed beside the plain version, one PyTorch library call of
-   the same function (or the chain of calls named), and the data-sheet
-   bound. The int8 units and the quantising modes must be bitwise equal to
+   int8 units' GroupNorm+SiLU+quantise, and the quantiser of x alone), and
+   LayerNorm, all in CUDA) against its plain PyTorch version at the
+   main paths' shapes (LayerNorm also at a ragged C on misaligned rows),
+   in fp32 (TF32 off for matmuls and convs) and in bf16, and timed beside
+   the plain version, one PyTorch library call of the same function (or
+   the chain of calls named), and the data-sheet bound. The int8 units and the quantising modes must be bitwise equal to
    their plain versions, and the statistics bitwise equal across the
    modes. A kernel's ``ms`` and the library call's are device
    time (a CUDA graph of 20 calls replayed), ``stream_ms`` the same calls
    enqueued one by one (the host's pace where it is the slower),
    ``host_ms`` the host's enqueue alone; attention adds the exp2 floor
    (one MUFU.EX2 per score), the convs their Cout tile and K split,
-   GroupNorm its form and cluster, the fused convs ``unfused_ms`` (the
-   GroupNorm kernel's apply mode, then the plain bf16 conv), the int8
-   units the time of their two launches apart. Then
+   GroupNorm its form and cluster, LayerNorm its cut of a row, the fused
+   convs ``unfused_ms`` (the GroupNorm kernel's apply mode, then the plain
+   bf16 conv), the int8 units the time of their two launches apart. Then
    each kernel's batch invariance: a CFG batch of two requests (4 images)
    against one request (2 images), and the same for the cuBLAS and cuDNN
    calls the paths make; the bf16 flash attention and conv kernels must be
-   bitwise invariant and deterministic, and so must GroupNorm and the int8
-   unit.
+   bitwise invariant and deterministic, and so must GroupNorm, LayerNorm
+   and the int8 unit.
 3. The ppt-v1 path: full width (860M-parameter 9-channel UNet, SD1.5 VAE,
    CLIP ViT-L/14 text with 30 task-token rows), random weights from a
    seed, bf16, a 512x512 image: the four tasks at 20 DDIM steps with
@@ -239,6 +240,9 @@ LN_SHAPES = [
     ((2, 4096, 320), 1e-5), ((2, 1024, 640), 1e-5), ((2, 256, 1280), 1e-5),
     ((2, 64, 1280), 1e-5), ((4, 77, 768), 1e-5),
 ]
+# a C off the 16-byte vectors, on rows that start one element off alignment
+# (element loads on the same thread-to-element map): checked, not timed
+LN_RAGGED = ((3, 7, 300), 1e-5)
 
 # Tolerances. fp32: the kernels and the plain versions do the same fp32
 # arithmetic in another order (attention over up to 4096 terms, norms over
@@ -405,25 +409,31 @@ def check_kernels(device) -> list:
     log(phase="kernel checks", kernel="group_norm",
         seconds=time.perf_counter() - t0)
 
-    # ---- kernel 3: LayerNorm
+    # ---- kernel 3: LayerNorm (csrc/layer_norm.cu)
     t0 = time.perf_counter()
-    for shape, eps in LN_SHAPES:
+    for shape, eps in LN_SHAPES + [LN_RAGGED]:
         c = shape[-1]
+        ragged = (shape, eps) == LN_RAGGED
         for dtype in (torch.float32, torch.bfloat16):
             x = (randn(*shape) * 3 + 0.5).to(dtype)
+            if ragged:
+                x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(shape)
             w = 1 + 0.1 * randn(c)
             bb = 0.1 * randn(c)
+            p = norms.ln_plan(c, x.element_size())
+            cut = dict(group=p["group"], vecs=p["vecs"], threads=p["threads"])
             got = norms.layer_norm(x, w, bb, eps=eps)
             torch.cuda.synchronize()
             want = norms.layer_norm_plain(x, w, bb, eps=eps)
             err = float((got.float() - want.float()).abs().max())
-            record("layer_norm", shape, dtype, err, tolerance(dtype, want))
-            if dtype != torch.bfloat16:
+            record("layer_norm", shape, dtype, err, tolerance(dtype, want),
+                   misaligned=ragged, **cut)
+            if dtype != torch.bfloat16 or ragged:
                 continue
             wl, bl = w.to(dtype), bb.to(dtype)
-            nbytes = 2.0 * 2 * x.numel()
+            nbytes = 2.0 * 2 * x.numel() + 2 * 4 * c  # x, y; fp32 gamma, beta
             timings.setdefault("layer_norm", []).append(dict(
-                shape=list(shape),
+                shape=list(shape), **cut,
                 ms=graph_ms(lambda: norms.layer_norm(x, w, bb, eps=eps)),
                 stream_ms=cuda_ms(lambda: norms.layer_norm(x, w, bb, eps=eps)),
                 host_ms=host_ms(lambda: norms.layer_norm(x, w, bb, eps=eps)),
@@ -646,8 +656,8 @@ def batch_invariance(device) -> None:
     against 1, at fp32 (TF32 off) and bf16. The library calls are logged,
     not checked (a batch-variant library call is not a fault of the port);
     the bf16 flash attention and conv kernels (the wgmma designs), and
-    GroupNorm and the int8 unit at both types, must be bitwise invariant
-    and give the same bits on a second run."""
+    GroupNorm, LayerNorm and the int8 unit at both types, must be bitwise
+    invariant and give the same bits on a second run."""
     from powerpaint_tpu_torch.ops import conv
     from powerpaint_tpu_torch.ops import flash_attention as fa
     from powerpaint_tpu_torch.ops import norms
@@ -687,6 +697,9 @@ def batch_invariance(device) -> None:
         x, g320, b320, num_groups=32, eps=1e-6, silu=True)))
     cases.append(("layer_norm", (4096, 320), lambda x: norms.layer_norm(
         x, g320, b320)))
+    g768, b768 = 1 + 0.1 * randn(768), 0.1 * randn(768)
+    cases.append(("layer_norm, CLIP", (77, 768), lambda x: norms.layer_norm(
+        x, g768, b768), (8, 4)))
     cases.append(("flash_attention, text context", (4096, 8, 40),
                   lambda x: fa.flash_attention(x, x[:, :77].contiguous(),
                                                x[:, 77:154].contiguous())))
@@ -729,7 +742,7 @@ def batch_invariance(device) -> None:
                 max_abs_diff=float(d.max()),
                 max_abs_out=float(few.float().abs().max()))
             kernel = name.split(",")[0]
-            if kernel in ("group_norm", "conv3x3_gn_silu_int8") or (
+            if kernel in ("group_norm", "layer_norm", "conv3x3_gn_silu_int8") or (
                     dtype == torch.bfloat16 and kernel in (
                         "flash_attention", "conv3x3_gn_silu", "conv3x3")):
                 check(bitwise and again, f"{name} {dtype}: batch-variant or "
@@ -1033,7 +1046,7 @@ def run_v1_path(device) -> dict:
     call = _caller(pipe, image, mask, lambda kw: expected_launches(
         cfg, kw["num_inference_steps"], kw.get("strength", 1.0)))
 
-    # warm-up: Triton specialisations and cuDNN / cuBLAS plans for the
+    # warm-up: cuDNN / cuBLAS plans for the
     # full-size shapes, so the timed calls below are steady state
     call("v1 warm-up", prompt="a cat", seed=99)
 
@@ -1290,7 +1303,8 @@ def run_cli(device) -> dict:
 def kernel_resources(nvcc_logs: dict) -> None:
     """Each compiled kernel's registers, static shared memory and spills
     (``nvcc -Xptxas -v``) and ptxas's performance warnings, the GroupNorm
-    kernel's form and cluster size at each checked shape, and, where
+    kernel's form and cluster size and the LayerNorm kernel's cut of a row
+    (``ln_plan``) at each checked shape, and, where
     ``cuobjdump`` exists, the count of wgmma instructions in its SASS by
     mnemonic (HGMMA for bf16, IGMMA for int8). The conv and attention kernels' dynamic shared memory is in their
     kernel lines (``smem_bytes``)."""
@@ -1320,8 +1334,9 @@ def kernel_resources(nvcc_logs: dict) -> None:
                 log(nvcc=name, kernel=entry, registers=int(m.group(1)),
                     static_smem=int(smem.group(1)) if smem else 0, **props)
                 entry = None
-    # group_norm.cu's cluster size and form at each GroupNorm shape checked
-    from powerpaint_tpu_torch.ops.norms import gn_plan
+    # group_norm.cu's cluster size and form at each GroupNorm shape checked,
+    # layer_norm.cu's cut of a row at each LayerNorm shape
+    from powerpaint_tpu_torch.ops.norms import gn_plan, ln_plan
 
     for shape, _, _ in GN_SHAPES:
         for esize, dtype in ((4, "float32"), (2, "bfloat16")):
@@ -1330,6 +1345,10 @@ def kernel_resources(nvcc_logs: dict) -> None:
                 form="resident" if p["resident"] else "streamed",
                 cluster=p["cluster"], span=p["span"], rows=p["rows"],
                 smem_bytes=p["smem"])
+    for shape, _ in LN_SHAPES + [LN_RAGGED]:
+        for esize, dtype in ((4, "float32"), (2, "bfloat16")):
+            log(nvcc="layer_norm", shape=list(shape), dtype=dtype,
+                **ln_plan(shape[-1], esize))
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in _build.SOURCES:
         try:
@@ -1384,7 +1403,7 @@ def profile_call(label: str, run_call) -> None:
                 ("conv3x3 int8 kernel", ("conv3x3_int8_kernel",)),
                 ("group_norm", ("gn_resident_kernel", "gn_partial_kernel",
                                 "gn_finish_kernel", "quantize_kernel")),
-                ("layer_norm", ("_ln_kernel",)),
+                ("layer_norm", ("ln_kernel",)),
                 ("cudnn conv", ("fprop", "conv")),
                 ("matmul", ("gemm", "nvjet", "cutlass")))
     by_family = {}
@@ -1524,7 +1543,7 @@ META = {
         route="cuda", source="powerpaint_tpu_torch/csrc/group_norm.cu",
         replaces="powerpaint_tpu/ops/conv_pallas.py:272"),
     "layer_norm": dict(
-        route="triton", source="powerpaint_tpu_torch/ops/norms.py",
+        route="cuda", source="powerpaint_tpu_torch/csrc/layer_norm.cu",
         replaces="powerpaint_tpu/ops/norms_pallas.py:27"),
     "conv3x3_gn_silu": dict(
         route="cuda", source="powerpaint_tpu_torch/csrc/conv3x3.cu",
@@ -1562,10 +1581,8 @@ def main() -> None:
     if clock and clock[0].strip().isdigit():
         SM_CLOCK_HZ[0] = float(clock[0]) * 1e6
     log(sms=SM_COUNT[0], max_sm_clock_hz=SM_CLOCK_HZ[0])
-    import triton
-
     log(torch=torch.__version__, cuda=torch.version.cuda,
-        triton=triton.__version__, device=torch.cuda.get_device_name(0),
+        device=torch.cuda.get_device_name(0),
         capability=list(torch.cuda.get_device_capability(0)))
     t0 = time.perf_counter()
     nvcc_logs = _build.build(_build.SOURCES)

@@ -88,4 +88,4 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
-SOURCES = ("flash_attention", "conv3x3", "conv3x3_int8", "group_norm")
+SOURCES = ("flash_attention", "conv3x3", "conv3x3_int8", "group_norm", "layer_norm")

@@ -1,5 +1,5 @@
 """GroupNorm (+ SiLU), its statistics, the int8 activation quantisers and
-LayerNorm: a CUDA kernel, a Triton kernel and their plain versions.
+LayerNorm: two CUDA kernels and their plain versions.
 
 Public functions keep the JAX package's layout: the GroupNorm family takes
 (B, ..., C) with channels last (an NCHW tensor in channels_last memory,
@@ -21,13 +21,15 @@ bits in every mode for one tensor, so ``gn_silu_quantize_int8`` quantises
 exactly what its plain version (``group_norm_stats``, then PyTorch's fp32
 operations) quantises.
 
-``layer_norm`` replaces ``norms_pallas.py::_ln_kernel``
-(``layer_norm_fused``): a Triton kernel, one program per row, the row held
-in registers (BLOCK = next power of two >= C, C <= 1280 on the main path),
-two-pass fp32 statistics, gamma/beta. One read and one write, the bound
-itself. Triton exists only on the GPU host: it is imported, and the kernel
-compiled, at the first launch. Until then ``tl`` below is None; the kernel
-body resolves it at compile time.
+``layer_norm`` is ``csrc/layer_norm.cu``, replacing
+``norms_pallas.py::_ln_kernel`` (``layer_norm_fused``): each row in the
+registers of a group of threads (lanes of one warp, or whole warps for a
+wide row), at most three 16-byte vectors a thread, two-pass fp32 statistics
+reduced with shuffles (and one float a warp through shared memory across
+warps), gamma/beta held in registers while a block walks its rows, one read
+and one write, launched as a programmatic dependent launch. How it cuts a
+row is mirrored by ``ln_plan``; the cut depends on C and the element size
+alone, so the kernel is batch-invariant and deterministic bit for bit.
 """
 
 from __future__ import annotations
@@ -40,8 +42,6 @@ import numpy as np
 import torch
 
 from powerpaint_tpu_torch.ops import _build
-
-tl = None  # triton.language, bound by _ln() at the first launch
 
 
 # ---------------------------------------------------------------------------
@@ -324,56 +324,67 @@ def quantize_int8(x: torch.Tensor, *, x_scale: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# LayerNorm: Triton (compiled at the first launch)
+# LayerNorm: csrc/layer_norm.cu
 # ---------------------------------------------------------------------------
 
+LN_MAX_C = 2048
+_LN_TARGET_VECS = 3
+_LN_WARP_ROWS_THREADS = 128
 
-def _ln_kernel(X, Y, W, B, C, eps, BLOCK: "tl.constexpr"):
-    """One row: two-pass fp32 statistics, gamma/beta."""
-    row = tl.program_id(0).to(tl.int64)
-    cols = tl.arange(0, BLOCK)
-    m = cols < C
-    x = tl.load(X + row * C + cols, mask=m, other=0.0).to(tl.float32)
-    mean = tl.sum(x, axis=0) / C
-    d = tl.where(m, x - mean, 0.0)
-    var = tl.sum(d * d, axis=0) / C
-    rstd = 1.0 / tl.sqrt(var + eps)
-    w = tl.load(W + cols, mask=m, other=0.0).to(tl.float32)
-    bias = tl.load(B + cols, mask=m, other=0.0).to(tl.float32)
-    y = d * rstd * w + bias
-    tl.store(Y + row * C + cols, y.to(Y.dtype.element_ty), mask=m)
+
+def ln_plan(c: int, esize: int) -> dict:
+    """How ``csrc/layer_norm.cu`` cuts rows of ``c`` elements of ``esize``
+    bytes, as ``plan_ln`` there does it (a card test holds the two
+    together), never from the row count: a ``group`` of threads holds a
+    row, at most 3 16-byte vectors each (``vecs``): a power of two up to 32
+    lanes of a warp, ``rows`` rows to a block of ``threads`` = 128, where
+    that holds the row; else whole warps, one row a block. (The grid, one
+    wave of blocks at most, is the launch's: it takes the card's occupancy
+    and cuts no row.)"""
+    nv = -(-c // (16 // esize))
+    group = 1
+    while group < 32 and group * _LN_TARGET_VECS < nv:
+        group *= 2
+    if group * _LN_TARGET_VECS < nv:
+        group = 32 * -(-nv // (32 * _LN_TARGET_VECS))
+    threads = group if group > 32 else _LN_WARP_ROWS_THREADS
+    return dict(group=group, vecs=-(-nv // group), threads=threads,
+                rows=threads // group)
 
 
 @functools.lru_cache(maxsize=None)
-def _ln():
-    global tl
-    import triton
-    import triton.language as language
-
-    tl = language
-    return triton.jit(_ln_kernel)
-
-
-def _pow2(n: int) -> int:
-    return 1 << max(0, (int(n) - 1).bit_length())
+def _ln_lib():
+    fn = _build.load("layer_norm").ppt_layer_norm
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_void_p])
+    return fn
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
                eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis, fp32 statistics; output in x's dtype."""
+    """LayerNorm over the last axis of a contiguous fp32 or bf16 x (C up to
+    ``LN_MAX_C``), fp32 statistics, gamma and beta (C,) fp32; output in x's
+    dtype."""
     if not x.is_cuda:
         return layer_norm_plain(x, gamma, beta, eps=eps)
     if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
         raise ValueError(f"layer_norm takes a contiguous fp32 or bf16 tensor, "
                          f"got {x.dtype}")
     c = x.shape[-1]
-    for p in (gamma, beta):
-        if p.shape != (c,) or p.device != x.device or not p.is_contiguous():
-            raise ValueError(f"layer_norm: gamma/beta must be ({c},) on {x.device}")
+    if not 0 < c <= LN_MAX_C:
+        raise ValueError(f"layer_norm takes 1 to {LN_MAX_C} channels, got {c}")
+    _check_affine(x, gamma, beta, "layer_norm")
     out = torch.empty_like(x)
-    _ln()[(x.numel() // c,)](
-        x, out, gamma, beta, c, float(eps), BLOCK=_pow2(c),
-        num_warps=4 if c <= 1024 else 8)
+    # the current stream's raw handle: no Stream object built on each of
+    # the main paths' thousand calls an image
+    err = _ln_lib()(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                    out.data_ptr(), x.numel() // c, c, eps,
+                    int(x.dtype == torch.bfloat16),
+                    torch._C._cuda_getCurrentRawStream(x.get_device()))
+    if err != 0:
+        raise RuntimeError(f"layer_norm kernel launch failed: CUDA error {err}")
     layer_norm.launches += 1
     return out
 

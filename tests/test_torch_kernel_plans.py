@@ -1,17 +1,19 @@
 """How the port's kernels cut their work, from the pure Python mirrors of
 the CUDA sources' choices (``ops.flash_attention.bf16_config``,
-``ops.conv.bf16_plan``, ``ops.conv.int8_plan``, ``ops.norms.gn_plan``; a
-card test in ``test_torch_kernels_cuda.py`` holds each mirror to its
-source): every shape the main paths launch fits the card, the VAE's
-D = 512 takes at most two slices, the convs' K splits cover K and do not
-depend on the batch, and GroupNorm's form covers the map in shared memory
-that fits, one launch at every UNet and BrushNet map at 512^2."""
+``ops.conv.bf16_plan``, ``ops.conv.int8_plan``, ``ops.norms.gn_plan``,
+``ops.norms.ln_plan``; a card test in ``test_torch_kernels_cuda.py`` holds
+each mirror to its source): every shape the main paths launch fits the
+card, the VAE's D = 512 takes at most two slices, the convs' K splits cover
+K and do not depend on the batch, GroupNorm's form covers the map in shared
+memory that fits, one launch at every UNet and BrushNet map at 512^2, and
+LayerNorm's lanes cover each element of a row once, within the register
+budget."""
 
 import pytest
 
 from powerpaint_tpu_torch.ops.conv import bf16_plan, int8_plan
 from powerpaint_tpu_torch.ops.flash_attention import bf16_config
-from powerpaint_tpu_torch.ops.norms import gn_plan
+from powerpaint_tpu_torch.ops.norms import LN_MAX_C, gn_plan, ln_plan
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may take on an H100
 
@@ -161,3 +163,38 @@ def test_gn_plan_is_one_launch_at_every_unet_map(esize):
 def test_gn_plan_main_path_shapes(case, want):
     p = gn_plan(*case, 32, 2)
     assert (p["span"], p["cluster"]) == want
+
+
+# C: the main paths' (the UNet's four levels, CLIP), then odd ones up to
+# the most the LayerNorm kernel takes
+LN_CS = [320, 640, 1280, 768, 1, 3, 7, 77, 300, 321, 1279, 1537, 2047, LN_MAX_C]
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+@pytest.mark.parametrize("c", LN_CS)
+def test_ln_plan_covers_the_row_exactly(c, esize):
+    """Thread t of a row's group holds elements (j * group + t) * VEC + k:
+    every element of the row once, at most 3 vectors a thread and no thread
+    a vector wholly past C where a warp's lanes hold the row; a group is a
+    power of two up to a warp, or whole warps that make the block. The plan
+    takes no row count, so no batch can change a row's reduction order."""
+    vec = 16 // esize
+    p = ln_plan(c, esize)
+    group, vecs = p["group"], p["vecs"]
+    held = sorted((j * group + t) * vec + k for t in range(group)
+                  for j in range(vecs) for k in range(vec))
+    assert [e for e in held if e < c] == list(range(c))
+    assert 1 <= vecs <= 3 and (vecs - 1) * group * vec < c
+    if group <= 32:
+        assert group & (group - 1) == 0 and p["threads"] == 128
+        assert p["rows"] * group == 128 and (group == 1 or 3 * group // 2 < -(-c // vec))
+    else:
+        assert group % 32 == 0 and p["threads"] == group <= 256 and p["rows"] == 1
+
+
+# C -> (group, vecs, threads) at bf16
+@pytest.mark.parametrize("c,want", [(320, (16, 3, 128)), (640, (32, 3, 128)),
+                                    (1280, (64, 3, 64)), (768, (32, 3, 128))])
+def test_ln_plan_main_path_rows(c, want):
+    p = ln_plan(c, 2)
+    assert (p["group"], p["vecs"], p["threads"]) == want

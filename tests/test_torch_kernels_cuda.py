@@ -1,7 +1,7 @@
 """The port's kernels on the card against their plain versions.
 
-Marked ``cuda``: they need an NVIDIA GPU, ``nvcc`` and Triton, and skip
-without a card. On the GPU host (which has no JAX, so the suite's
+Marked ``cuda``: they need an NVIDIA GPU and ``nvcc``, and skip without a
+card. On the GPU host (which has no JAX, so the suite's
 conftest is left out), from the repository's root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -88,30 +88,97 @@ def test_group_norm_kernel(dev, shape, groups, silu, dtype, atol):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(2, 4096, 320), (4, 77, 768), (3, 5, 1280)])
+# The main paths' rows (chip_smoke.LN_SHAPES: the UNet's four levels, CLIP),
+# then C off the 16-byte vectors (element loads), one and 2048 channels
+# (the least and the most the kernel takes), and a few rows of a wide C.
+LN_SHAPES = [(2, 4096, 320), (2, 1024, 640), (2, 256, 1280), (2, 64, 1280),
+             (4, 77, 768), (3, 5, 1280), (3, 7, 300), (2, 9, 77), (5, 1),
+             (3, 2048)]
+LN_CS = (320, 640, 1280, 768)  # the main paths' C
+
+
+def _ln_inputs(dev, shape, dtype, seed=7):
+    x = (_randn(dev, *shape, seed=seed) * 3 + 0.5).to(dtype)
+    w = 1 + 0.1 * _randn(dev, shape[-1], seed=8)
+    b = 0.1 * _randn(dev, shape[-1], seed=9)
+    return x, w, b
+
+
+@pytest.mark.parametrize("shape", LN_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 5e-2)])
 def test_layer_norm_kernel(dev, shape, dtype, atol):
-    x = (_randn(dev, *shape, seed=7) * 3 + 0.5).to(dtype)
-    w = 1 + 0.1 * _randn(dev, shape[-1], seed=8)
-    b = 0.1 * _randn(dev, shape[-1], seed=9)
+    x, w, b = _ln_inputs(dev, shape, dtype)
     before = norms.layer_norm.launches
     got = norms.layer_norm(x, w, b)
     torch.cuda.synchronize()
     assert norms.layer_norm.launches == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
     torch.testing.assert_close(got.float(), norms.layer_norm_plain(x, w, b).float(),
                                atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("bad", ["transposed", "fp16"])
+@pytest.mark.parametrize("shape", [(2, 1024, 640), (3, 7, 300)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_reads_misaligned_rows(dev, shape, dtype):
+    """x one element off 16-byte alignment takes element loads on the same
+    lane-to-element map: the same bits as the aligned x."""
+    x, w, b = _ln_inputs(dev, shape, dtype)
+    flat = torch.cat([x.new_zeros(1), x.flatten()])
+    off = flat[1:].view(shape)
+    assert off.data_ptr() % 16 != 0 and off.is_contiguous()
+    got = norms.layer_norm(off, w, b)
+    assert torch.equal(got, norms.layer_norm(x, w, b))
+    atol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), norms.layer_norm_plain(x, w, b).float(),
+                               atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("shape,small", [((4, 4096, 320), 2), ((4, 1024, 640), 2),
+                                         ((4, 256, 1280), 2), ((4, 64, 1280), 2),
+                                         ((8, 77, 768), 4)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_is_batch_invariant_and_deterministic(dev, shape, small, dtype):
+    """The UNet's CFG batch of two requests against one, CLIP's 8 rows
+    against 4: bitwise, and the same bits on a second run."""
+    x, w, b = _ln_inputs(dev, shape, dtype)
+    many = norms.layer_norm(x, w, b)
+    assert torch.equal(norms.layer_norm(x[:small].contiguous(), w, b), many[:small])
+    assert torch.equal(norms.layer_norm(x, w, b), many)
+
+
+def test_layer_norm_plan_matches_its_source(dev):
+    import ctypes
+
+    from powerpaint_tpu_torch.ops import _build
+
+    fn = _build.load("layer_norm").ppt_layer_norm_plan
+    fn.restype = None
+    out = (ctypes.c_longlong * 4)()
+    keys = ("group", "vecs", "threads", "rows")
+    for c in LN_CS + (1, 77, 300, 1536, 1537, 2048):
+        for esize in (2, 4):
+            fn(c, esize, out)
+            p = norms.ln_plan(c, esize)
+            assert list(out) == [p[k] for k in keys], (c, esize)
+
+
+@pytest.mark.parametrize("bad", ["transposed", "fp16", "bf16_affine", "too_wide"])
 def test_norms_reject_what_they_cannot_take(dev, bad):
-    x = _randn(dev, 2, 16, 64)
-    x = x.transpose(0, 1) if bad == "transposed" else x.half()
-    w, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    c = norms.LN_MAX_C + 1 if bad == "too_wide" else 64
+    x = _randn(dev, 2, 16, c)
+    w, b = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    if bad == "transposed":
+        x = x.transpose(0, 1)
+    elif bad == "fp16":
+        x = x.half()
+    elif bad == "bf16_affine":
+        w, b = w.bfloat16(), b.bfloat16()
     with pytest.raises(ValueError):
         norms.layer_norm(x, w, b)
-    with pytest.raises(ValueError):
-        norms.group_norm(x, w, b, num_groups=32)
+    if bad != "too_wide":  # GroupNorm takes any C that splits into groups
+        with pytest.raises(ValueError):
+            norms.group_norm(x, w, b, num_groups=32)
 
 
 # (B, H, W, Cin, Cout, groups): UNet levels, a wide up-block concat, the
