@@ -61,10 +61,21 @@ Phases, in order; any failure exits non-zero:
 6. The command line, ``serve.cli.main`` in this process: ppt-v1 with int8
    on, a 512x512 PNG and mask written by the script, 20 steps, its launch
    counts, the PNG it writes and its output line.
-7. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 with int8) must give the
-   same image through the kernels as through the plain versions on the
-   CPU.
-8. The ``{"kernels": [...]}`` line, then the last line
+7. The ppt-v1 + ControlNet path: full width (the ppt-v1 stack and an SD1.5
+   ControlNet branch: the UNet's down and mid half on the 4-channel
+   latent, the conditioning embedding, 13 zero convs), random bf16
+   weights from a seed, 512x512 with a drawn edge map, 20 DDIM steps,
+   guidance 7.5: the four tasks, the same seed twice, another seed, no
+   control image (which must equal the ppt-v1 path's image bit for bit:
+   the v1 families draw the same weights), guess mode,
+   control_guidance_end 0.5, two branches, a two-request batch, and one
+   call with int8 on (PSNR against the bf16 image of the same seed, the
+   saturated share). Each call's launches are the config's, exactly;
+   stage times keep the branch and the base UNet apart; one profiled call.
+8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, ppt-v1 with
+   int8) must give the same image through the kernels as through the
+   plain versions on the CPU.
+9. The ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 With no GPU the script fails before printing any result.
@@ -751,7 +762,7 @@ def batch_invariance(device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 3 to 6: the main paths
+# phases 3 to 7: the main paths
 # ---------------------------------------------------------------------------
 
 KERNELS = ("flash_attention", "group_norm", "group_norm_stats",
@@ -777,6 +788,20 @@ def unet_launches(u, with_out_norm: bool = True) -> dict:
             "conv3x3_gn_silu": 2 * n_res, "conv3x3": n_levels - 1}
 
 
+def controlnet_launches(u) -> dict:
+    """One ControlNet branch evaluation on the UNet config ``u``: the down
+    and mid half of ``unet_launches`` (its transformers and ResNet units,
+    no upsampler, no output norm); the embedding's and the zero convs run
+    on cuDNN."""
+    n_levels = len(u.block_out_channels)
+    n_tf = (sum(k.startswith("CrossAttn") for k in u.down_block_types)
+            * u.layers_per_block + 1) * u.transformer_layers_per_block
+    n_res = n_levels * u.layers_per_block + 2
+    return {"flash_attention": 2 * n_tf, "layer_norm": 3 * n_tf,
+            "group_norm": n_tf, "group_norm_stats": 2 * n_res,
+            "conv3x3_gn_silu": 2 * n_res, "conv3x3": 0}
+
+
 def vae_launches(v, decoder: bool) -> dict:
     """One VAE encode or decode: its ResNet units, the mid attention and
     its GroupNorm, the output GroupNorm, the decoder's upsamplers."""
@@ -791,11 +816,12 @@ def _half(n: int) -> int:
     return -(-n // 2)  # the UNet's stride-2 conv with padding 1
 
 
-def unet_sites(u, h: int, w: int) -> list:
+def unet_sites(u, h: int, w: int, encoder_only: bool = False) -> list:
     """(H, W, Cin, Cout) of every GroupNorm-fed conv (conv1 and conv2 of
     each ResNet unit) of one UNet or BrushNet evaluation on an h x w
     latent: the down levels, the mid block, and the up levels, whose units
-    take the running feature concatenated with a skip."""
+    take the running feature concatenated with a skip. ``encoder_only``:
+    the down levels and the mid block (a ControlNet branch)."""
     ch, n, per = u.block_out_channels, len(u.block_out_channels), u.layers_per_block
     sizes = [(h, w)]
     for _ in range(n - 1):
@@ -815,6 +841,8 @@ def unet_sites(u, h: int, w: int) -> list:
             skips.append(ch[i])  # the downsampler's output
     unit(sizes[-1], ch[-1], ch[-1])
     unit(sizes[-1], ch[-1], ch[-1])
+    if encoder_only:
+        return sites
     rev = ch[::-1]
     prev = rev[0]
     for i in range(n):
@@ -910,6 +938,20 @@ def expected_launches_v2(cfg, steps: int, int8_hw=None) -> dict:
     return _total((steps, unet), (steps, branch), (2, text), (1, enc), (1, dec))
 
 
+def expected_launches_cn(cfg, steps: int, branches: int = 1,
+                         int8_hw=None) -> dict:
+    """One ppt-v1 + ControlNet ``__call__`` with a control image: the ppt-v1
+    call's launches, and per step one evaluation of each branch (guess mode
+    and gated steps run the branches all the same)."""
+    u = cfg.controlnet.base
+    branch = controlnet_launches(u)
+    if int8_hw is not None:
+        lat = int8_hw // 8
+        branch = int8_split(branch, unet_sites(u, lat, lat, encoder_only=True))
+    return _total((1, expected_launches(cfg, steps, int8_hw=int8_hw)),
+                  (steps * branches, branch))
+
+
 def counters():
     from powerpaint_tpu_torch.ops import conv, norms
     from powerpaint_tpu_torch.ops.flash_attention import flash_attention
@@ -956,8 +998,10 @@ def instrument(pipe, stage_seconds: dict, finite: list, models=()) -> None:
     for attr, stage in names.items():
         setattr(pipe, attr, timed(getattr(pipe, attr), stage))
     for attr, stage in models:
-        module = getattr(pipe, attr)
-        module.forward = timed(module.forward, stage)
+        module = getattr(pipe, attr)  # a model, or a ModuleList of branches
+        for m in (module if isinstance(module, torch.nn.ModuleList)
+                  else [module]):
+            m.forward = timed(m.forward, stage)
 
 
 def inputs(hw: int, seed: int):
@@ -1300,6 +1344,150 @@ def run_cli(device) -> dict:
     return launches
 
 
+def edge_map(hw: int, seed: int) -> np.ndarray:
+    """A drawn canny-like control image: white 1-pixel outlines of a few
+    boxes and rings on black, (hw, hw, 3) uint8 (the GPU host has no
+    OpenCV)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:hw, :hw]
+    edges = np.zeros((hw, hw), bool)
+    for _ in range(4):
+        y0, x0 = rng.randint(0, hw // 2, 2)
+        y1, x1 = y0 + rng.randint(hw // 8, hw // 2, 2)
+        edges[y0:y1, x0] = edges[y0:y1, x1 - 1] = True
+        edges[y0, x0:x1] = edges[y1 - 1, x0:x1] = True
+        cy, cx = rng.randint(hw // 4, 3 * hw // 4, 2)
+        edges |= np.abs(np.hypot(yy - cy, xx - cx) - rng.randint(8, hw // 4)) < 0.7
+    return np.repeat(edges[..., None], 3, -1).astype(np.uint8) * 255
+
+
+def run_cn_path(device, v1_refs: dict):
+    """ppt-v1 + ControlNet at full width, 20 DDIM steps, a drawn edge map:
+    the four tasks, a repeat, another seed, no control image (bitwise the
+    ppt-v1 path's image ``v1_refs``), guess mode, control_guidance_end 0.5,
+    two branches, a two-request batch; then one call with int8 on."""
+    import os
+
+    from powerpaint_tpu_torch.core.config import ppt_v1_controlnet_config
+    from powerpaint_tpu_torch.io.weights import (
+        build_models,
+        init_state,
+        random_state,
+    )
+    from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+
+    cfg = ppt_v1_controlnet_config()
+    t0 = time.perf_counter()
+    state = init_state(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device, dtype=torch.bfloat16)
+    pipe = ControlNetPipeline(cfg, state, _tokenizer(cfg), dtype=torch.bfloat16,
+                              device=device)
+    # a second branch (seed 1) beside the first, for the two-branch call
+    second = random_state(build_models(cfg)["controlnet"],
+                          torch.Generator(device=device).manual_seed(1),
+                          device=device, dtype=torch.bfloat16)
+    pipe2 = ControlNetPipeline(
+        cfg, dict(state, controlnet=[state["controlnet"], second]),
+        _tokenizer(cfg), dtype=torch.bfloat16, device=device)
+    del state, second
+    count = lambda *ms: sum(p.numel() for m in ms for p in m.parameters())  # noqa: E731
+    log(phase="setup", path="ppt-v1 + controlnet",
+        params=count(pipe.unet, pipe.vae, pipe.text_encoder, pipe.controlnet),
+        unet_params=count(pipe.unet), controlnet_params=count(pipe.controlnet),
+        seconds=time.perf_counter() - t0)
+
+    image, mask = inputs(HW, 0)
+    edges, edges2 = edge_map(HW, 0), edge_map(HW, 1)
+
+    def expected(branches):
+        def want(kw):
+            if kw.get("control_image") is None:
+                return expected_launches(cfg, kw["num_inference_steps"])
+            return expected_launches_cn(cfg, kw["num_inference_steps"], branches)
+        return want
+
+    stages = (("controlnet", "denoise_controlnet"), ("unet", "denoise_base_unet"))
+    call = _caller(pipe, image, mask, expected(1), models=stages)
+    call2 = _caller(pipe2, image, mask, expected(2), models=stages)
+    prompt = "a red bench in a park"
+    call("cn warm-up", prompt="a cat", control_image=edges, seed=99)
+
+    reset_counts()  # the path starts here
+    outs = {}
+    for task in TASKS:
+        outs[task] = call(f"cn {task}", prompt=prompt, task=task, seed=1,
+                          control_image=edges)
+        check(outs[task].shape == (1, HW, HW, 3) and outs[task].dtype == np.uint8,
+              f"cn {task}: output {outs[task].shape} {outs[task].dtype}")
+    base = outs["text-guided"]
+    again = call("cn text-guided same seed", prompt=prompt, seed=1,
+                 control_image=edges)
+    check(np.array_equal(again, base), "cn: the same seed gave a different image")
+    other = call("cn text-guided other seed", prompt=prompt, seed=2,
+                 control_image=edges)
+    check(not np.array_equal(other, base), "cn: another seed gave the same image")
+    plain = call("cn no control image", prompt=prompt, seed=1)
+    check(np.array_equal(plain, v1_refs["text-guided"]),
+          "cn: control_image=None is not the ppt-v1 pipeline's image")
+    check(not np.array_equal(base, plain),
+          "cn: the control image did not change the image (dead branch)")
+    for label, kw in (("cn guess mode", dict(guess_mode=True)),
+                      ("cn control_guidance_end 0.5",
+                       dict(control_guidance_end=0.5))):
+        out = call(label, prompt=prompt, seed=1, control_image=edges, **kw)
+        d = np.abs(out.astype(np.int32) - base.astype(np.int32))
+        log(call=label, vs_plain_cn_max_uint8_diff=int(d.max()),
+            vs_plain_cn_mean_uint8_diff=float(d.mean()))
+        check(d.max() > 0, f"{label}: the image did not change")
+    two = call2("cn two branches", prompt=prompt, seed=1,
+                control_image=[edges, edges2],
+                controlnet_conditioning_scale=[1.0, 0.8])
+    d = np.abs(two.astype(np.int32) - base.astype(np.int32))
+    log(call="cn two branches", vs_one_branch_max_uint8_diff=int(d.max()),
+        vs_one_branch_mean_uint8_diff=float(d.mean()))
+    check(d.max() > 0, "cn two branches: the second branch changed nothing")
+    batch = call("cn batch of two", prompt=[prompt, "a dog"],
+                 negative_prompt=["", "blurry"], fitting_degree=[1.0, 0.5],
+                 control_image=[edges, edges2], seed=[1, 5])
+    check(batch.shape == (2, HW, HW, 3), f"cn batch output {batch.shape}")
+    d = np.abs(batch[0].astype(np.int32) - base[0].astype(np.int32))
+    log(path="ppt-v1 + controlnet", batch_vs_standalone_max_uint8_diff=int(d.max()),
+        batch_vs_standalone_mean_uint8_diff=float(d.mean()))
+    launches = _path_counts("ppt-v1 + controlnet", expected_launches_cn(cfg, STEPS))
+    profile_call("ppt-v1 + controlnet", lambda: pipe(
+        image, mask, edges, prompt=prompt, seed=1, num_inference_steps=STEPS,
+        guidance_scale=GUIDANCE))
+    del pipe, pipe2
+    torch.cuda.empty_cache()
+
+    # int8 on, read by the pipeline from the environment
+    os.environ["POWERPAINT_INT8"] = "1"
+    os.environ.pop("POWERPAINT_INT8_XSCALE", None)
+    t0 = time.perf_counter()
+    state = init_state(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device, dtype=torch.bfloat16)
+    pipe = ControlNetPipeline(cfg, state, _tokenizer(cfg), dtype=torch.bfloat16,
+                              device=device)
+    del state
+    check(pipe.int8_x_scale == 8.0 / 127.0, f"cn int8: x_scale {pipe.int8_x_scale}")
+    log(phase="setup", path="ppt-v1 + controlnet int8", x_scale=pipe.int8_x_scale,
+        seconds=time.perf_counter() - t0)
+    call = _caller(pipe, image, mask, lambda kw: expected_launches_cn(
+        cfg, kw["num_inference_steps"], int8_hw=HW))
+    sat = saturation_share(pipe, (pipe.controlnet, pipe.unet), lambda: call(
+        "cn int8 warm-up (saturation hooks)", prompt=prompt, seed=1,
+        control_image=edges))
+    log(path="ppt-v1 + controlnet int8", saturation=sat)
+    reset_counts()  # the int8 call starts here
+    out = call("cn int8 text-guided", prompt=prompt, seed=1, control_image=edges)
+    log(path="ppt-v1 + controlnet int8", task="text-guided",
+        psnr_vs_bf16=psnr(out, base))
+    int8_launches = _path_counts("ppt-v1 + controlnet int8",
+                                 expected_launches_cn(cfg, STEPS, int8_hw=HW))
+    os.environ.pop("POWERPAINT_INT8")
+    return {k: launches[k] + int8_launches[k] for k in launches}
+
+
 def kernel_resources(nvcc_logs: dict) -> None:
     """Each compiled kernel's registers, static shared memory and spills
     (``nvcc -Xptxas -v``) and ptxas's performance warnings, the GroupNorm
@@ -1420,10 +1608,10 @@ def profile_call(label: str, run_call) -> None:
 
 
 def tiny_reference(device) -> None:
-    """The tiny ppt-v1 and ppt-v2 configurations, fp32, through the kernels
-    on the card and through the plain versions on the CPU, with the same
-    weights and the same noise: the uint8 images must agree within the JAX
-    package's end-to-end bound (max 3, mean 0.5).
+    """The tiny ppt-v1, ppt-v2 and ppt-v1 + ControlNet configurations, fp32,
+    through the kernels on the card and through the plain versions on the
+    CPU, with the same weights and the same noise: the uint8 images must
+    agree within the JAX package's end-to-end bound (max 3, mean 0.5).
 
     ppt-v1 with int8 on (every ResNet unit is an int8 site at this size) is
     held site by site instead: static-scale quantisation turns an fp32 ulp
@@ -1440,8 +1628,16 @@ def tiny_reference(device) -> None:
         BrushNetPipeline,
         cond_scale_table,
     )
+    from powerpaint_tpu_torch.pipelines.controlnet import (
+        ControlNetPipeline,
+        gating_table,
+    )
     from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
-    from powerpaint_tpu_torch.testing import tiny_v1_config, tiny_v2_config
+    from powerpaint_tpu_torch.testing import (
+        tiny_v1_config,
+        tiny_v1_controlnet_config,
+        tiny_v2_config,
+    )
     from powerpaint_tpu_torch.text.prompts import add_task, v2_prompt_suffix
     from powerpaint_tpu_torch.text.tokenizer import (
         HashTokenizer,
@@ -1456,13 +1652,19 @@ def tiny_reference(device) -> None:
     image, mask = inputs(64, 1)
     mask_u8 = (mask >= 0.5).astype(np.uint8)[None, ..., None] * 255
 
-    def v1(pipe, dev, noise):
+    def v1(pipe, dev, noise, **extra):
         ids = pipe.encode_task(add_task("a dog", "", "text-guided"))[None]
         return pipe._generate(
             torch.as_tensor(ids, dtype=torch.long, device=dev),
             torch.tensor([0.6], device=dev), torch.as_tensor(image[None], device=dev),
             torch.as_tensor(mask_u8, device=dev), torch.tensor([7.5], device=dev),
-            *noise, None, num_steps=3, strength_steps=3, output_type="uint8")
+            *noise, None, num_steps=3, strength_steps=3, output_type="uint8",
+            **extra)
+
+    def cn(pipe, dev, noise):
+        control = torch.as_tensor(edge_map(64, 2)[None, None], device=dev)
+        return v1(pipe, dev, noise, control_u8=control,
+                  scales=gating_table(3, [1.0], [0.0], [1.0]))
 
     def v2(pipe, dev, noise):
         task = "object-removal"
@@ -1479,6 +1681,8 @@ def tiny_reference(device) -> None:
     for label, cfg, cls, gen, int8 in (
             ("ppt-v1", tiny_v1_config(), InpaintPipeline, v1, False),
             ("ppt-v2", tiny_v2_config(), BrushNetPipeline, v2, False),
+            ("ppt-v1 + controlnet", tiny_v1_controlnet_config(),
+             ControlNetPipeline, cn, False),
             ("ppt-v1 int8", tiny_v1_config(), InpaintPipeline, v1, True)):
         state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu",
                            dtype=torch.float32)
@@ -1599,13 +1803,14 @@ def main() -> None:
     batch_invariance(device)
     log(phase="batch invariance", seconds=time.perf_counter() - t0)
 
-    # phases 3 to 6: the main paths, then the small references
+    # phases 3 to 7: the main paths, then the small references
     launches = {k: 0 for k in KERNELS}
     refs = {}
     paths = (("ppt-v1", run_v1_path), ("ppt-v2", run_v2_path),
              ("ppt-v1 int8", lambda d: run_int8_path(d, "ppt-v1", refs["ppt-v1"])),
              ("ppt-v2 int8", lambda d: run_int8_path(d, "ppt-v2", refs["ppt-v2"])),
-             ("cli", run_cli))
+             ("cli", run_cli),
+             ("ppt-v1 + controlnet", lambda d: run_cn_path(d, refs["ppt-v1"])))
     for label, run in paths:
         t0 = time.perf_counter()
         counts = run(device)

@@ -2,10 +2,11 @@
 ``powerpaint_tpu/controller.py``; reference ``PowerPaintController``,
 app.py:83-543).
 
-One object owning a loaded pipeline, with the reference's preprocessing
-policy: aspect resize to 640 short side (512 for outpainting), %8 crop,
-outpaint canvas construction, red-overlay visualization and blur-blend
-compositing (app.py:245-473).
+One object owning the loaded pipelines, routing (task, control_type) to
+the right one with the reference's preprocessing policy: aspect resize to
+640 short side (512 for outpainting), %8 crop, outpaint canvas
+construction, red-overlay visualization and blur-blend compositing
+(app.py:245-473).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 
 from powerpaint_tpu_torch.core.metrics import GLOBAL as telemetry
 from powerpaint_tpu_torch.core.safety import apply_safety_checker
+from powerpaint_tpu_torch.tasks.control import get_control_image
 from powerpaint_tpu_torch.tasks.postprocess import blend_result, red_overlay
 from powerpaint_tpu_torch.tasks.preprocess import (
     crop_from_bucket,
@@ -42,10 +44,13 @@ class InferenceResult:
 class PowerPaint:
     """``infer()`` mirrors the reference controller's routing
     (app.py:475-543) for a ppt-v1 ``InpaintPipeline`` or a ppt-v2
-    ``BrushNetPipeline``."""
+    ``BrushNetPipeline``, and for a ``ControlNetPipeline`` given as
+    ``controlnet_pipeline``, which takes the calls with a
+    ``control_type``."""
 
-    def __init__(self, pipeline):
+    def __init__(self, pipeline, controlnet_pipeline=None):
         self.pipeline = pipeline
+        self.controlnet_pipeline = controlnet_pipeline
 
     @classmethod
     def from_checkpoint(cls, checkpoint_dir: str, version: str = "ppt-v1",
@@ -76,17 +81,16 @@ class PowerPaint:
         resolution_bucketing: bool = False,
         **pipeline_kwargs,
     ) -> InferenceResult:
-        """``pipeline_kwargs`` pass through to the pipeline (strength= /
-        eta= for v1, guess_mode= / brushnet_conditioning_scale= for v2).
+        """``pipeline_kwargs`` pass through to the routed pipeline
+        (strength= / eta= for v1, guess_mode= /
+        brushnet_conditioning_scale= for v2, per-branch lists and
+        control_guidance_start= / _end= for the ControlNet pipeline).
 
         ``resolution_bucketing`` pads inputs to 64-pixel size buckets (edge
         pixels marked keep) and crops the result back, so a server sees
-        few distinct shapes. ``control_type`` needs a ControlNet pipeline,
-        which the port does not have yet (ROADMAP A12)."""
-        if control_type is not None:
-            raise ValueError(
-                "control_type given but no ControlNet pipeline loaded "
-                "(ControlNet is not ported yet: ROADMAP A12)")
+        few distinct shapes. ``control_type`` routes the call to the
+        ControlNet pipeline, with ``control_image`` or, when none is given,
+        ``tasks.control.get_control_image`` of the preprocessed image."""
         img = to_numpy_image(image)
 
         # reference resize policy: 640 short side for tasks, 512 for outpaint
@@ -117,11 +121,23 @@ class PowerPaint:
             if orig_hw == img.shape[:2]:
                 orig_hw = None
 
-        out = self.pipeline(
-            img, msk, prompt=prompt, negative_prompt=negative_prompt,
-            task=task, fitting_degree=fitting_degree,
+        kwargs = dict(
+            prompt=prompt, negative_prompt=negative_prompt, task=task,
+            fitting_degree=fitting_degree,
             num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, seed=seed, **pipeline_kwargs)
+        if control_type is not None:
+            if self.controlnet_pipeline is None:
+                raise ValueError(
+                    "control_type given but no ControlNet pipeline loaded")
+            if control_image is None:
+                control_image = get_control_image(control_type, img)
+            out = self.controlnet_pipeline(
+                img, msk, control_image=np.asarray(control_image),
+                controlnet_conditioning_scale=controlnet_conditioning_scale,
+                **kwargs)
+        else:
+            out = self.pipeline(img, msk, **kwargs)
 
         out, nsfw_flags = apply_safety_checker(out)
         result = blend_result(out[0], img, msk, blur_radius=blend_blur_radius)

@@ -1,6 +1,6 @@
 """Model / pipeline configuration dataclasses.
 
-The port's own copy of the ppt-v1 and ppt-v2 parts of
+The port's own copy of the ppt-v1, ppt-v2 and ppt-v1 + ControlNet parts of
 ``powerpaint_tpu.core.config``:
 frozen dataclasses that are the single source of truth for block topology,
 with the same field names and defaults, so a config serialized by either
@@ -135,6 +135,11 @@ class UNetConfig(_ConfigBase):
                 strides.append(s)
         return tuple(strides)
 
+    def controlnet_residual_channels(self) -> Tuple[int, ...]:
+        """Channels of the ControlNet's down residuals, one per skip
+        connection: conv_in, each resnet and each downsampler."""
+        return self.down_tap_channels()
+
 
 @dataclasses.dataclass(frozen=True)
 class BrushNetConfig(_ConfigBase):
@@ -149,6 +154,26 @@ class BrushNetConfig(_ConfigBase):
 
     @classmethod
     def from_dict(cls, d: dict) -> "BrushNetConfig":
+        d = dict(d)
+        if isinstance(d.get("base"), dict):
+            d["base"] = UNetConfig.from_dict(d["base"])
+        return super().from_dict.__func__(cls, d)
+
+
+@dataclasses.dataclass(frozen=True)
+class ControlNetConfig(_ConfigBase):
+    """Classic diffusers ControlNet: the down and mid half of ``base``'s
+    UNet on the noisy latent, a conditioning embedding on the raw control
+    image, and one 1x1 "zero" conv per skip connection and on the mid
+    block. ``base`` is the 9-channel inpainting UNet, as in the JAX
+    package; the branch's own conv_in sees only the 4-channel latent."""
+
+    base: UNetConfig = dataclasses.field(default_factory=UNetConfig)
+    conditioning_channels: int = 3
+    conditioning_embedding_out_channels: Tuple[int, ...] = (16, 32, 96, 256)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ControlNetConfig":
         d = dict(d)
         if isinstance(d.get("base"), dict):
             d["base"] = UNetConfig.from_dict(d["base"])
@@ -207,7 +232,8 @@ class SchedulerConfig(_ConfigBase):
 class PowerPaintConfig(_ConfigBase):
     """Top-level stack description: ppt-v1, or ppt-v2 when ``brushnet`` is
     set (then ``text_encoder`` describes the task-token tower of the BrushNet
-    branch; the base UNet's plain tower is the same with no task rows)."""
+    branch; the base UNet's plain tower is the same with no task rows), or
+    ppt-v1 with ControlNet branches when ``controlnet`` is set."""
 
     version: str = "ppt-v1"
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
@@ -217,6 +243,7 @@ class PowerPaintConfig(_ConfigBase):
     )
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     brushnet: Optional[BrushNetConfig] = None
+    controlnet: Optional[ControlNetConfig] = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "PowerPaintConfig":
@@ -227,6 +254,7 @@ class PowerPaintConfig(_ConfigBase):
             ("text_encoder", CLIPTextConfig),
             ("scheduler", SchedulerConfig),
             ("brushnet", BrushNetConfig),
+            ("controlnet", ControlNetConfig),
         ):
             if isinstance(d.get(k), dict):
                 d[k] = sub.from_dict(d[k])
@@ -242,3 +270,9 @@ def ppt_v2_config() -> PowerPaintConfig:
     widths, the SD1.5 VAE and two CLIP ViT-L/14 text towers."""
     return PowerPaintConfig(version="ppt-v2", unet=UNetConfig(in_channels=4),
                             brushnet=BrushNetConfig())
+
+
+def ppt_v1_controlnet_config() -> PowerPaintConfig:
+    """ppt-v1 with one SD1.5 ControlNet branch (canny, depth, HED or pose
+    weights all share this shape)."""
+    return PowerPaintConfig(version="ppt-v1", controlnet=ControlNetConfig())

@@ -1,6 +1,6 @@
 """Input validation, raised before any device work with actionable
-messages (the port's copy of the checks ``InpaintPipeline.__call__`` and
-``BrushNetPipeline.__call__`` use)."""
+messages (the port's copy of the checks ``InpaintPipeline.__call__``,
+``BrushNetPipeline.__call__`` and ``ControlNetPipeline.__call__`` use)."""
 
 from __future__ import annotations
 
@@ -80,20 +80,26 @@ def check_call_args(
         )
 
 
-SCHEDULERS = ("unipc",)
-
-
-def check_scheduler(name: str, num_steps: int) -> None:
-    """The port's ppt-v2 pipeline samples with UniPC only; the JAX
-    package's other samplers are ROADMAP item A13."""
+def check_scheduler(name: str, num_steps: int, ported: str = "unipc") -> None:
+    """The port's pipelines each sample with one scheduler (``ported``):
+    UniPC for ppt-v2, DDIM for the ControlNet path; the JAX package's other
+    samplers are ROADMAP item A13."""
     if not 1 <= int(num_steps) <= 1000:
         raise InputValidationError(
             f"num_inference_steps must be in [1, 1000], got {num_steps}"
         )
-    if name.lower() not in SCHEDULERS:
+    if name.lower() != ported:
         raise InputValidationError(
-            f"scheduler {name!r} is not ported yet (ROADMAP A13); one of "
-            f"{SCHEDULERS}"
+            f"scheduler {name!r} is not ported yet for this pipeline "
+            f"(ROADMAP A13); it samples with {ported!r}"
+        )
+
+
+def check_control_image(control_image: np.ndarray, image: np.ndarray) -> None:
+    if control_image.shape[:2] != image.shape[:2]:
+        raise InputValidationError(
+            f"control image {control_image.shape[:2]} must match image "
+            f"{image.shape[:2]}"
         )
 
 

@@ -1,12 +1,17 @@
 """Conditional UNet2D (SD1.5 family: the 9-channel inpainting UNet of ppt-v1,
 the 4-channel base UNet of ppt-v2) on NHWC activations, with diffusers
-``UNet2DConditionModel`` parameter names, and BrushNet tap injection.
+``UNet2DConditionModel`` parameter names, and BrushNet tap and ControlNet
+residual injection.
 
 The BrushNet branch's features arrive as flat sequences in consumption
 order, sliced per block by the config's tap schedule (``_down_tap_counts``,
 ``_up_tap_counts``), as in the JAX package: one tap after conv_in (added
 AFTER conv_in's skip is recorded), then the down blocks' taps, one after
-the mid block, then the up blocks' taps."""
+the mid block, then the up blocks' taps.
+
+The ControlNet branches' residuals (their sum) are added onto every
+recorded skip, conv_in's included, after the last down block, and the mid
+residual right after the mid block, before any BrushNet mid tap."""
 
 from __future__ import annotations
 
@@ -44,18 +49,22 @@ def _up_tap_counts(cfg: UNetConfig) -> Tuple[int, ...]:
                  for i in range(n))
 
 
-def add_blocks(model: nn.Module, cfg: UNetConfig) -> None:
-    """Give ``model`` the time embedding, down, mid and up blocks of
-    ``cfg``: what the UNet and the BrushNet branch share."""
-    if cfg.mid_block_type != MID_CROSS_ATTN:
-        raise ValueError(f"unsupported mid block {cfg.mid_block_type}")
-    ch = cfg.block_out_channels
-    temb_ch = ch[0] * 4
-    attn = dict(num_heads=cfg.num_heads,
+def _attention_args(cfg: UNetConfig) -> dict:
+    return dict(num_heads=cfg.num_heads,
                 context_dim=cfg.cross_attention_dim,
                 transformer_layers=cfg.transformer_layers_per_block,
                 use_linear_projection=cfg.use_linear_projection,
                 eps=cfg.norm_eps, groups=cfg.norm_num_groups)
+
+
+def add_encoder(model: nn.Module, cfg: UNetConfig) -> None:
+    """Give ``model`` the time embedding, down and mid blocks of ``cfg``:
+    what the UNet, the BrushNet branch and the ControlNet branch share."""
+    if cfg.mid_block_type != MID_CROSS_ATTN:
+        raise ValueError(f"unsupported mid block {cfg.mid_block_type}")
+    ch = cfg.block_out_channels
+    temb_ch = ch[0] * 4
+    attn = _attention_args(cfg)
     model.time_embedding = TimestepEmbedding(ch[0], temb_ch)
 
     model.down_blocks = nn.ModuleList()
@@ -67,6 +76,14 @@ def add_blocks(model: nn.Module, cfg: UNetConfig) -> None:
             cross_attention=kind == CROSS_ATTN_DOWN, **attn))
     model.mid_block = MidBlock(ch[-1], temb_ch, **attn)
 
+
+def add_blocks(model: nn.Module, cfg: UNetConfig) -> None:
+    """``add_encoder``, then the up blocks: what the UNet and the BrushNet
+    branch share."""
+    add_encoder(model, cfg)
+    ch = cfg.block_out_channels
+    temb_ch = ch[0] * 4
+    attn = _attention_args(cfg)
     rev = tuple(reversed(ch))
     model.up_blocks = nn.ModuleList()
     for i, kind in enumerate(cfg.up_block_types):
@@ -108,11 +125,15 @@ class UNet2DConditionModel(nn.Module):
                 down_block_add_samples: Optional[Sequence[torch.Tensor]] = None,
                 mid_block_add_sample: Optional[torch.Tensor] = None,
                 up_block_add_samples: Optional[Sequence[torch.Tensor]] = None,
+                down_block_additional_residuals: Optional[
+                    Sequence[torch.Tensor]] = None,
+                mid_block_additional_residual: Optional[torch.Tensor] = None,
                 ) -> torch.Tensor:
         """sample (B, H, W, C_in), timesteps () or (B,), encoder_hidden_states
         (B, 77, D) -> (B, H, W, C_out) in the compute dtype. The BrushNet
         taps, when given: 1 + sum(_down_tap_counts) down, one mid,
-        sum(_up_tap_counts) up."""
+        sum(_up_tap_counts) up. The ControlNet residuals, when given: one
+        per skip (``controlnet_residual_channels``) and one mid."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         temb = embed_time(self.time_embedding, cfg, timesteps, sample.shape[0],
@@ -131,8 +152,17 @@ class UNet2DConditionModel(nn.Module):
                 taps, down_taps = down_taps[:n], down_taps[n:]
             x, block_skips = block(x, temb, context, taps)
             skips.extend(block_skips)
+        if down_block_additional_residuals is not None:
+            if len(down_block_additional_residuals) != len(skips):
+                raise ValueError(
+                    f"{len(down_block_additional_residuals)} ControlNet "
+                    f"residuals for {len(skips)} skip connections")
+            skips = [s + r for s, r in zip(skips,
+                                           down_block_additional_residuals)]
 
         x = self.mid_block(x, temb, context)
+        if mid_block_additional_residual is not None:
+            x = x + mid_block_additional_residual
         if mid_block_add_sample is not None:
             x = x + mid_block_add_sample
 

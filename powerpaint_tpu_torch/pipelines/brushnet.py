@@ -44,6 +44,7 @@ from powerpaint_tpu_torch.io.weights import load_models
 from powerpaint_tpu_torch.pipelines.common import (
     as_list,
     batch_inputs,
+    cond_scale_table,
     draw_noise,
     int8_x_scale,
     resolve_seeds,
@@ -52,16 +53,6 @@ from powerpaint_tpu_torch.pipelines.common import (
 )
 from powerpaint_tpu_torch.schedulers import unipc
 from powerpaint_tpu_torch.text.prompts import TaskPrompts, add_task, v2_prompt_suffix
-
-
-def cond_scale_table(num_steps: int, scale: float, start: float,
-                     end: float) -> np.ndarray:
-    """The branch's conditioning scale per step: ``scale`` inside the
-    [start, end] window of the schedule, 0 outside."""
-    keeps = np.array([1.0 - float(i / num_steps < start
-                                  or (i + 1) / num_steps > end)
-                      for i in range(num_steps)], np.float32)
-    return keeps * scale
 
 
 class BrushNetPipeline:

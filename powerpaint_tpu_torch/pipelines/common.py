@@ -1,6 +1,6 @@
-"""What the ppt-v1 and ppt-v2 pipelines share: the int8 option, request
-batching and seeds on the host, per-image noise, the VAE sample and the
-decode."""
+"""What the ppt-v1, ppt-v2 and ControlNet pipelines share: the int8 option,
+request batching, seeds and the branches' gating tables on the host,
+per-image noise, the VAE sample and the decode."""
 
 from __future__ import annotations
 
@@ -63,6 +63,16 @@ def resolve_seeds(seed, b: int) -> List[int]:
     if len(seeds) != b:
         raise ValueError(f"{len(seeds)} seeds for {b} images")
     return seeds
+
+
+def cond_scale_table(num_steps: int, scale: float, start: float,
+                     end: float) -> np.ndarray:
+    """A branch's conditioning scale per step: ``scale`` inside the
+    [start, end] window of the schedule, 0 outside."""
+    keeps = np.array([1.0 - float(i / num_steps < start
+                                  or (i + 1) / num_steps > end)
+                      for i in range(num_steps)], np.float32)
+    return keeps * scale
 
 
 def draw_noise(device, seeds: Sequence[int], shape,

@@ -17,7 +17,7 @@ draws as tensors, so a test can hand both packages the same noise.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,6 +45,18 @@ from powerpaint_tpu_torch.schedulers.common import make_schedule
 from powerpaint_tpu_torch.text.prompts import TaskPrompts, add_task
 
 
+class Request(NamedTuple):
+    """One call's inputs after host-side validation and batching."""
+
+    images: np.ndarray  # (B, H, W, 3) uint8
+    masks: np.ndarray  # (B, H, W, 1) uint8, 255 in the hole
+    ids: np.ndarray  # (P, 4, 77) [A, B, negA, negB] per prompt
+    fittings: list  # P fitting degrees
+    guidances: list  # B guidance scales
+    seeds: list  # B seeds
+    strength_steps: int  # the steps executed
+
+
 class InpaintPipeline:
     """``InpaintPipeline(config, state, tokenizer)(image, mask, prompt)``.
 
@@ -70,6 +82,7 @@ class InpaintPipeline:
         self.unet = models["unet"]
         self.vae = models["vae"]
         self.text_encoder = models["text_encoder"]
+        self.controlnet = models.get("controlnet")  # ControlNetPipeline's
 
     # ------------------------------------------------------------ stages
 
@@ -101,15 +114,19 @@ class InpaintPipeline:
     def _denoise(self, sched, latents: torch.Tensor, mask_lat: torch.Tensor,
                  masked_lat: torch.Tensor, cond: torch.Tensor,
                  guidance: torch.Tensor, eta: float,
-                 step_noise: Optional[Sequence[torch.Tensor]]) -> torch.Tensor:
+                 step_noise: Optional[Sequence[torch.Tensor]],
+                 residuals: Optional[Callable] = None) -> torch.Tensor:
         """DDIM loop; the UNet sees [latents, mask, masked-image latents]
-        for the unconditional and the conditional half in one batch."""
+        for the unconditional and the conditional half in one batch.
+        ``residuals(i, latents, t, cond)``, when given, returns the keyword
+        arguments (the ControlNet residuals) of step i's UNet call."""
         b = latents.shape[0]
         extra = torch.cat([mask_lat, masked_lat], dim=-1).repeat(2, 1, 1, 1)
         for i in range(sched.num_steps):
             lmi = torch.cat([latents.repeat(2, 1, 1, 1), extra], dim=-1)
             t = torch.tensor(int(sched.timesteps[i]), device=latents.device)
-            eps = self.unet(lmi, t, cond).float()
+            kw = residuals(i, latents, t, cond) if residuals is not None else {}
+            eps = self.unet(lmi, t, cond, **kw).float()
             eps = eps[:b] + guidance * (eps[b:] - eps[:b])
             noise = step_noise[i] if eta > 0.0 else None
             latents = ddim.step(sched, eps, i, latents, eta=eta, noise=noise)
@@ -129,13 +146,15 @@ class InpaintPipeline:
                   step_noise: Optional[Sequence[torch.Tensor]], *,
                   num_steps: int, strength_steps: int, output_type: str,
                   eta: float = 0.0, latents_in: Optional[torch.Tensor] = None,
-                  clip_skip: int = 0) -> torch.Tensor:
+                  clip_skip: int = 0,
+                  residuals: Optional[Callable] = None) -> torch.Tensor:
         """Everything after host-side validation, on ``self.device``.
 
         ids (P, 4, 77); fittings (P,); image_u8 (B, H, W, 3) uint8; mask_u8
         (B, H, W, 1) uint8 in {0, 255}; guidance (B,); noise0, vae_noise,
         img_noise (B, H/8, W/8, 4) fp32; step_noise one (B, H/8, W/8, 4)
-        tensor per kept step when ``eta > 0``."""
+        tensor per kept step when ``eta > 0``; ``residuals`` as
+        ``_denoise`` takes it."""
         sched = make_schedule(
             self.config.scheduler, num_steps,
             keep_steps=strength_steps if strength_steps < num_steps else None)
@@ -161,7 +180,7 @@ class InpaintPipeline:
 
         latents = self._denoise(sched, latents, mask_lat, masked_lat, cond,
                                 guidance.float().reshape(-1, 1, 1, 1), eta,
-                                step_noise)
+                                step_noise, residuals)
         if output_type == "latent":
             return latents
         return to_output(self._decode(latents), output_type)
@@ -188,6 +207,19 @@ class InpaintPipeline:
         ``seed`` one value or one per request. Returns (B, H, W, 3) uint8,
         (B, H, W, 3) float32 in [-1, 1] or (B, H/8, W/8, 4) float32 latents,
         as numpy."""
+        req = self._request(image, mask, prompt, negative_prompt, task,
+                            fitting_degree, num_inference_steps,
+                            guidance_scale, strength, seed,
+                            num_images_per_prompt, output_type, clip_skip)
+        return self._run(req, num_inference_steps, output_type, eta, latents,
+                         clip_skip)
+
+    def _request(self, image, mask, prompt, negative_prompt, task: str,
+                 fitting_degree, num_inference_steps: int, guidance_scale,
+                 strength: float, seed, num_images_per_prompt: int,
+                 output_type: str, clip_skip: int, **window) -> Request:
+        """Validate and batch one call on the host (``window``: the
+        ControlNet guidance window, checked with the rest)."""
         multi = isinstance(prompt, (list, tuple))
         prompts = list(prompt) if multi else [prompt]
         negatives = as_list(negative_prompt, len(prompts))
@@ -195,40 +227,48 @@ class InpaintPipeline:
         guidances = as_list(guidance_scale, len(prompts))
         img_b, mask_b = batch_inputs(
             image, mask, multi, len(prompts) if multi else num_images_per_prompt)
-        b, h, w, _ = img_b.shape
+        b = img_b.shape[0]
         for f, g in zip(fittings, guidances):
             check_call_args(task=task, num_inference_steps=num_inference_steps,
                             guidance_scale=float(g), strength=strength,
-                            fitting_degree=float(f))
+                            fitting_degree=float(f), **window)
         check_output_type(output_type)
         check_clip_skip(clip_skip, self.config.text_encoder.num_hidden_layers)
         if len(guidances) != b:
             guidances = [guidances[0]] * b
-
-        seeds = resolve_seeds(seed, b)
-
         ids = np.stack([self.encode_task(add_task(p, n, task, "ppt-v1"))
                         for p, n in zip(prompts, negatives)])
         strength_steps = min(int(num_inference_steps * strength),
                              num_inference_steps)
+        return Request(img_b, mask_b, ids, fittings, guidances,
+                       resolve_seeds(seed, b), strength_steps)
+
+    def _run(self, req: Request, num_inference_steps: int, output_type: str,
+             eta: float, latents: Optional[np.ndarray], clip_skip: int,
+             **extra) -> np.ndarray:
+        """Draw the noise, run ``_generate`` (with ``extra``, the keyword
+        arguments a subclass's ``_generate`` adds) under the telemetry
+        stage ``generate``, and count the images and steps."""
+        _, h, w, _ = req.images.shape
         noise0, vae_noise, img_noise, step_noise = self._draw_noise(
-            seeds, (h // 8, w // 8, 4), strength_steps, float(eta))
+            req.seeds, (h // 8, w // 8, 4), req.strength_steps, float(eta))
 
         dev = self.device
         telemetry.reset_stages()
         with telemetry.stage("generate"):
             out = self._generate(
-                torch.as_tensor(ids, dtype=torch.long, device=dev),
-                torch.as_tensor(np.asarray(fittings, np.float32), device=dev),
-                torch.as_tensor(img_b, device=dev),
-                torch.as_tensor(mask_b, device=dev),
-                torch.as_tensor(np.asarray(guidances, np.float32), device=dev),
+                torch.as_tensor(req.ids, dtype=torch.long, device=dev),
+                torch.as_tensor(np.asarray(req.fittings, np.float32), device=dev),
+                torch.as_tensor(req.images, device=dev),
+                torch.as_tensor(req.masks, device=dev),
+                torch.as_tensor(np.asarray(req.guidances, np.float32), device=dev),
                 noise0, vae_noise, img_noise, step_noise,
-                num_steps=num_inference_steps, strength_steps=strength_steps,
-                output_type=output_type, eta=float(eta),
+                num_steps=num_inference_steps,
+                strength_steps=req.strength_steps, output_type=output_type,
+                eta=float(eta),
                 latents_in=(None if latents is None
                             else torch.as_tensor(latents, device=dev)),
-                clip_skip=int(clip_skip)).cpu().numpy()
+                clip_skip=int(clip_skip), **extra).cpu().numpy()
         telemetry.count("images", out.shape[0])
-        telemetry.count("denoise_steps", strength_steps)
+        telemetry.count("denoise_steps", req.strength_steps)
         return out

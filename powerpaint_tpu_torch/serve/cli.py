@@ -68,7 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "only ones ported yet; ROADMAP A13 brings the rest)")
     p.add_argument("--control_type", default=None,
                    choices=[None, "canny", "depth", "hed", "pose"],
-                   help="ControlNet conditioning (not ported yet: ROADMAP A12)")
+                   help="ControlNet conditioning (the command line's route "
+                        "is not ported yet: ROADMAP A12's remainder; the "
+                        "library takes it through PowerPaint("
+                        "controlnet_pipeline=...))")
     p.add_argument("--horizontal_expansion", type=float, default=1.0)
     p.add_argument("--vertical_expansion", type=float, default=1.0)
     p.add_argument("--short_side", type=int, default=640,

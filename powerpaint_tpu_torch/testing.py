@@ -1,11 +1,13 @@
 """Tiny model configs for CPU-runnable tests (same widths as the JAX
-package's ``testing.tiny_v1_config`` and ``testing.tiny_v2_config``)."""
+package's ``testing.tiny_v1_config``, ``testing.tiny_v2_config`` and
+``testing.tiny_v1_controlnet_config``)."""
 
 from __future__ import annotations
 
 from powerpaint_tpu_torch.core.config import (
     BrushNetConfig,
     CLIPTextConfig,
+    ControlNetConfig,
     PowerPaintConfig,
     UNetConfig,
     VAEConfig,
@@ -54,4 +56,17 @@ def tiny_v2_config() -> PowerPaintConfig:
         vae=tiny_vae(),
         text_encoder=tiny_text(30),
         brushnet=BrushNetConfig(base=tiny_unet(4)),
+    )
+
+
+def tiny_v1_controlnet_config() -> PowerPaintConfig:
+    return PowerPaintConfig(
+        version="ppt-v1",
+        unet=tiny_unet(9),
+        vae=tiny_vae(),
+        text_encoder=tiny_text(30),
+        controlnet=ControlNetConfig(
+            base=tiny_unet(4),
+            conditioning_embedding_out_channels=(16, 16, 16, 16),
+        ),
     )

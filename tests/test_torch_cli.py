@@ -1,10 +1,11 @@
 """The port's entry points against the JAX package's: ``controller.py``
 (``PowerPaint.infer``) and the ``serve/cli.py`` one-shot mode.
 
-The controller is held to the JAX package's with a stub pipeline on each
-side, so the test sees exactly what each hands its pipeline and what each
-makes of the same output; the command line's parser is held to the JAX
-parser, and a tiny one-shot run goes through the port on the CPU.
+The controller is held to the JAX package's with stub pipelines on each
+side (the ControlNet route too), so the test sees exactly what each hands
+its pipeline and what each makes of the same output; the command line's
+parser is held to the JAX parser, and a tiny one-shot run goes through the
+port on the CPU.
 """
 
 import argparse
@@ -110,6 +111,48 @@ def test_controller_safety_hook_matches_jax(numpy_blend):
     assert got.nsfw_flags == want.nsfw_flags == [True]
     assert not got.raw.any()
     np.testing.assert_array_equal(got.result, want.result)
+
+
+@pytest.mark.parametrize("given", [False, True],
+                         ids=["canny-from-cv2", "control_image"])
+def test_controller_control_route_matches_jax(given, numpy_blend):
+    """``control_type`` routes to the ControlNet pipeline with the control
+    image given, or canny of the preprocessed image; the v1 pipeline is
+    not called."""
+    image, mask = _request()
+    extra = {}
+    if given:
+        extra["control_image"] = (np.indices((696, 528)).sum(0) % 7 == 0)[
+            ..., None].repeat(3, -1).astype(np.uint8) * 255
+    results = []
+    for module in (controller, jax_controller):
+        plain, cn = StubPipeline(), StubPipeline()
+        res = module.PowerPaint(plain, controlnet_pipeline=cn).infer(
+            image, mask, control_type="canny", prompt="a vase",
+            controlnet_conditioning_scale=0.7, num_inference_steps=3,
+            guess_mode=True, **extra)
+        assert plain.calls == [] and len(cn.calls) == 1
+        results.append((res, cn.calls[0]))
+    (got, (img, msk, kw)), (want, (jimg, jmsk, jkw)) = results
+    np.testing.assert_array_equal(img, jimg)
+    np.testing.assert_array_equal(msk, jmsk)
+    ctrl, jctrl = kw.pop("control_image"), jkw.pop("control_image")
+    assert ctrl.shape == img.shape and ctrl.dtype == np.uint8 and ctrl.any()
+    np.testing.assert_array_equal(ctrl, jctrl)
+    assert kw == jkw and kw["controlnet_conditioning_scale"] == 0.7
+    for name in ("result", "raw", "mask_overlay"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+
+
+def test_controller_without_a_controlnet_pipeline_raises_as_jax():
+    image, mask = _request()
+    errors = []
+    for module in (controller, jax_controller):
+        with pytest.raises(ValueError) as exc:
+            module.PowerPaint(StubPipeline()).infer(image, mask,
+                                                    control_type="canny")
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1]
 
 
 def test_controller_refuses_what_is_not_ported():

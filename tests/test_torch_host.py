@@ -40,7 +40,10 @@ def _common_fields(ours: dict, theirs: dict) -> dict:
     (testing.tiny_v1_config, jax_testing.tiny_v1_config),
     (config.ppt_v2_config, jax_config.ppt_v2_config),
     (testing.tiny_v2_config, jax_testing.tiny_v2_config),
-], ids=["ppt_v1", "tiny_v1", "ppt_v2", "tiny_v2"])
+    (config.ppt_v1_controlnet_config, jax_config.ppt_v1_controlnet_config),
+    (testing.tiny_v1_controlnet_config, jax_testing.tiny_v1_controlnet_config),
+], ids=["ppt_v1", "tiny_v1", "ppt_v2", "tiny_v2", "ppt_v1_controlnet",
+        "tiny_v1_controlnet"])
 def test_config_copy_matches(ours, theirs):
     a = ours().to_dict()
     assert a == _common_fields(a, theirs().to_dict())
@@ -185,6 +188,10 @@ def test_postprocess_matches(name, args, monkeypatch):
     ("check_image_mask", dict(image=np.zeros((64, 64, 3)), mask=np.zeros((64, 56)))),
     ("check_image_mask", dict(image=np.zeros((64, 64)), mask=np.zeros((64, 64)))),
     ("check_image_mask", dict(image=np.zeros((64, 64, 3)), mask=np.zeros((64, 64)))),
+    ("check_control_image", dict(control_image=np.zeros((64, 56, 3)),
+                                 image=np.zeros((64, 64, 3)))),
+    ("check_control_image", dict(control_image=np.zeros((64, 64, 3)),
+                                 image=np.zeros((64, 64, 3)))),
 ])
 def test_validators_agree(check, kwargs):
     def outcome(fn):

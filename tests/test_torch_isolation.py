@@ -46,6 +46,22 @@ def test_the_entry_points_and_the_int8_path_are_covered():
             "core/safety.py", "ops/conv.py", "pipelines/common.py"} <= names
 
 
+def test_the_controlnet_modules_are_covered_and_load_no_opencv():
+    """The ControlNet path's modules are checked like the rest, and OpenCV
+    (which the GPU host does not have) loads only when canny runs."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"models/controlnet.py", "pipelines/controlnet.py",
+            "tasks/control.py"} <= names
+    code = ("import sys\n"
+            "import powerpaint_tpu_torch.controller\n"
+            "import powerpaint_tpu_torch.pipelines.controlnet\n"
+            "import powerpaint_tpu_torch.tasks.control\n"
+            "assert 'cv2' not in sys.modules\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_the_pattern_catches_what_it_must():
     for line in ("import jax", "from jax import numpy", "import jax.numpy as jnp",
                  "from powerpaint_tpu.ops import attention",

@@ -567,3 +567,75 @@ def test_group_norm_refuses_what_it_cannot_take(dev):
                               cluster=norms.gn_plan(4096, 320, 32, 4, sms=sms)["cluster"])
     torch.testing.assert_close(out, norms.group_norm_plain(x, gamma, beta, eps=1e-5),
                                atol=1e-4, rtol=0)
+
+
+def test_tiny_controlnet_on_the_card_matches_the_cpu(dev):
+    """The tiny ppt-v1 + ControlNet pipeline, fp32, on the card and on the
+    CPU with the same weights and noise: the images within the tiny
+    references' bound (max 3, mean 0.5 uint8); and one branch forward on
+    the card launches each kernel as often as the config implies."""
+    import numpy as np
+
+    from powerpaint_tpu_torch.io.weights import init_state
+    from powerpaint_tpu_torch.pipelines.controlnet import (
+        ControlNetPipeline,
+        gating_table,
+    )
+    from powerpaint_tpu_torch.testing import tiny_v1_controlnet_config
+    from powerpaint_tpu_torch.text.prompts import add_task
+    from powerpaint_tpu_torch.text.tokenizer import (
+        HashTokenizer,
+        TokenizerWrapper,
+        add_task_tokens,
+    )
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_v1_controlnet_config()
+    state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tok = TokenizerWrapper(HashTokenizer(994))
+    add_task_tokens(tok)
+    rng = np.random.RandomState(1)
+    image = (rng.rand(64, 64, 3) * 255).astype(np.uint8)
+    mask_u8 = np.zeros((1, 64, 64, 1), np.uint8)
+    mask_u8[:, 16:48, 12:40] = 255
+    control = ((rng.rand(1, 1, 64, 64, 1) > 0.85) * np.ones(3)).astype(np.uint8) * 255
+    g = torch.Generator().manual_seed(7)
+    noise = [torch.randn((1, 8, 8, 4), generator=g) for _ in range(3)]
+    outs = {}
+    try:
+        for d in ("cpu", dev):
+            pipe = ControlNetPipeline(cfg, state, tok, dtype=torch.float32,
+                                      device=d)
+            ids = pipe.encode_task(add_task("a dog", "", "text-guided"))[None]
+            outs[str(d)] = pipe._generate(
+                torch.as_tensor(ids, dtype=torch.long, device=d),
+                torch.tensor([0.6], device=d),
+                torch.as_tensor(image[None], device=d),
+                torch.as_tensor(mask_u8, device=d), torch.tensor([7.5], device=d),
+                *[n.to(d) for n in noise], None, num_steps=3, strength_steps=3,
+                output_type="uint8", control_u8=torch.as_tensor(control, device=d),
+                scales=gating_table(3, [1.0], [0.0], [1.0])).cpu().numpy()
+        diff = np.abs(outs["cpu"].astype(np.int32) - outs[str(dev)].astype(np.int32))
+        assert diff.max() <= 3 and diff.mean() <= 0.5, (diff.max(), diff.mean())
+
+        counted = {"flash_attention": fa.flash_attention,
+                   "layer_norm": norms.layer_norm, "group_norm": norms.group_norm,
+                   "group_norm_stats": norms.group_norm_stats,
+                   "conv3x3_gn_silu": conv.conv3x3_gn_silu, "conv3x3": conv.conv3x3}
+        before = {k: f.launches for k, f in counted.items()}
+        with torch.no_grad():
+            cond = torch.as_tensor(control[0], device=dev).repeat(2, 1, 1, 1)
+            pipe.controlnet[0](torch.zeros(2, 8, 8, 4, device=dev),
+                               torch.tensor(500, device=dev),
+                               torch.zeros(2, 77, 32, device=dev), cond)
+        got = {k: f.launches - before[k] for k, f in counted.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    u = cfg.controlnet.base
+    n_tf = sum(k.startswith("CrossAttn") for k in u.down_block_types) * \
+        u.layers_per_block + 1
+    n_units = len(u.block_out_channels) * u.layers_per_block + 2
+    assert got == {"flash_attention": 2 * n_tf, "layer_norm": 3 * n_tf,
+                   "group_norm": n_tf, "group_norm_stats": 2 * n_units,
+                   "conv3x3_gn_silu": 2 * n_units, "conv3x3": 0}

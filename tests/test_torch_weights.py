@@ -92,7 +92,7 @@ def test_converted_tree_has_the_jax_models_shapes(state_np, family):
 
 def test_params_from_jax_rejects_unknown_family():
     with pytest.raises(ValueError):
-        params_from_jax({}, "controlnet")
+        params_from_jax({}, "t2i_adapter")  # controlnet is a family now
 
 
 def test_init_state_matches_the_modules(state_np):
