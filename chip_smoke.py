@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero:
    int8 conv, and GroupNorm in its four modes (statistics, apply, the
    int8 units' GroupNorm+SiLU+quantise, and the quantiser of x alone), and
    LayerNorm, all in CUDA) against its plain PyTorch version at the
-   main paths' shapes (LayerNorm also at a ragged C on misaligned rows),
+   main paths' shapes (LayerNorm also at a ragged C on misaligned rows;
+   GroupNorm at every BiT shape of the DPT forward and LayerNorm at the
+   safety checker's rows, in fp32, the annotator path's type),
    in fp32 (TF32 off for matmuls and convs) and in bf16, and timed beside
    the plain version, one PyTorch library call of the same function (or
    the chain of calls named), and the data-sheet bound. The int8 units and the quantising modes must be bitwise equal to
@@ -72,6 +74,21 @@ Phases, in order; any failure exits non-zero:
    call with int8 on (PSNR against the bf16 image of the same seed, the
    saturated share). Each call's launches are the config's, exactly;
    stage times keep the branch and the base UNet apart; one profiled call.
+   7b. The annotators and the safety checker: full published width,
+   random fp32 weights from seeds, at PyTorch's default precision (cuDNN
+   convolutions in TF32, matmuls in fp32). DPT-hybrid
+   depth (384^2 in, 1024^2 out; 52 GroupNorm kernel launches a map, exact)
+   and HED (512^2, no OpenCV at its bucket's size), each through
+   ``PowerPaint.infer(control_type=...)`` on the ppt-v1 + ControlNet stack
+   at 20 DDIM steps; the body-pose network at a 512^2 image's input shape
+   (184 x 192) and the PAF decode on fields upsampled by torch (the OpenCV
+   resizes and the drawing are the CPU tests'); the CLIP ViT-L/14 safety
+   checker (50 LayerNorm kernel launches a check, exact) registered for a
+   ppt-v1 call, then one whose thresholds are -1, which must flag the image
+   and black it out. Each window's launches are exact. Then each of the
+   four networks on the card against the CPU at a reduced input: within
+   1e-3 of the CPU output's largest magnitude with TF32 off, within 0.1 at
+   the default precision.
 8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, ppt-v1 with
    int8) must give the same image through the kernels as through the
    plain versions on the CPU.
@@ -251,6 +268,9 @@ LN_SHAPES = [
     ((2, 4096, 320), 1e-5), ((2, 1024, 640), 1e-5), ((2, 256, 1280), 1e-5),
     ((2, 64, 1280), 1e-5), ((4, 77, 768), 1e-5),
 ]
+# The safety checker's LayerNorm rows, fp32 (ViT-L/14: 257 tokens of 1024,
+# then the class token alone).
+SAFETY_LN_SHAPES = [(1, 257, 1024), (1, 1024)]
 # a C off the 16-byte vectors, on rows that start one element off alignment
 # (element loads on the same thread-to-element map): checked, not timed
 LN_RAGGED = ((3, 7, 300), 1e-5)
@@ -453,6 +473,64 @@ def check_kernels(device) -> list:
                     x, (c,), wl, bl, eps)),
                 bound=bound_ms(0.0, nbytes)))
     log(phase="kernel checks", kernel="layer_norm",
+        seconds=time.perf_counter() - t0)
+
+    # ---- GroupNorm and LayerNorm at the annotator path's shapes, in fp32
+    # (the type those forwards run in): every distinct (S, C) of the
+    # DPT-hybrid forward's BiT GroupNorms at 384^2, from the config (32
+    # groups, eps 1e-5, no SiLU; 2 channels a group at the stem), and the
+    # safety checker's LayerNorm rows
+    from powerpaint_tpu_torch.core.config import dpt_hybrid_midas_config
+    from powerpaint_tpu_torch.models.dpt import gn_shapes
+
+    t0 = time.perf_counter()
+    F = torch.nn.functional
+    for sz, c in dict.fromkeys(gn_shapes(dpt_hybrid_midas_config(), 384, 384)):
+        x = randn(1, sz, c) * 2 - 0.3
+        w = 1 + 0.1 * randn(c)
+        bb = 0.1 * randn(c)
+        kw = dict(num_groups=32, eps=1e-5, silu=False)
+        plan = norms.gn_plan(sz, c, 32, 4, sms=SM_COUNT[0])
+        form = dict(form="resident" if plan["resident"] else "streamed",
+                    cluster=plan["cluster"], span=plan["span"])
+        got = norms.group_norm(x, w, bb, **kw)
+        torch.cuda.synchronize()
+        want = norms.group_norm_plain(x, w, bb, **kw)
+        err = float((got - want).abs().max())
+        record("group_norm", (1, sz, c), torch.float32, err, 1e-4, path="dpt", **form)
+        fn = lambda x=x, w=w, bb=bb: norms.group_norm(x, w, bb, **kw)  # noqa: E731
+        x_nchw = x.reshape(1, -1, 1, c).permute(0, 3, 1, 2)
+        timings["group_norm"].append(dict(
+            shape=[1, sz, c], dtype="float32", path="dpt", silu=False, **form,
+            ms=graph_ms(fn), stream_ms=cuda_ms(fn), host_ms=host_ms(fn),
+            plain_ms=cuda_ms(lambda x=x, w=w, bb=bb: norms.group_norm_plain(
+                x, w, bb, **kw)),
+            library_ms=graph_ms(lambda x_nchw=x_nchw, w=w, bb=bb: F.group_norm(
+                x_nchw, 32, w, bb, 1e-5)),
+            library_scope="F.group_norm (fp32)",
+            bound=bound_ms(0.0, 8.0 * x.numel() + 8.0 * c)))
+    for shape in SAFETY_LN_SHAPES:
+        c = shape[-1]
+        x = randn(*shape) * 3 + 0.5
+        w = 1 + 0.1 * randn(c)
+        bb = 0.1 * randn(c)
+        got = norms.layer_norm(x, w, bb, eps=1e-5)
+        torch.cuda.synchronize()
+        want = norms.layer_norm_plain(x, w, bb, eps=1e-5)
+        err = float((got - want).abs().max())
+        p = norms.ln_plan(c, 4)
+        cut = dict(group=p["group"], vecs=p["vecs"], threads=p["threads"])
+        record("layer_norm", shape, torch.float32, err, 1e-4, path="safety", **cut)
+        fn = lambda x=x, w=w, bb=bb: norms.layer_norm(x, w, bb, eps=1e-5)  # noqa: E731
+        timings["layer_norm"].append(dict(
+            shape=list(shape), dtype="float32", path="safety", **cut,
+            ms=graph_ms(fn), stream_ms=cuda_ms(fn), host_ms=host_ms(fn),
+            plain_ms=cuda_ms(lambda x=x, w=w, bb=bb: norms.layer_norm_plain(
+                x, w, bb, eps=1e-5)),
+            library_ms=graph_ms(lambda x=x, w=w, bb=bb: F.layer_norm(
+                x, (c,), w, bb, 1e-5)),
+            bound=bound_ms(0.0, 8.0 * x.numel() + 8.0 * c)))
+    log(phase="kernel checks", kernel="annotator norms",
         seconds=time.perf_counter() - t0)
 
     # ---- kernels 4 and 5: 3x3 conv with / without the GN+SiLU prologue
@@ -1488,6 +1566,241 @@ def run_cn_path(device, v1_refs: dict):
     return {k: launches[k] + int8_launches[k] for k in launches}
 
 
+def _window(label: str, want: dict, run):
+    """Run ``run()`` synchronised with the launch counts at 0 before it:
+    (its result, seconds, launches), which must be ``want`` exactly (the
+    kernels not named: none)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = read_counts()
+    want = {k: want.get(k, 0) for k in KERNELS}
+    check(got == want, f"{label}: launches {got}, expected {want}")
+    return out, secs, got
+
+
+def run_annotator_path(device):
+    """Phase 7b: the ControlNet annotators and the safety checker at full
+    published width, random fp32 weights from seeds, through the entry
+    points: DPT-hybrid depth (384^2 in, 1024^2 out) and HED (512^2) each
+    through ``PowerPaint.infer(control_type=...)`` on the full-width
+    ppt-v1 + ControlNet stack at 20 DDIM steps; the body-pose network at a
+    512^2 image's input shape and the PAF decode; the CLIP ViT-L/14 safety
+    checker registered for the ppt-v1 call, then one with every concept
+    threshold at -1, which must flag the image and black it out. Each
+    window's launches are exact. Then each network on the card against the
+    same network on the CPU, fp32, at a reduced input, with TF32 off and at
+    the default precision."""
+    from powerpaint_tpu_torch.controller import PowerPaint
+    from powerpaint_tpu_torch.core import config as cfgs
+    from powerpaint_tpu_torch.core import safety
+    from powerpaint_tpu_torch.io.weights import (
+        init_state,
+        load_annotator,
+        random_annotator_state,
+    )
+    from powerpaint_tpu_torch.models.dpt import gn_shapes
+    from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+    from powerpaint_tpu_torch.tasks import control, pose
+
+    F = torch.nn.functional
+    # PyTorch's default precision, at which the annotators run: cuDNN
+    # convolutions in TF32, matmuls in fp32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cfgs.ppt_v1_controlnet_config()
+    dpt_cfg, clip_cfg = cfgs.dpt_hybrid_midas_config(), cfgs.safety_checker_config()
+    t0 = time.perf_counter()
+    state = init_state(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device, dtype=torch.bfloat16)
+    # the ControlNet pipeline without a control image is the ppt-v1 pipeline
+    # (bitwise, phase 7), so it serves both of the controller's roles
+    pipe = ControlNetPipeline(cfg, state, _tokenizer(cfg), dtype=torch.bfloat16,
+                              device=device)
+    del state
+    pp = PowerPaint(pipe, controlnet_pipeline=pipe)
+
+    def annotator_state(family, seed, config=None):
+        return random_annotator_state(
+            family, torch.Generator(device=device).manual_seed(seed),
+            device=device, config=config)
+
+    states = {"dpt": annotator_state("dpt", 10, dpt_cfg),
+              "hed": annotator_state("hed", 11),
+              "bodypose": annotator_state("bodypose", 12),
+              "safety_checker": annotator_state("safety_checker", 13, clip_cfg)}
+    counts = lambda st: sum(v.numel() for v in st.values())  # noqa: E731
+    log(phase="setup", path="annotators + safety",
+        params={k: counts(v) for k, v in states.items()},
+        seconds=time.perf_counter() - t0)
+    image, mask = inputs(HW, 0)
+    kw = dict(prompt="a red bench in a park", seed=1, num_inference_steps=STEPS,
+              guidance_scale=GUIDANCE)
+    cn_call = expected_launches_cn(cfg, STEPS)
+    total = {k: 0 for k in KERNELS}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    # ---- depth: 52 GroupNorm launches a map at the hybrid-midas config
+    depth = control.register_dpt_depth(state=states["dpt"], config=dpt_cfg,
+                                       device=device)
+    n_gn = len(gn_shapes(dpt_cfg, dpt_cfg.image_size, dpt_cfg.image_size))
+    depth(image)  # warm-up: cuDNN's plans
+    dmap, secs, got = _window("depth map", {"group_norm": n_gn},
+                              lambda: depth(image))
+    add(got)
+    check(dmap.shape == (1024, 1024, 3) and dmap.dtype == np.uint8,
+          f"depth map {dmap.shape} {dmap.dtype}")
+    check(int(dmap.min()) == 0 and int(dmap.max()) == 255,
+          f"depth map spans {dmap.min()}..{dmap.max()}, not 0..255")
+    log(path="annotators", control="depth", map_seconds=secs,
+        group_norm_launches=got["group_norm"], expected=n_gn, shape=list(dmap.shape))
+    profile_call("depth map", lambda: depth(image))
+    want = dict(cn_call, group_norm=cn_call["group_norm"] + n_gn)
+    res, secs, got = _window("infer depth", want, lambda: pp.infer(
+        image, mask, control_type="depth", **kw))
+    add(got)
+    check(res.result.shape == (HW, HW, 3), f"depth infer {res.result.shape}")
+    log(call="infer control_type=depth", seconds=secs, seconds_per_image=secs,
+        launches=got)
+
+    # ---- HED at 512^2: its bucket's size, so no OpenCV resize
+    hed = control.register_hed(state=states["hed"], device=device)
+    control.get_control_image("hed", image)  # warm-up
+    emap, secs, got = _window("hed map", {}, lambda: control.get_control_image(
+        "hed", image))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hed.edges(image)
+    torch.cuda.synchronize()
+    net_secs = time.perf_counter() - t0
+    check(emap.shape == (HW, HW, 3) and emap.dtype == np.uint8 and emap.std() > 0,
+          f"hed map {emap.shape} {emap.dtype} std {emap.std()}")
+    log(path="annotators", control="hed", map_seconds=secs, network_seconds=net_secs,
+        edge_mean=float(emap.mean()))
+    res, secs, got = _window("infer hed", cn_call, lambda: pp.infer(
+        image, mask, control_type="hed", **kw))
+    add(got)
+    log(call="infer control_type=hed", seconds=secs, seconds_per_image=secs,
+        launches=got)
+
+    # ---- pose: the network at a 512^2 image's input shape; the phase's own
+    # torch bicubic resizes stand in for OpenCV's (which the GPU host lacks)
+    body = pose.OpenposeBodyPreprocessor(state=states["bodypose"], device=device)
+    (h, w), (hp, wp) = pose.network_shape(HW, HW)
+    bgr = torch.as_tensor(image[:, :, ::-1].copy(), device=device).float()
+    scaled = F.interpolate(bgr.permute(2, 0, 1)[None], size=(h, w), mode="bicubic",
+                           align_corners=False).clamp(0, 255).round()
+    x = F.pad(scaled, (0, wp - w, 0, hp - h), value=pose.PAD_VALUE)
+    x = (x.permute(0, 2, 3, 1) / 256.0 - 0.5).contiguous()
+    body.forward(x)  # warm-up
+    (paf, heat), secs, got = _window("pose network", {}, lambda: body.forward(x))
+    check(paf.shape == (hp // 8, wp // 8, 38) and heat.shape == (hp // 8, wp // 8, 19)
+          and np.isfinite(paf).all() and np.isfinite(heat).all(),
+          f"pose fields {paf.shape} {heat.shape}")
+
+    def upsample(field):
+        t = torch.as_tensor(field, device=device).permute(2, 0, 1)[None]
+        t = F.interpolate(t, scale_factor=pose.STRIDE, mode="bicubic",
+                          align_corners=False)[:, :, :h, :w]
+        t = F.interpolate(t, size=(HW, HW), mode="bicubic", align_corners=False)
+        return t[0].permute(1, 2, 0).cpu().numpy()
+
+    t0 = time.perf_counter()
+    candidate, subset = pose.decode_fields(upsample(paf), upsample(heat), HW)
+    log(path="annotators", control="pose", network_input=[1, hp, wp, 3],
+        network_seconds=secs, decode_seconds=time.perf_counter() - t0,
+        peaks=int(len(candidate)), people=int(len(subset)),
+        note="the OpenCV resizes and the drawing are held by the CPU tests "
+             "(tests/test_torch_annotators.py), not here: the GPU host has "
+             "no OpenCV")
+
+    # ---- the safety checker on the ppt-v1 call: 50 LayerNorm launches a
+    # check (pre, 24 x 2, post)
+    n_ln = 2 * clip_cfg.num_hidden_layers + 2
+    checker = safety.CLIPSafetyChecker(clip_cfg, states["safety_checker"],
+                                       device=device)
+    checker(image[None])  # warm-up
+    flags, secs, got = _window("safety check", {"layer_norm": n_ln},
+                               lambda: checker(image[None]))
+    add(got)
+    log(path="safety", check_seconds=secs, layer_norm_launches=got["layer_norm"],
+        expected=n_ln, flags=flags)
+    profile_call("safety check", lambda: checker(image[None]))
+    v1_call = expected_launches(cfg, STEPS)
+    want = dict(v1_call, layer_norm=v1_call["layer_norm"] + n_ln)
+    safety.register_safety_checker(checker)
+    try:
+        res, secs, got = _window("infer + safety", want, lambda: pp.infer(
+            image, mask, **kw))
+        add(got)
+        check(res.nsfw_flags == [False] and res.raw.any(),
+              f"safety: random thresholds flagged the image ({res.nsfw_flags})")
+        log(call="infer + safety checker", seconds=secs, flags=res.nsfw_flags,
+            launches=got)
+        flag_all = dict(states["safety_checker"],
+                        concept_embeds_weights=torch.full_like(
+                            states["safety_checker"]["concept_embeds_weights"], -1.0))
+        safety.register_safety_checker(
+            safety.CLIPSafetyChecker(clip_cfg, flag_all, device=device))
+        res, secs, got = _window("infer + flagging checker", want,
+                                 lambda: pp.infer(image, mask, **kw))
+        add(got)
+        check(res.nsfw_flags == [True] and not res.raw.any(),
+              f"safety: thresholds of -1 gave flags {res.nsfw_flags}, "
+              f"raw max {res.raw.max()}")
+        log(call="infer + flagging checker", seconds=secs, flags=res.nsfw_flags,
+            raw_max=int(res.raw.max()))
+    finally:
+        safety.register_safety_checker(None)
+        for kind in ("depth", "hed"):
+            control._REGISTRY.pop(kind, None)
+
+    # ---- each network on the card against the CPU in fp32, at a reduced
+    # input. With TF32 off the two sides run the same fp32 operations in
+    # another order, which moves an output by a few ulps per layer: bound
+    # 1e-3 of the CPU output's largest magnitude. At PyTorch's default
+    # precision (cuDNN convolutions in TF32, as the annotators run) the
+    # products keep 10 of fp32's 23 mantissa bits: bound 0.1, against gross
+    # faults only (at full size the measured differences are in PERF.md).
+    rng = np.random.RandomState(5)
+    cases = (("dpt", dpt_cfg, rng.rand(1, 128, 96, 3) * 2 - 1, lambda m, x: m(x)),
+             ("hed", None, rng.rand(1, 64, 96, 3), lambda m, x: m(x)),
+             ("bodypose", None, rng.rand(1, 64, 96, 3) - 0.5,
+              lambda m, x: torch.cat([f.flatten() for f in m(x)])),
+             ("safety_checker", clip_cfg,
+              rng.randn(1, clip_cfg.image_size, clip_cfg.image_size, 3),
+              lambda m, x: m.visual_projection(m.vision_model(x)[1])))
+    for family, config, x, fwd in cases:
+        x = torch.as_tensor(x.astype(np.float32))
+
+        def run(dev):
+            st = {k: v.to(dev) for k, v in states[family].items()}
+            with torch.no_grad():
+                return fwd(load_annotator(family, st, config=config, device=dev),
+                           x.to(dev)).float().cpu()
+
+        ref = run(torch.device("cpu"))
+        errs = {}
+        for name, cudnn_tf32 in (("exact", False), ("tf32", True)):
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+            errs[name] = float((run(device) - ref).abs().max())
+        scale = float(ref.abs().max())
+        log(card_vs_cpu=family, input=list(x.shape), max_abs_ref=scale,
+            max_abs_err_tf32_off=errs["exact"], bound_tf32_off=1e-3 * scale,
+            max_abs_err_default=errs["tf32"], bound_default=0.1 * scale)
+        check(errs["exact"] <= 1e-3 * scale and errs["tf32"] <= 0.1 * scale,
+              f"{family}: card vs CPU {errs} beyond {1e-3 * scale} (TF32 off) "
+              f"or {0.1 * scale} (default)")
+    del pipe, pp
+    return total
+
+
 def kernel_resources(nvcc_logs: dict) -> None:
     """Each compiled kernel's registers, static shared memory and spills
     (``nvcc -Xptxas -v``) and ptxas's performance warnings, the GroupNorm
@@ -1810,7 +2123,8 @@ def main() -> None:
              ("ppt-v1 int8", lambda d: run_int8_path(d, "ppt-v1", refs["ppt-v1"])),
              ("ppt-v2 int8", lambda d: run_int8_path(d, "ppt-v2", refs["ppt-v2"])),
              ("cli", run_cli),
-             ("ppt-v1 + controlnet", lambda d: run_cn_path(d, refs["ppt-v1"])))
+             ("ppt-v1 + controlnet", lambda d: run_cn_path(d, refs["ppt-v1"])),
+             ("annotators + safety", run_annotator_path))
     for label, run in paths:
         t0 = time.perf_counter()
         counts = run(device)

@@ -26,6 +26,7 @@ from powerpaint_tpu_torch.tasks.preprocess import (
     outpaint_canvas,
     pad_to_bucket,
     resize_short_side,
+    resize_to,
     to_numpy_image,
     to_numpy_mask,
 )
@@ -90,7 +91,8 @@ class PowerPaint:
         pixels marked keep) and crops the result back, so a server sees
         few distinct shapes. ``control_type`` routes the call to the
         ControlNet pipeline, with ``control_image`` or, when none is given,
-        ``tasks.control.get_control_image`` of the preprocessed image."""
+        ``tasks.control.get_control_image`` of the preprocessed image,
+        resized to the image where the preprocessor gives another size."""
         img = to_numpy_image(image)
 
         # reference resize policy: 640 short side for tasks, 512 for outpaint
@@ -131,7 +133,13 @@ class PowerPaint:
                 raise ValueError(
                     "control_type given but no ControlNet pipeline loaded")
             if control_image is None:
-                control_image = get_control_image(control_type, img)
+                control_image = np.asarray(get_control_image(control_type, img))
+                if control_image.shape[:2] != img.shape[:2]:
+                    # a preprocessor's own output size (depth's is 1024^2):
+                    # to the image's, as the reference pipelines resize a
+                    # control image to the call's height and width
+                    control_image = resize_to(control_image, None,
+                                              *img.shape[:2])[0]
             out = self.controlnet_pipeline(
                 img, msk, control_image=np.asarray(control_image),
                 controlnet_conditioning_scale=controlnet_conditioning_scale,

@@ -5,6 +5,10 @@ The port's own copy of the ppt-v1, ppt-v2 and ppt-v1 + ControlNet parts of
 frozen dataclasses that are the single source of truth for block topology,
 with the same field names and defaults, so a config serialized by either
 package loads in the other (unknown keys are ignored by ``from_dict``).
+Beside them, the annotator and safety-checker networks' shapes:
+``CLIPVisionConfig`` and ``DPTConfig`` (the JAX package keeps the latter in
+``models/dpt.py``), with ``dpt_config_from_hf_dict`` reading a DPT
+checkpoint's ``config.json``.
 """
 
 from __future__ import annotations
@@ -276,3 +280,100 @@ def ppt_v1_controlnet_config() -> PowerPaintConfig:
     """ppt-v1 with one SD1.5 ControlNet branch (canny, depth, HED or pose
     weights all share this shape)."""
     return PowerPaintConfig(version="ppt-v1", controlnet=ControlNetConfig())
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig(_ConfigBase):
+    """CLIP ViT image tower; the defaults are ViT-L/14 at 224, the safety
+    checker's tower. The attribute names are ``CLIPTextConfig``'s, so the
+    text tower's encoder layer serves this one too."""
+
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    image_size: int = 224
+    patch_size: int = 14
+    projection_dim: int = 768
+    hidden_act: str = "quick_gelu"
+    layer_norm_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class DPTConfig(_ConfigBase):
+    """The fields of HF ``DPTConfig(is_hybrid=True)`` the DPT-hybrid depth
+    network's shape depends on; the defaults are Intel/dpt-hybrid-midas."""
+
+    # BiT backbone
+    embedding_size: int = 64
+    bit_hidden_sizes: Tuple[int, ...] = (256, 512, 1024)
+    bit_depths: Tuple[int, ...] = (3, 4, 9)
+    bit_num_groups: int = 32
+    # ViT encoder
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    layer_norm_eps: float = 1e-12
+    image_size: int = 384
+    patch_size: int = 16
+    # the ViT layers whose outputs feed reassembly stages 3 and 4
+    # (0-indexed, HF backbone_out_indices[2:])
+    vit_out_layers: Tuple[int, int] = (8, 11)
+    # neck and head
+    neck_hidden_sizes: Tuple[int, ...] = (256, 512, 768, 768)
+    reassemble_factors: Tuple[float, ...] = (1.0, 1.0, 1.0, 0.5)
+    fusion_hidden_size: int = 256
+
+
+def safety_checker_config() -> CLIPVisionConfig:
+    """The CompVis safety checker's tower: CLIP ViT-L/14 at 224, projection
+    768 (the checker adds 17 concept and 3 special-care rows)."""
+    return CLIPVisionConfig()
+
+
+def dpt_hybrid_midas_config() -> DPTConfig:
+    """Intel/dpt-hybrid-midas: BiT (3, 4, 9) + ViT-B/16 at 384."""
+    return DPTConfig()
+
+
+# HF DPTConfig's defaults where a config.json leaves a field out, and
+# BitConfig's for the hybrid backbone HF builds when it has none
+_HF_DPT_DEFAULTS = dict(hidden_size=768, num_hidden_layers=12,
+                        num_attention_heads=12, intermediate_size=3072,
+                        layer_norm_eps=1e-12, image_size=384, patch_size=16,
+                        backbone_out_indices=(2, 5, 8, 11),
+                        neck_hidden_sizes=(96, 192, 384, 768),
+                        reassemble_factors=(4, 2, 1, 0.5),
+                        fusion_hidden_size=256)
+_HF_BIT_DEFAULTS = dict(embedding_size=64, hidden_sizes=(256, 512, 1024, 2048),
+                        depths=(3, 4, 9), num_groups=32)
+
+
+def dpt_config_from_hf_dict(d: dict) -> DPTConfig:
+    """A hybrid DPT checkpoint's ``config.json`` (as a dict) -> DPTConfig,
+    read with HF's defaults for the fields it leaves out (the port's copy
+    of the JAX package's ``io/convert.py::dpt_config_from_hf``, on the
+    JSON instead of a ``transformers`` config object)."""
+    if not d.get("is_hybrid", False):
+        raise ValueError("only the hybrid DPT (is_hybrid=true) is supported")
+    get = lambda k: d.get(k, _HF_DPT_DEFAULTS[k])  # noqa: E731
+    bit = dict(_HF_BIT_DEFAULTS, **(d.get("backbone_config") or {}))
+    depths = tuple(bit["depths"])
+    return DPTConfig(
+        embedding_size=int(bit["embedding_size"]),
+        bit_hidden_sizes=tuple(bit["hidden_sizes"][:len(depths)]),
+        bit_depths=depths,
+        bit_num_groups=int(bit["num_groups"]),
+        hidden_size=get("hidden_size"),
+        num_layers=get("num_hidden_layers"),
+        num_heads=get("num_attention_heads"),
+        intermediate_size=get("intermediate_size"),
+        layer_norm_eps=get("layer_norm_eps"),
+        image_size=get("image_size"),
+        patch_size=get("patch_size"),
+        vit_out_layers=tuple(get("backbone_out_indices")[2:]),
+        neck_hidden_sizes=tuple(get("neck_hidden_sizes")),
+        reassemble_factors=tuple(float(f) for f in get("reassemble_factors")),
+        fusion_hidden_size=get("fusion_hidden_size"),
+    )

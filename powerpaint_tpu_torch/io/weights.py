@@ -26,6 +26,14 @@
 Multi-ControlNet: ``state["controlnet"]`` (and the JAX tree of the family)
 may be one branch or a list of them; ``load_models`` then gives a
 ``ModuleList`` of branches, one per entry.
+
+The annotator and safety-checker networks (``ANNOTATOR_FAMILIES``) are
+single modules with the published checkpoints' own state-dict names:
+``build_annotator``, ``random_annotator_state`` and ``load_annotator``
+(a state dict or a local checkpoint file), and their ``params_from_jax``
+families invert the JAX package's ``convert_dpt``, ``convert_hed``,
+``convert_bodypose``, ``convert_safety_checker`` and
+``convert_clip_vision``.
 """
 
 from __future__ import annotations
@@ -37,9 +45,20 @@ import numpy as np
 import torch
 from torch import nn
 
-from powerpaint_tpu_torch.core.config import PowerPaintConfig
+from powerpaint_tpu_torch.core.config import (
+    CLIPVisionConfig,
+    PowerPaintConfig,
+    dpt_hybrid_midas_config,
+    safety_checker_config,
+)
+from powerpaint_tpu_torch.models.annotators import BodyPoseModel, HEDNetwork
 from powerpaint_tpu_torch.models.brushnet import BrushNetModel
+from powerpaint_tpu_torch.models.clip_vision import (
+    CLIPVisionModelWithProjection,
+    StableDiffusionSafetyChecker,
+)
 from powerpaint_tpu_torch.models.controlnet import ControlNetModel
+from powerpaint_tpu_torch.models.dpt import DPTDepthModel
 from powerpaint_tpu_torch.models.clip_text import (
     TASK_TOKEN_ORDER,
     CLIPTextModel,
@@ -53,6 +72,7 @@ from powerpaint_tpu_torch.ops.conv import quantize_weights_int8
 FAMILIES = ("unet", "vae", "text_encoder")  # ppt-v1
 V2_FAMILIES = FAMILIES + ("brushnet", "text_encoder_brushnet")
 CN_FAMILIES = FAMILIES + ("controlnet",)  # ppt-v1 + ControlNet
+ANNOTATOR_FAMILIES = ("dpt", "hed", "bodypose", "safety_checker", "clip_vision")
 
 
 def build_models(config: PowerPaintConfig,
@@ -73,16 +93,25 @@ def build_models(config: PowerPaintConfig,
 
 
 def _init_param(module: nn.Module, name: str, shape, generator, device):
-    if isinstance(module, (GroupNorm, LayerNorm)):
+    if isinstance(module, (GroupNorm, LayerNorm, nn.LayerNorm)):
         fill = torch.ones if name == "weight" else torch.zeros
         return fill(shape, device=device)
-    if isinstance(module, (nn.Linear, nn.Conv2d)):
+    if isinstance(module, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
         if name == "bias":
             return torch.zeros(shape, device=device)
-        fan_in = int(np.prod(shape[1:]))  # lecun normal, as flax's default
+        # lecun normal, as flax's default (a transposed conv's weight is
+        # (in, out, kh, kw): its fan-in is in * kh * kw / stride^2, here
+        # taken as out * kh * kw, equal for the square ones DPT has)
+        fan_in = int(np.prod(shape[1:]))
         w = torch.randn(shape, generator=generator, device=device)
         return w.mul_(fan_in ** -0.5)
-    # embedding tables and task-token rows
+    if name.endswith("embeds_weights"):
+        # the safety checker's per-concept cosine thresholds: about 0.2,
+        # far above the cosine of two random directions in 768-d (standard
+        # deviation 0.036), so random weights flag nothing
+        w = torch.randn(shape, generator=generator, device=device)
+        return w.mul_(0.01).add_(0.2)
+    # embedding tables, task-token rows, class tokens, positions, concepts
     return torch.randn(shape, generator=generator, device=device).mul_(0.02)
 
 
@@ -217,12 +246,143 @@ def _clip(tree: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
-def params_from_jax(tree, family: str):
+def _clip_vision(vm: dict, prefix: str) -> Dict[str, np.ndarray]:
+    """A JAX ``CLIPVisionModel`` tree -> transformers names under
+    ``prefix``."""
+    sd = {}
+    for path, arr in _flatten(vm):
+        if path[0] == "embeddings":
+            name = path[1]
+            if name == "patch_embedding":
+                arr = _torch_tensor(path, arr)
+            key = name + (".weight" if name != "class_embedding" else "")
+            sd[f"{prefix}embeddings.{key}"] = arr
+        else:  # pre / post LayerNorm, encoder/layers_<i>/...
+            path = tuple("mlp." + p if p in ("fc1", "fc2") else p for p in path)
+            sd[prefix + _torch_key(path)] = _torch_tensor(path, arr)
+    return sd
+
+
+def _safety(tree: dict, tower: str) -> Dict[str, np.ndarray]:
+    sd = _clip_vision(tree["vision_model"], tower)
+    sd["visual_projection.weight"] = np.ascontiguousarray(
+        np.asarray(tree["visual_projection"]["kernel"]).T)
+    for k in ("concept_embeds", "special_care_embeds",
+              "concept_embeds_weights", "special_care_embeds_weights"):
+        if k in tree:
+            sd[k] = np.asarray(tree[k])
+    return sd
+
+
+def _leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    """The last path element as a torch parameter name, with the array in
+    torch layout."""
+    name = "weight" if path[-1] in ("kernel", "scale") else path[-1]
+    return name, _torch_tensor(path, arr)
+
+
+_DPT_BIT = "dpt.embeddings.backbone.bit."
+_DPT_LAYER = {"attention": "attention.attention", "attention_out":
+              "attention.output.dense", "intermediate": "intermediate.dense",
+              "output": "output.dense"}
+_DPT_UNIT_RE = re.compile(r"^stage(\d+)_unit(\d+)$")
+
+
+def _dpt_scope(path: Tuple[str, ...]) -> str:
+    """HF ``DPTForDepthEstimation`` module path of a JAX DPT scope (all
+    but the leaf), the inverse of ``convert_dpt``'s renames."""
+    top, rest = path[0], list(path[1:])
+    if top == "backbone":
+        m = _DPT_UNIT_RE.match(rest[0])
+        if m:
+            sub = {"downsample_conv": "downsample.conv",
+                   "downsample_norm": "downsample.norm"}.get(rest[1], rest[1])
+            return (f"{_DPT_BIT}encoder.stages.{m.group(1)}.layers."
+                    f"{m.group(2)}.{sub}")
+        return _DPT_BIT + {"stem_conv": "embedder.convolution",
+                           "stem_norm": "embedder.norm"}[rest[0]]
+    if top == "vit":
+        if rest[0].startswith("layer_"):
+            i = rest[0][len("layer_"):]
+            return f"dpt.encoder.layer.{i}." + ".".join(
+                [_DPT_LAYER.get(rest[1], rest[1])] + rest[2:])
+        return "dpt.embeddings." + ".".join(rest)
+    m = _LIST_RE.match(top)
+    name, i = m.group(1), m.group(2)
+    stage = "neck.reassemble_stage."
+    return {"readout_project": f"{stage}readout_projects.{i}.0",
+            "reassemble_projection": f"{stage}layers.{i}.projection",
+            "reassemble_resize": f"{stage}layers.{i}.resize",
+            "neck_conv": f"neck.convs.{i}",
+            "fusion": f"neck.fusion_stage.layers.{i}",
+            "head": f"head.head.{i}"}[name] + "".join("." + p for p in rest)
+
+
+def _dpt(tree: dict, config) -> Dict[str, np.ndarray]:
+    """JAX ``DPTDepthModel`` tree -> HF names. A transposed-conv resize
+    (factor > 1 in ``config``) goes from flax's (kh, kw, in, out) to
+    torch's (in, out, kh, kw) with its taps reversed: flax's
+    ``ConvTranspose`` correlates where torch's convolves, so this is the
+    weight under which both compute the same map. (``convert_dpt`` does not
+    reverse them, so an HF checkpoint with such a resize reaches the JAX
+    model with the taps reversed: ROADMAP Queue C.) The two entries the JAX
+    model never creates, since the depth head never reads them, are
+    filled: ``dpt.layernorm`` (ones, zeros) and the deepest fusion layer's
+    ``residual_layer1`` (zeros)."""
+    deconv = {f"reassemble_resize_{i}"
+              for i, f in enumerate(config.reassemble_factors) if f > 1}
+    sd = {}
+    for path, arr in _flatten(tree):
+        if len(path) == 2 and path[0] == "vit" and path[1] in (
+                "cls_token", "position_embeddings"):
+            sd["dpt.embeddings." + path[1]] = arr
+            continue
+        scope = _dpt_scope(path[:-1])
+        if path[0] in deconv and path[-1] == "kernel":
+            sd[scope + ".weight"] = np.ascontiguousarray(
+                np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1])
+            continue
+        name, arr = _leaf(path, arr)
+        sd[f"{scope}.{name}"] = arr
+    d = config.hidden_size
+    sd.setdefault("dpt.layernorm.weight", np.ones(d, np.float32))
+    sd.setdefault("dpt.layernorm.bias", np.zeros(d, np.float32))
+    c = config.fusion_hidden_size
+    unused = "neck.fusion_stage.layers.0.residual_layer1."
+    for conv in ("convolution1", "convolution2"):
+        sd.setdefault(f"{unused}{conv}.weight", np.zeros((c, c, 3, 3), np.float32))
+        sd.setdefault(f"{unused}{conv}.bias", np.zeros(c, np.float32))
+    return sd
+
+
+def _annotator(tree: dict) -> Dict[str, np.ndarray]:
+    """HED / body-pose trees: ``<name>_<k>`` (an ``nn.Sequential`` entry
+    in HED) -> ``<name>.<k>``; the body-pose names have no such suffix."""
+    sd = {}
+    for path, arr in _flatten(tree):
+        m = re.match(r"^(net[A-Za-z]+)_(\d+)$", path[0])
+        scope = f"{m.group(1)}.{m.group(2)}" if m else path[0]
+        name, arr = _leaf(path, arr)
+        sd[f"{scope}.{name}"] = arr
+    return sd
+
+
+def params_from_jax(tree, family: str, config=None):
     """JAX-package parameter tree of one family (``unet``, ``vae``,
-    ``text_encoder``, ``brushnet``, ``text_encoder_brushnet`` or
-    ``controlnet``) -> state dict of numpy arrays with the port's (and
-    diffusers / transformers) names and layouts. A ``controlnet`` tuple or
-    list of trees (Multi-ControlNet) gives a list of state dicts."""
+    ``text_encoder``, ``brushnet``, ``text_encoder_brushnet``,
+    ``controlnet``, or one of ``ANNOTATOR_FAMILIES``) -> state dict of
+    numpy arrays with the port's (and diffusers / transformers / the
+    published checkpoints') names and layouts. A ``controlnet`` tuple or
+    list of trees (Multi-ControlNet) gives a list of state dicts. ``dpt``
+    takes its ``DPTConfig`` (the Intel/dpt-hybrid-midas one by default)."""
+    if family == "dpt":
+        return _dpt(tree, config or dpt_hybrid_midas_config())
+    if family in ("hed", "bodypose"):
+        return _annotator(tree)
+    if family == "safety_checker":
+        return _safety(tree, "vision_model.vision_model.")
+    if family == "clip_vision":
+        return _safety(tree, "vision_model.")
     if family == "controlnet" and isinstance(tree, (list, tuple)):
         return [_unet_or_vae(t) for t in tree]
     if family in ("unet", "brushnet", "controlnet"):
@@ -232,7 +392,7 @@ def params_from_jax(tree, family: str):
     if family in ("text_encoder", "text_encoder_brushnet"):
         return _clip(tree)
     raise ValueError(f"unknown family {family!r}; one of "
-                     f"{V2_FAMILIES + ('controlnet',)}")
+                     f"{V2_FAMILIES + ('controlnet',) + ANNOTATOR_FAMILIES}")
 
 
 def _quantize_resnets(model: nn.Module):
@@ -298,4 +458,91 @@ def _load(model: nn.Module, state: dict, device, dtype: torch.dtype,
     for conv, w_q, w_scale, bias in quantized:
         conv.set_int8(w_q.to(device), w_scale.to(device), bias.to(device),
                       int8_x_scale)
+    return model.eval().requires_grad_(False)
+
+
+# ---------------------------------------------------------------------------
+# annotators and the safety checker
+# ---------------------------------------------------------------------------
+
+
+def build_annotator(family: str, config=None, device="meta", state=None) -> nn.Module:
+    """The module of one of ``ANNOTATOR_FAMILIES``, built on ``device``;
+    ``config`` a ``DPTConfig`` (dpt) or ``CLIPVisionConfig`` (the CLIP
+    families), the published one by default. The safety checker takes its
+    concept counts from ``state`` where given (17 and 3 otherwise)."""
+    with torch.device(device):
+        if family == "dpt":
+            return DPTDepthModel(config or dpt_hybrid_midas_config())
+        if family == "hed":
+            return HEDNetwork()
+        if family == "bodypose":
+            return BodyPoseModel()
+        if family == "safety_checker":
+            counts = {}
+            if state is not None:
+                counts = dict(num_concepts=int(state["concept_embeds"].shape[0]),
+                              num_special=int(state["special_care_embeds"].shape[0]))
+            return StableDiffusionSafetyChecker(
+                config or safety_checker_config(), **counts)
+        if family == "clip_vision":
+            return CLIPVisionModelWithProjection(config or CLIPVisionConfig())
+    raise ValueError(f"unknown family {family!r}; one of {ANNOTATOR_FAMILIES}")
+
+
+def random_annotator_state(family: str, generator: torch.Generator,
+                           device="cuda", config=None) -> Dict[str, torch.Tensor]:
+    """Random fp32 weights for one annotator family at its full published
+    width (or ``config``'s), made on ``device`` from ``generator`` with
+    ``random_state``'s rules: lecun-normal weights, zero biases, unit norms,
+    N(0, 0.02) tables, and the safety checker's thresholds near 0.2."""
+    return random_state(build_annotator(family, config), generator, device)
+
+
+def published_keys(family: str, state: dict) -> dict:
+    """A checkpoint's state dict with the names the port's module takes:
+    HED's ``module*`` -> ``net*`` (``network-bsds500.pth``), the body-pose
+    ``model0.`` / ``model{s}_{b}.`` prefixes stripped, and the buffers the
+    port does not keep (``position_ids``, ``num_batches_tracked``)
+    dropped."""
+    out = {}
+    for k, v in state.items():
+        if k.endswith(("position_ids", "num_batches_tracked")):
+            continue
+        if family == "hed":
+            k = k.replace("module", "net")
+        elif family == "bodypose":
+            parts = k.split(".")
+            if len(parts) == 3 and parts[0].startswith("model"):
+                k = ".".join(parts[1:])
+        out[k] = v
+    return out
+
+
+def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A state dict from a local ``.safetensors`` file or a torch pickle
+    (``.pth`` / ``.bin``, read with ``weights_only``)."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return load_file(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_annotator(family: str, state=None, *, checkpoint: Optional[str] = None,
+                   config=None, device="cuda") -> nn.Module:
+    """One of ``ANNOTATOR_FAMILIES`` on ``device`` in fp32, eval mode,
+    from ``state`` (tensors or numpy arrays) or the file ``checkpoint``,
+    strict on names and shapes after ``published_keys``."""
+    if state is None:
+        if checkpoint is None:
+            raise ValueError(f"{family}: need state or checkpoint")
+        state = load_checkpoint(checkpoint)
+    state = published_keys(family, state)
+    model = build_annotator(family, config, state=state)
+    sd = {k: (v if torch.is_tensor(v)
+              else torch.from_numpy(np.array(v, np.float32))).float()
+          for k, v in state.items()}
+    model.load_state_dict(sd, strict=True, assign=True)
+    model.to(device).to(memory_format=torch.channels_last)
     return model.eval().requires_grad_(False)

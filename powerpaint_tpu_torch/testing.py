@@ -1,13 +1,17 @@
 """Tiny model configs for CPU-runnable tests (same widths as the JAX
 package's ``testing.tiny_v1_config``, ``testing.tiny_v2_config`` and
-``testing.tiny_v1_controlnet_config``)."""
+``testing.tiny_v1_controlnet_config``; the tiny DPT of its
+``tests/test_dpt_oracle.py`` and the tiny CLIP tower of its
+``tests/test_clip_vision_safety.py``)."""
 
 from __future__ import annotations
 
 from powerpaint_tpu_torch.core.config import (
     BrushNetConfig,
     CLIPTextConfig,
+    CLIPVisionConfig,
     ControlNetConfig,
+    DPTConfig,
     PowerPaintConfig,
     UNetConfig,
     VAEConfig,
@@ -70,3 +74,21 @@ def tiny_v1_controlnet_config() -> PowerPaintConfig:
             conditioning_embedding_out_channels=(16, 16, 16, 16),
         ),
     )
+
+
+def tiny_dpt_config() -> DPTConfig:
+    """A hybrid DPT of BiT (8, 16, 32) x (1, 1, 1) with 2 groups and a
+    2-layer ViT of width 32 at 64 x 64: every part of the network (the
+    strided units, the readout, the 0.5 resize, the four fusion layers)."""
+    return DPTConfig(
+        embedding_size=8, bit_hidden_sizes=(8, 16, 32), bit_depths=(1, 1, 1),
+        bit_num_groups=2, hidden_size=32, num_layers=2, num_heads=2,
+        intermediate_size=64, image_size=64, patch_size=16,
+        vit_out_layers=(0, 1), neck_hidden_sizes=(8, 16, 32, 32),
+        reassemble_factors=(1.0, 1.0, 1.0, 0.5), fusion_hidden_size=16)
+
+
+def tiny_clip_vision_config() -> CLIPVisionConfig:
+    return CLIPVisionConfig(hidden_size=32, intermediate_size=64,
+                            num_hidden_layers=2, num_attention_heads=2,
+                            image_size=32, patch_size=8, projection_dim=16)

@@ -228,7 +228,12 @@ def test_canny_matches_jax():
 
 @pytest.mark.parametrize("kind", ["depth", "hed", "pose"])
 def test_annotators_name_their_roadmap_item(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+    """Unregistered (their weights are not bundled), an annotator's control
+    type raises and names the function that registers it."""
+    register = {"depth": "register_dpt_depth", "hed": "register_hed",
+                "pose": "register_openpose"}[kind]
+    control._REGISTRY.pop(kind, None)
+    with pytest.raises(NotImplementedError, match=register):
         control.get_control_image(kind, np.zeros((8, 8, 3), np.uint8))
     with pytest.raises(NotImplementedError, match="unknown control type"):
         control.get_control_image("sketch", np.zeros((8, 8, 3), np.uint8))

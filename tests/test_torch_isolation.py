@@ -70,3 +70,23 @@ def test_the_pattern_catches_what_it_must():
     for line in ("from powerpaint_tpu_torch.ops import norms",
                  "import jaxtyping_free", "# import jax"):
         assert not FORBIDDEN.search(line), line
+
+
+def test_the_annotator_modules_are_covered_and_load_no_host_extras():
+    """The annotators and the safety checker are checked like the rest, and
+    import neither transformers nor OpenCV nor scipy: the GPU host has no
+    transformers and no OpenCV, and scipy loads only for the pose decode."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"models/dpt.py", "models/annotators.py", "models/clip_vision.py",
+            "tasks/pose.py", "core/safety.py"} <= names
+    code = ("import sys\n"
+            "import powerpaint_tpu_torch.controller\n"
+            "import powerpaint_tpu_torch.io.weights\n"
+            "import powerpaint_tpu_torch.tasks.pose\n"
+            "import powerpaint_tpu_torch.core.safety\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('cv2', 'scipy', 'transformers'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -639,3 +639,85 @@ def test_tiny_controlnet_on_the_card_matches_the_cpu(dev):
     assert got == {"flash_attention": 2 * n_tf, "layer_norm": 3 * n_tf,
                    "group_norm": n_tf, "group_norm_stats": 2 * n_units,
                    "conv3x3_gn_silu": 2 * n_units, "conv3x3": 0}
+
+
+def _dpt_gn_shapes():
+    from powerpaint_tpu_torch.core.config import dpt_hybrid_midas_config
+    from powerpaint_tpu_torch.models.dpt import gn_shapes
+
+    return list(dict.fromkeys(gn_shapes(dpt_hybrid_midas_config(), 384, 384)))
+
+
+@pytest.mark.parametrize("s,c", _dpt_gn_shapes(), ids=str)
+def test_group_norm_kernel_at_the_dpt_shapes(dev, s, c):
+    """Every BiT GroupNorm shape of the DPT-hybrid forward at 384^2: fp32,
+    32 groups (2 channels a group at the stem's 192^2 x 64), eps 1e-5, no
+    SiLU."""
+    x = _randn(dev, 1, s, c, seed=10) * 2 - 0.3
+    w = 1 + 0.1 * _randn(dev, c, seed=11)
+    b = 0.1 * _randn(dev, c, seed=12)
+    kw = dict(num_groups=32, eps=1e-5, silu=False)
+    got = norms.group_norm(x, w, b, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, norms.group_norm_plain(x, w, b, **kw),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 257, 1024), (2, 1024)], ids=str)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 5e-2)])
+def test_layer_norm_kernel_at_the_clip_vision_rows(dev, shape, dtype, atol):
+    """The safety checker's tower: 257 tokens of 1024, and the pooled class
+    token."""
+    x, w, b = _ln_inputs(dev, shape, dtype, seed=13)
+    got = norms.layer_norm(x, w, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), norms.layer_norm_plain(x, w, b).float(),
+                               atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("family", ["dpt", "hed", "bodypose", "safety_checker"])
+def test_annotator_networks_on_the_card_match_the_cpu(dev, family):
+    """Each network at its full published width, random weights, fp32 with
+    TF32 off, on the card and on the CPU at a reduced input: within 1e-3
+    of the CPU output's largest magnitude (the same fp32 operations in
+    another order)."""
+    import numpy as np
+
+    from powerpaint_tpu_torch.core.config import (
+        dpt_hybrid_midas_config,
+        safety_checker_config,
+    )
+    from powerpaint_tpu_torch.io.weights import (
+        load_annotator,
+        random_annotator_state,
+    )
+
+    config = {"dpt": dpt_hybrid_midas_config(),
+              "safety_checker": safety_checker_config()}.get(family)
+    state = random_annotator_state(family, torch.Generator().manual_seed(3),
+                                   device="cpu", config=config)
+    rng = np.random.RandomState(0)
+    x = {"dpt": rng.rand(1, 64, 96, 3) * 2 - 1, "hed": rng.rand(1, 64, 96, 3),
+         "bodypose": rng.rand(1, 64, 96, 3) - 0.5,
+         "safety_checker": rng.randn(1, 224, 224, 3)}[family]
+    x = torch.as_tensor(x.astype(np.float32))
+    outs = []
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for d in (dev, torch.device("cpu")):
+            m = load_annotator(family, {k: v.to(d) for k, v in state.items()},
+                               config=config, device=d)
+            with torch.no_grad():
+                if family == "bodypose":
+                    y = torch.cat([f.flatten() for f in m(x.to(d))])
+                elif family == "safety_checker":
+                    y = m.visual_projection(m.vision_model(x.to(d))[1])
+                else:
+                    y = m(x.to(d))
+            outs.append(y.float().cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    scale = float(outs[1].abs().max())
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-3 * scale
