@@ -89,9 +89,20 @@ Phases, in order; any failure exits non-zero:
    four networks on the card against the CPU at a reduced input: within
    1e-3 of the CPU output's largest magnitude with TF32 off, within 0.1 at
    the default precision.
-8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, ppt-v1 with
-   int8) must give the same image through the kernels as through the
-   plain versions on the CPU.
+   7c. The sampler family (``run_sampler_path``), full width, bf16, 512^2:
+   ppt-v1 with each registry sampler but DDIM at 20 steps (LCM at 4),
+   euler at strength 0.6, euler_a repeated (bitwise) and as a two-request
+   batch (each image's step noise bitwise its standalone draw, the images
+   within Queue C's batch-vs-alone difference); ppt-v2 with euler_a, and
+   an LCM-distilled UNet (``time_cond_proj_dim`` 256) at 4 LCM steps whose
+   guidance 5 and 9 differ; ppt-v1 + ControlNet with heun (39
+   evaluations) and a window. Launches exact at the sampler's evaluation
+   count; seconds per image and the denoise loop's device ms per UNet
+   evaluation for each sampler.
+8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, each also
+   with one other sampler: euler_a at strength 0.6, LCM on an LCM UNet,
+   heun with a window; and ppt-v1 with int8) must give the same image
+   through the kernels as through the plain versions on the CPU.
 9. The ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -991,43 +1002,57 @@ def _models(cfg, int8_hw, *unets):
     return [int8_split(p, s) for p, s in zip(parts, sites)]
 
 
+def evaluations(cfg, scheduler: str, steps: int, strength: float = 1.0) -> int:
+    """UNet evaluations of one call: the sampler's iterations over the kept
+    steps (heun 2S-1, pndm S+1, the others S), from its host tables."""
+    from powerpaint_tpu_torch.pipelines.common import make_sampler
+
+    kept = min(int(steps * strength), steps)
+    return make_sampler(scheduler, cfg.scheduler, steps, kept)[1].num_steps
+
+
 def expected_launches(cfg, steps: int, strength: float = 1.0,
-                      int8_hw=None) -> dict:
+                      int8_hw=None, scheduler: str = "ddim") -> dict:
     """Kernel launches one ppt-v1 ``__call__`` implies, from the config: one
-    UNet evaluation per kept step, CLIP's 2 LayerNorms a layer and the
-    final one, one or two VAE encodes (image latents only at strength < 1)
-    and one decode; with int8 on (``int8_hw``, the image's side), the
-    ResNet units ``int8_site`` admits on the int8 kernel."""
+    UNet evaluation per sampler iteration over the kept steps, CLIP's 2
+    LayerNorms a layer and the final one, one or two VAE encodes (image
+    latents only at strength < 1) and one decode; with int8 on
+    (``int8_hw``, the image's side), the ResNet units ``int8_site`` admits
+    on the int8 kernel."""
     t = cfg.text_encoder
     kept = min(int(steps * strength), steps)
     n_enc = 2 if kept < steps else 1
     text = {"layer_norm": 2 * t.num_hidden_layers + 1}
     unet, enc, dec = _models(cfg, int8_hw, cfg.unet)
-    return _total((kept, unet), (1, text), (n_enc, enc), (1, dec))
+    return _total((evaluations(cfg, scheduler, steps, strength), unet),
+                  (1, text), (n_enc, enc), (1, dec))
 
 
-def expected_launches_v2(cfg, steps: int, int8_hw=None) -> dict:
-    """One ppt-v2 ``__call__``: per step one BrushNet and one base-UNet
-    evaluation (guess mode and gated steps run the branch all the same),
-    the two text towers, one VAE encode and one decode."""
+def expected_launches_v2(cfg, steps: int, int8_hw=None,
+                         scheduler: str = "unipc") -> dict:
+    """One ppt-v2 ``__call__``: per sampler iteration one BrushNet and one
+    base-UNet evaluation (guess mode and gated steps run the branch all
+    the same), the two text towers, one VAE encode and one decode."""
     t = cfg.text_encoder
     text = {"layer_norm": 2 * t.num_hidden_layers + 1}
     unet, branch, enc, dec = _models(cfg, int8_hw, cfg.unet, cfg.brushnet.base)
-    return _total((steps, unet), (steps, branch), (2, text), (1, enc), (1, dec))
+    n = evaluations(cfg, scheduler, steps)
+    return _total((n, unet), (n, branch), (2, text), (1, enc), (1, dec))
 
 
 def expected_launches_cn(cfg, steps: int, branches: int = 1,
-                         int8_hw=None) -> dict:
+                         int8_hw=None, scheduler: str = "ddim") -> dict:
     """One ppt-v1 + ControlNet ``__call__`` with a control image: the ppt-v1
-    call's launches, and per step one evaluation of each branch (guess mode
-    and gated steps run the branches all the same)."""
+    call's launches, and per sampler iteration one evaluation of each
+    branch (guess mode and gated steps run the branches all the same)."""
     u = cfg.controlnet.base
     branch = controlnet_launches(u)
     if int8_hw is not None:
         lat = int8_hw // 8
         branch = int8_split(branch, unet_sites(u, lat, lat, encoder_only=True))
-    return _total((1, expected_launches(cfg, steps, int8_hw=int8_hw)),
-                  (steps * branches, branch))
+    v1 = expected_launches(cfg, steps, int8_hw=int8_hw, scheduler=scheduler)
+    return _total((1, v1), (evaluations(cfg, scheduler, steps) * branches,
+                            branch))
 
 
 def counters():
@@ -1122,6 +1147,7 @@ def _caller(pipe, image, mask, expected, models=()):
         after = read_counts()
         got = {k: after[k] - before[k] for k in after}
         want = expected(kw)
+        call.seconds = secs
         log(call=label, seconds=secs, seconds_per_image=secs / out.shape[0],
             stages=dict(stage_seconds), launches=got, shape=list(out.shape),
             dtype=str(out.dtype))
@@ -1566,6 +1592,186 @@ def run_cn_path(device, v1_refs: dict):
     return {k: launches[k] + int8_launches[k] for k in launches}
 
 
+def denoise_device_ms(pipe, run):
+    """Run ``run()`` (one pipeline call) with its denoise loop alone under
+    ``torch.profiler``: the device time in ms of the kernels the loop
+    launched, the sampler's steps included, or None when the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inner, box = pipe._denoise, {}
+
+    def profiled(*args, **kw):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = inner(*args, **kw)
+            torch.cuda.synchronize()
+        box["us"] = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        return out
+
+    pipe._denoise = profiled
+    try:
+        run()
+    finally:
+        pipe._denoise = inner
+    return box["us"] / 1e3 if box.get("us") else None
+
+
+# The widest batch-vs-alone difference of a ppt-v1 image Queue C records
+# (its int8 entry): cuBLAS's fp32 K/V projections and cuDNN's stride-2
+# downsample are batch-variant, and the bf16 entry (max 10, mean 1.19) is
+# no bound: the 20-step DDIM batch itself measures 11 / 1.21 in some runs
+V1_BATCH_MAX_UINT8, V1_BATCH_MEAN_UINT8 = 18, 2.0
+
+
+def run_sampler_path(device):
+    """Phase 7c: the sampler family at full width, bf16, 512^2, guidance
+    7.5. ppt-v1: each registry sampler but DDIM (phase 3's) at 20 steps
+    (LCM at 4), then euler at strength 0.6, euler_a again with the same
+    seed (bitwise the same image) and as a two-request batch (each image's
+    step noise bitwise its standalone draw; the images within Queue C's
+    batch-vs-alone difference). ppt-v2: euler_a at 20 steps on UniPC's
+    stack, and an LCM-distilled UNet (``time_cond_proj_dim`` 256, as
+    SimianLuo/LCM_Dreamshaper_v7) at 4 LCM steps, where guidance 5 and 9
+    must differ. ppt-v1 + ControlNet: heun at 20 steps (39 evaluations of
+    the UNet and the branch) with the window [0.1, 0.6]. Every call's
+    launches are the sampler's evaluation count's, exactly; each sampler
+    logs its seconds per image and its denoise loop's device ms per UNet
+    evaluation (a profiled second call)."""
+    from powerpaint_tpu_torch import schedulers
+    from powerpaint_tpu_torch.core.config import (
+        ppt_v1_config,
+        ppt_v1_controlnet_config,
+        ppt_v2_config,
+    )
+    from powerpaint_tpu_torch.io.weights import init_state
+    from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
+    from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+
+    prompt = "a red bench in a park"
+    image, mask = inputs(HW, 0)
+
+    def build(cls, cfg, label):
+        t0 = time.perf_counter()
+        state = init_state(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device, dtype=torch.bfloat16)
+        pipe = cls(cfg, state, _tokenizer(cfg), dtype=torch.bfloat16,
+                   device=device)
+        log(phase="setup", path=label, seconds=time.perf_counter() - t0)
+        return pipe
+
+    def sampled(pipe, call, path, name, steps, **kw):
+        """One checked call of sampler ``name``, then the same call with
+        its denoise loop profiled."""
+        label = f"samplers {path} {name}" + "".join(
+            f" {k} {v}" for k, v in kw.items() if k != "control_image")
+        kw = dict(prompt=prompt, seed=1, scheduler=name,
+                  num_inference_steps=steps, **kw)
+        out = call(label, **kw)
+        secs = call.seconds
+        n = evaluations(pipe.config, name, steps, kw.get("strength", 1.0))
+        ms = denoise_device_ms(pipe, lambda: pipe(
+            image, mask, **{"guidance_scale": GUIDANCE, **kw}))
+        log(sampler=name, path=path, steps=steps, unet_evaluations=n,
+            seconds_per_image=secs / out.shape[0], denoise_device_ms=ms,
+            device_ms_per_evaluation=(ms / n if ms else "not measured"))
+        return out
+
+    def diff(a, b):
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        return int(d.max()), float(d.mean())
+
+    # ---- ppt-v1: every sampler of the registry but DDIM
+    cfg = ppt_v1_config()
+    pipe = build(InpaintPipeline, cfg, "samplers ppt-v1")
+    call = _caller(pipe, image, mask, lambda kw: expected_launches(
+        cfg, kw["num_inference_steps"], kw.get("strength", 1.0),
+        scheduler=kw.get("scheduler", "ddim")))
+    reset_counts()  # the path starts here
+    outs = {}
+    for name in schedulers.SCHEDULERS:
+        if name != "ddim":
+            outs[name] = sampled(pipe, call, "ppt-v1", name,
+                                 4 if name == "lcm" else STEPS)
+            check(outs[name].shape == (1, HW, HW, 3),
+                  f"samplers {name}: output {outs[name].shape}")
+    check(len({o.tobytes() for o in outs.values()}) == len(outs),
+          "samplers: two samplers gave the same image")
+    sampled(pipe, call, "ppt-v1", "euler", STEPS, strength=0.6)
+
+    draws = []
+    draw = pipe._draw_noise
+    pipe._draw_noise = lambda *a: draws.append(draw(*a)) or draws[-1]
+    again = call("samplers v1 euler_a same seed", prompt=prompt, seed=1,
+                 scheduler="euler_a")
+    both = call("samplers v1 euler_a batch of two", prompt=[prompt, "a dog"],
+                seed=[1, 5], scheduler="euler_a")
+    alone = call("samplers v1 euler_a second request alone", prompt="a dog",
+                 seed=5, scheduler="euler_a")
+    pipe._draw_noise = draw
+    check(np.array_equal(again, outs["euler_a"]),
+          "euler_a: the same seed gave a different image")
+    step_a, step_both, step_alone = (d[3] for d in draws)
+    check(len(step_a) == len(step_both) == len(step_alone) == STEPS,
+          f"euler_a: {len(step_both)} step draws for {STEPS} iterations")
+    check(all(torch.equal(x[0:1], y) and torch.equal(x[1:2], z)
+              for x, y, z in zip(step_both, step_a, step_alone)),
+          "euler_a: a batched request's step noise is not its requests' own")
+    for k, ref in ((0, again), (1, alone)):
+        mx, mean = diff(both[k], ref[0])
+        log(path="samplers ppt-v1", sampler="euler_a", request=k,
+            batch_vs_standalone_max_uint8_diff=mx,
+            batch_vs_standalone_mean_uint8_diff=mean)
+        check(mx <= V1_BATCH_MAX_UINT8 and mean <= V1_BATCH_MEAN_UINT8,
+              f"euler_a batch request {k}: max {mx} mean {mean} beyond "
+              f"Queue C's {V1_BATCH_MAX_UINT8} / {V1_BATCH_MEAN_UINT8}")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # ---- ppt-v2: euler_a on UniPC's stack, LCM on an LCM-distilled UNet
+    v2_stages = (("brushnet", "denoise_brushnet"), ("unet", "denoise_base_unet"))
+    for cfg2, label in (
+            (ppt_v2_config(), "ppt-v2"),
+            (ppt_v2_config().replace(unet=ppt_v2_config().unet.replace(
+                time_cond_proj_dim=256)), "ppt-v2 lcm unet")):
+        pipe = build(BrushNetPipeline, cfg2, f"samplers {label}")
+        call = _caller(pipe, image, mask, lambda kw, c=cfg2: expected_launches_v2(
+            c, kw["num_inference_steps"], scheduler=kw.get("scheduler", "unipc")),
+            models=v2_stages)
+        if label == "ppt-v2":
+            sampled(pipe, call, label, "euler_a", STEPS)
+        else:
+            check(pipe.unet.time_embedding.cond_proj is not None,
+                  "ppt-v2 lcm unet: no cond_proj")
+            g5 = sampled(pipe, call, label, "lcm", 4, guidance_scale=5.0)
+            g9 = call("samplers ppt-v2 lcm guidance 9", prompt=prompt, seed=1,
+                      scheduler="lcm", num_inference_steps=4, guidance_scale=9.0)
+            mx, mean = diff(g9, g5)
+            log(path="samplers ppt-v2 lcm unet", guidance_9_vs_5_max_uint8_diff=mx,
+                guidance_9_vs_5_mean_uint8_diff=mean)
+            check(mx > 0, "LCM: guidance 5 and 9 gave the same image")
+        del pipe
+        torch.cuda.empty_cache()
+
+    # ---- ppt-v1 + ControlNet: heun, two evaluations a step, a window
+    cfg3 = ppt_v1_controlnet_config()
+    pipe = build(ControlNetPipeline, cfg3, "samplers ppt-v1 + controlnet")
+    call = _caller(pipe, image, mask, lambda kw: expected_launches_cn(
+        cfg3, kw["num_inference_steps"], scheduler=kw.get("scheduler", "ddim")),
+        models=(("controlnet", "denoise_controlnet"),
+                ("unet", "denoise_base_unet")))
+    check(evaluations(cfg3, "heun", STEPS) == 2 * STEPS - 1,
+          "heun: not 2S-1 evaluations")
+    sampled(pipe, call, "ppt-v1 + controlnet", "heun", STEPS,
+            control_image=edge_map(HW, 0), control_guidance_start=0.1,
+            control_guidance_end=0.6)
+    del pipe
+    return _path_counts("samplers", expected_launches(cfg, STEPS))
+
+
 def _window(label: str, want: dict, run):
     """Run ``run()`` synchronised with the launch counts at 0 before it:
     (its result, seconds, launches), which must be ``want`` exactly (the
@@ -1922,8 +2128,9 @@ def profile_call(label: str, run_call) -> None:
 
 def tiny_reference(device) -> None:
     """The tiny ppt-v1, ppt-v2 and ppt-v1 + ControlNet configurations, fp32,
-    through the kernels on the card and through the plain versions on the
-    CPU, with the same weights and the same noise: the uint8 images must
+    each at its default sampler and at one other, through the kernels on
+    the card and through the plain versions on the CPU, with the same
+    weights and the same noise (the step noise too): the uint8 images must
     agree within the JAX package's end-to-end bound (max 3, mean 0.5).
 
     ppt-v1 with int8 on (every ResNet unit is an int8 site at this size) is
@@ -1934,9 +2141,11 @@ def tiny_reference(device) -> None:
     the card's call is recomputed by the plain version on the CPU from the
     input the card gave it, within ``int8_check``'s flip bound; the images'
     difference is logged."""
+    from powerpaint_tpu_torch import schedulers
     from powerpaint_tpu_torch.models.layers import Conv2D
     from powerpaint_tpu_torch.ops import conv
     from powerpaint_tpu_torch.io.weights import init_state
+    from powerpaint_tpu_torch.pipelines.common import per_iteration
     from powerpaint_tpu_torch.pipelines.brushnet import (
         BrushNetPipeline,
         cond_scale_table,
@@ -1965,21 +2174,24 @@ def tiny_reference(device) -> None:
     image, mask = inputs(64, 1)
     mask_u8 = (mask >= 0.5).astype(np.uint8)[None, ..., None] * 255
 
-    def v1(pipe, dev, noise, **extra):
+    def v1(pipe, dev, noise, steps=3, kept=3, step_noise=None, **extra):
         ids = pipe.encode_task(add_task("a dog", "", "text-guided"))[None]
         return pipe._generate(
             torch.as_tensor(ids, dtype=torch.long, device=dev),
             torch.tensor([0.6], device=dev), torch.as_tensor(image[None], device=dev),
             torch.as_tensor(mask_u8, device=dev), torch.tensor([7.5], device=dev),
-            *noise, None, num_steps=3, strength_steps=3, output_type="uint8",
-            **extra)
+            *noise[:3], step_noise, num_steps=steps, strength_steps=kept,
+            output_type="uint8", **extra)
 
-    def cn(pipe, dev, noise):
+    def cn(pipe, dev, noise, scheduler="ddim", window=(0.0, 1.0)):
         control = torch.as_tensor(edge_map(64, 2)[None, None], device=dev)
-        return v1(pipe, dev, noise, control_u8=control,
-                  scales=gating_table(3, [1.0], [0.0], [1.0]))
+        mod, _ = schedulers.get(scheduler)
+        table = per_iteration(mod, gating_table(3, [1.0], [window[0]],
+                                                [window[1]]))
+        return v1(pipe, dev, noise, control_u8=control, scales=table,
+                  scheduler=scheduler)
 
-    def v2(pipe, dev, noise):
+    def v2(pipe, dev, noise, steps=3, scheduler="unipc", step_noise=None):
         task = "object-removal"
         ids_t, ids_u = pipe.encode_task(
             add_task(v2_prompt_suffix("a dog", task), "", task, "ppt-v2"))
@@ -1988,14 +2200,28 @@ def tiny_reference(device) -> None:
             torch.as_tensor(ids_u[None], dtype=torch.long, device=dev),
             torch.tensor([0.6], device=dev), torch.as_tensor(image[None], device=dev),
             torch.as_tensor(mask_u8, device=dev), torch.tensor([7.5], device=dev),
-            cond_scale_table(3, 1.0, 0.0, 1.0), *noise[:2], num_steps=3,
-            output_type="uint8")
+            cond_scale_table(steps, 1.0, 0.0, 1.0), *noise[:2], step_noise,
+            num_steps=steps, output_type="uint8", scheduler=scheduler)
 
+    # one sampler per pipeline beside the defaults: euler_a at strength 0.6
+    # (3 of 5 steps, sigma space, step noise), LCM on an LCM UNet (the
+    # guidance embedding, step noise), heun with a window (39 -> 5 rows)
+    tiny_lcm = tiny_v2_config().replace(
+        unet=tiny_v2_config().unet.replace(time_cond_proj_dim=8))
     for label, cfg, cls, gen, int8 in (
             ("ppt-v1", tiny_v1_config(), InpaintPipeline, v1, False),
             ("ppt-v2", tiny_v2_config(), BrushNetPipeline, v2, False),
             ("ppt-v1 + controlnet", tiny_v1_controlnet_config(),
              ControlNetPipeline, cn, False),
+            ("ppt-v1 euler_a strength 0.6", tiny_v1_config(), InpaintPipeline,
+             lambda p, d, n: v1(p, d, n, steps=5, kept=3, step_noise=n[3:6],
+                                scheduler="euler_a"), False),
+            ("ppt-v2 lcm unet", tiny_lcm, BrushNetPipeline,
+             lambda p, d, n: v2(p, d, n, steps=4, scheduler="lcm",
+                                step_noise=n[3:7]), False),
+            ("ppt-v1 + controlnet heun", tiny_v1_controlnet_config(),
+             ControlNetPipeline,
+             lambda p, d, n: cn(p, d, n, "heun", (0.1, 0.6)), False),
             ("ppt-v1 int8", tiny_v1_config(), InpaintPipeline, v1, True)):
         state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu",
                            dtype=torch.float32)
@@ -2011,7 +2237,7 @@ def tiny_reference(device) -> None:
                                 (mod, args[0].cpu(), kw["gn"], out.cpu())),
                             with_kwargs=True)
             g = torch.Generator().manual_seed(7)
-            noise = [torch.randn((1, 8, 8, 4), generator=g).to(dev) for _ in range(3)]
+            noise = [torch.randn((1, 8, 8, 4), generator=g).to(dev) for _ in range(7)]
             outs[dev] = gen(pipe, dev, noise).cpu().numpy().astype(np.int32)
         d = np.abs(outs["cpu"] - outs[device])
         log(tiny_reference=label, max_uint8_diff=int(d.max()),
@@ -2124,7 +2350,8 @@ def main() -> None:
              ("ppt-v2 int8", lambda d: run_int8_path(d, "ppt-v2", refs["ppt-v2"])),
              ("cli", run_cli),
              ("ppt-v1 + controlnet", lambda d: run_cn_path(d, refs["ppt-v1"])),
-             ("annotators + safety", run_annotator_path))
+             ("annotators + safety", run_annotator_path),
+             ("samplers", run_sampler_path))
     for label, run in paths:
         t0 = time.perf_counter()
         counts = run(device)

@@ -83,7 +83,7 @@ class PowerPaint:
         **pipeline_kwargs,
     ) -> InferenceResult:
         """``pipeline_kwargs`` pass through to the routed pipeline
-        (strength= / eta= for v1, guess_mode= /
+        (scheduler= for all three, strength= / eta= for v1, guess_mode= /
         brushnet_conditioning_scale= for v2, per-branch lists and
         control_guidance_start= / _end= for the ControlNet pipeline).
 

@@ -87,6 +87,9 @@ class UNetConfig(_ConfigBase):
     use_linear_projection: bool = False
     conv_in_kernel: int = 3
     conv_out_kernel: int = 3
+    # LCM-distilled UNets condition the time embedding on the guidance
+    # scale: the width of that embedding (None: no ``cond_proj``)
+    time_cond_proj_dim: Optional[int] = None
 
     @property
     def num_heads(self) -> int:
@@ -230,6 +233,10 @@ class SchedulerConfig(_ConfigBase):
     solver_order: int = 2
     lower_order_final: bool = True
     solver_type: str = "bh2"
+    # LCM specifics (consistency-model boundary conditions + the coarse
+    # training grid LCM-LoRA checkpoints are distilled on)
+    original_inference_steps: int = 50
+    timestep_scaling: float = 10.0
 
 
 @dataclasses.dataclass(frozen=True)

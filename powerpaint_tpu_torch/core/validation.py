@@ -80,19 +80,24 @@ def check_call_args(
         )
 
 
-def check_scheduler(name: str, num_steps: int, ported: str = "unipc") -> None:
-    """The port's pipelines each sample with one scheduler (``ported``):
-    UniPC for ppt-v2, DDIM for the ControlNet path; the JAX package's other
-    samplers are ROADMAP item A13."""
-    if not 1 <= int(num_steps) <= 1000:
+def check_scheduler(name: str, scheduler_config, num_steps: int):
+    """Resolve the sampler ``name`` and dry-build its tables on the host,
+    so an unknown name, LCM's step bound or a degenerate grid is an
+    ``InputValidationError`` before any device work. Returns the sampler
+    module (callers read its ``stochastic`` flag and its optional
+    ``iteration_step_map``)."""
+    from powerpaint_tpu_torch import schedulers
+
+    if not 1 <= int(num_steps) <= 1000:  # bound before building tables
         raise InputValidationError(
             f"num_inference_steps must be in [1, 1000], got {num_steps}"
         )
-    if name.lower() != ported:
-        raise InputValidationError(
-            f"scheduler {name!r} is not ported yet for this pipeline "
-            f"(ROADMAP A13); it samples with {ported!r}"
-        )
+    try:
+        mod, make = schedulers.get(name)
+        make(scheduler_config, int(num_steps))
+    except ValueError as e:
+        raise InputValidationError(str(e)) from e
+    return mod
 
 
 def check_control_image(control_image: np.ndarray, image: np.ndarray) -> None:

@@ -140,15 +140,40 @@ def timestep_sinusoid(timesteps: torch.Tensor, dim: int, *,
     return out
 
 
-class TimestepEmbedding(nn.Module):
-    """linear -> silu -> linear (diffusers TimestepEmbedding)."""
+def guidance_scale_embedding(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """The LCM guidance-scale embedding (the reference's
+    ``get_guidance_scale_embedding``): sinusoid features of w * 1000, fed to
+    the UNet's ``timestep_cond`` when ``time_cond_proj_dim`` is set. Its
+    order is [sin | cos], the opposite of the timestep sinusoid's. fp32."""
+    w = torch.atleast_1d(w).float() * 1000.0
+    half = dim // 2
+    emb = torch.exp(torch.arange(half, dtype=torch.float32, device=w.device)
+                    * (-math.log(10000.0) / (half - 1)))
+    emb = w[:, None] * emb[None, :]
+    out = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if dim % 2 == 1:
+        out = F.pad(out, (0, 1))
+    return out
 
-    def __init__(self, in_channels: int, embed_dim: int):
+
+class TimestepEmbedding(nn.Module):
+    """linear -> silu -> linear (diffusers TimestepEmbedding); with
+    ``cond_proj_dim``, a bias-free ``cond_proj`` of the condition is added
+    to the sample first."""
+
+    def __init__(self, in_channels: int, embed_dim: int,
+                 cond_proj_dim: Optional[int] = None):
         super().__init__()
         self.linear_1 = nn.Linear(in_channels, embed_dim)
+        self.cond_proj = (nn.Linear(cond_proj_dim, in_channels, bias=False)
+                          if cond_proj_dim else None)
         self.linear_2 = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, sample: torch.Tensor) -> torch.Tensor:
+    def forward(self, sample: torch.Tensor,
+                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if condition is not None and self.cond_proj is not None:
+            sample = sample + self.cond_proj(
+                condition.to(self.cond_proj.weight.dtype))
         return self.linear_2(F.silu(self.linear_1(sample)))
 
 

@@ -57,15 +57,17 @@ def _attention_args(cfg: UNetConfig) -> dict:
                 eps=cfg.norm_eps, groups=cfg.norm_num_groups)
 
 
-def add_encoder(model: nn.Module, cfg: UNetConfig) -> None:
-    """Give ``model`` the time embedding, down and mid blocks of ``cfg``:
+def add_encoder(model: nn.Module, cfg: UNetConfig,
+                cond_proj_dim: Optional[int] = None) -> None:
+    """Give ``model`` the time embedding (with a ``cond_proj`` of
+    ``cond_proj_dim`` features when given), down and mid blocks of ``cfg``:
     what the UNet, the BrushNet branch and the ControlNet branch share."""
     if cfg.mid_block_type != MID_CROSS_ATTN:
         raise ValueError(f"unsupported mid block {cfg.mid_block_type}")
     ch = cfg.block_out_channels
     temb_ch = ch[0] * 4
     attn = _attention_args(cfg)
-    model.time_embedding = TimestepEmbedding(ch[0], temb_ch)
+    model.time_embedding = TimestepEmbedding(ch[0], temb_ch, cond_proj_dim)
 
     model.down_blocks = nn.ModuleList()
     for i, kind in enumerate(cfg.down_block_types):
@@ -77,10 +79,11 @@ def add_encoder(model: nn.Module, cfg: UNetConfig) -> None:
     model.mid_block = MidBlock(ch[-1], temb_ch, **attn)
 
 
-def add_blocks(model: nn.Module, cfg: UNetConfig) -> None:
+def add_blocks(model: nn.Module, cfg: UNetConfig,
+               cond_proj_dim: Optional[int] = None) -> None:
     """``add_encoder``, then the up blocks: what the UNet and the BrushNet
     branch share."""
-    add_encoder(model, cfg)
+    add_encoder(model, cfg, cond_proj_dim)
     ch = cfg.block_out_channels
     temb_ch = ch[0] * 4
     attn = _attention_args(cfg)
@@ -95,9 +98,10 @@ def add_blocks(model: nn.Module, cfg: UNetConfig) -> None:
 
 
 def embed_time(time_embedding: TimestepEmbedding, cfg: UNetConfig,
-               timesteps, batch: int, device,
-               dtype: torch.dtype) -> torch.Tensor:
-    """Sinusoid of () or (B,) timesteps, then the embedding MLP."""
+               timesteps, batch: int, device, dtype: torch.dtype,
+               condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sinusoid of () or (B,) timesteps, then the embedding MLP (with the
+    ``condition`` projected in, for an LCM UNet)."""
     timesteps = torch.as_tensor(timesteps, device=device)
     if timesteps.dim() == 0:
         timesteps = timesteps.expand(batch)
@@ -105,7 +109,7 @@ def embed_time(time_embedding: TimestepEmbedding, cfg: UNetConfig,
         timesteps, cfg.block_out_channels[0],
         flip_sin_to_cos=cfg.flip_sin_to_cos,
         downscale_freq_shift=cfg.freq_shift).to(dtype)
-    return time_embedding(t_emb)
+    return time_embedding(t_emb, condition)
 
 
 class UNet2DConditionModel(nn.Module):
@@ -115,7 +119,7 @@ class UNet2DConditionModel(nn.Module):
         ch = cfg.block_out_channels
         self.conv_in = Conv2D(cfg.in_channels, ch[0], cfg.conv_in_kernel,
                               padding=(cfg.conv_in_kernel - 1) // 2)
-        add_blocks(self, cfg)
+        add_blocks(self, cfg, cfg.time_cond_proj_dim)
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch[0], cfg.norm_eps)
         self.conv_out = Conv2D(ch[0], cfg.out_channels, cfg.conv_out_kernel,
                                padding=(cfg.conv_out_kernel - 1) // 2)
@@ -128,16 +132,19 @@ class UNet2DConditionModel(nn.Module):
                 down_block_additional_residuals: Optional[
                     Sequence[torch.Tensor]] = None,
                 mid_block_additional_residual: Optional[torch.Tensor] = None,
+                timestep_cond: Optional[torch.Tensor] = None,
                 ) -> torch.Tensor:
         """sample (B, H, W, C_in), timesteps () or (B,), encoder_hidden_states
         (B, 77, D) -> (B, H, W, C_out) in the compute dtype. The BrushNet
         taps, when given: 1 + sum(_down_tap_counts) down, one mid,
         sum(_up_tap_counts) up. The ControlNet residuals, when given: one
-        per skip (``controlnet_residual_channels``) and one mid."""
+        per skip (``controlnet_residual_channels``) and one mid.
+        ``timestep_cond`` (B, time_cond_proj_dim): the guidance embedding
+        of an LCM UNet (``layers.guidance_scale_embedding``)."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         temb = embed_time(self.time_embedding, cfg, timesteps, sample.shape[0],
-                          sample.device, dtype)
+                          sample.device, dtype, timestep_cond)
         context = encoder_hidden_states.to(dtype)
 
         x = self.conv_in(sample.to(dtype))

@@ -1,5 +1,5 @@
 """ppt-v2 pipeline: BrushNet dual-branch inpainting with preserved
-cross-attention, sampled with UniPC.
+cross-attention, sampled with UniPC by default or any registry sampler.
 
 The port of ``powerpaint_tpu/pipelines/brushnet.py`` on PyTorch:
 
@@ -10,18 +10,24 @@ The port of ``powerpaint_tpu/pipelines/brushnet.py`` on PyTorch:
 - 5-channel conditioning: the VAE sample of the pre-masked image (hole
   pixels black) times the scaling factor, then the keep mask (1 on
   preserved pixels) resized nearest to the latent grid;
-- per step, one BrushNet forward (CFG batch 2B, task embeddings) giving 28
-  taps, one base-UNet forward (2B, plain embeddings) with the taps
-  injected, the guidance combine and a UniPC step (a Python loop where the
-  JAX package has ``lax.scan``);
+- per sampler iteration, one BrushNet forward (CFG batch 2B, task
+  embeddings) giving 28 taps, one base-UNet forward (2B, plain
+  embeddings) with the taps injected, the guidance combine and a sampler
+  step (a Python loop where the JAX package has ``lax.scan``); both
+  forwards see the sampler's scaled latents;
 - ``control_guidance_start`` / ``_end`` gate the branch per step through a
-  host table of conditioning scales.
+  host table of conditioning scales (on heun's iterations, its step's
+  row);
+- an LCM-distilled UNet (``time_cond_proj_dim`` set) gets the guidance
+  embedding of w - 1 as ``timestep_cond`` at every evaluation, one row per
+  image of the CFG batch.
 
-Randomness: each image has its own ``torch.Generator`` seeded with its
-seed, from which ``__call__`` draws, in this order, the initial latent
-noise and the VAE sample noise of the masked image, so a batched request
-reproduces each standalone result. ``_generate`` takes both draws as
-tensors, so a test can hand in the JAX package's threefry streams.
+Randomness: per-image ``torch.Generator`` draws in the order
+``pipelines.common`` documents (the initial latent noise, the VAE sample
+noise of the masked image, then a stochastic sampler's step noise), so a
+batched request reproduces each standalone result. ``_generate`` takes
+the draws as tensors, so a test can hand in the JAX package's threefry
+streams.
 """
 
 from __future__ import annotations
@@ -47,11 +53,16 @@ from powerpaint_tpu_torch.pipelines.common import (
     cond_scale_table,
     draw_noise,
     int8_x_scale,
+    make_sampler,
+    per_iteration,
     resolve_seeds,
+    sampler_step,
+    table_row,
+    takes_step_noise,
     to_output,
     vae_sample,
 )
-from powerpaint_tpu_torch.schedulers import unipc
+from powerpaint_tpu_torch.models.layers import guidance_scale_embedding
 from powerpaint_tpu_torch.text.prompts import TaskPrompts, add_task, v2_prompt_suffix
 
 
@@ -123,41 +134,44 @@ class BrushNetPipeline:
         return vae_sample(self.vae, images, noise,
                           self.config.vae.scaling_factor)
 
-    def _branch(self, sched, i: int, latents: torch.Tensor,
+    def _branch(self, scaled: torch.Tensor, t: torch.Tensor,
                 cond_task: torch.Tensor, cond5: torch.Tensor, scale: float,
                 guess_mode: bool):
-        """The BrushNet taps at step i for the CFG batch. In guess mode the
-        branch sees only the conditional half; the other half's taps are
-        zero."""
-        t = torch.tensor(int(sched.timesteps[i]), device=latents.device)
-        b = latents.shape[0]
+        """The BrushNet taps for the CFG batch from the sampler's scaled
+        latents (B, h, w, 4). In guess mode the branch sees only the
+        conditional half; the other half's taps are zero."""
+        b = scaled.shape[0]
         if not guess_mode:
-            lmi = unipc.scale_model_input(sched, latents.repeat(2, 1, 1, 1), i)
-            return self.brushnet(lmi, t, cond_task, cond5, scale)
-        down, mid, up = self.brushnet(
-            unipc.scale_model_input(sched, latents, i), t, cond_task[b:],
-            cond5[:b], scale, guess_mode=True)
+            return self.brushnet(scaled.repeat(2, 1, 1, 1), t, cond_task,
+                                 cond5, scale)
+        down, mid, up = self.brushnet(scaled, t, cond_task[b:], cond5[:b],
+                                      scale, guess_mode=True)
         pad = lambda x: torch.cat([torch.zeros_like(x), x])  # noqa: E731
         return [pad(x) for x in down], pad(mid), [pad(x) for x in up]
 
-    def _denoise(self, sched, latents: torch.Tensor, cond5: torch.Tensor,
+    def _denoise(self, mod, sched, latents: torch.Tensor, cond5: torch.Tensor,
                  cond_task: torch.Tensor, cond_plain: torch.Tensor,
-                 guidance: torch.Tensor, scales: np.ndarray,
-                 guess_mode: bool) -> torch.Tensor:
-        """UniPC loop: the branch's taps, then the base UNet on the latents
-        for the unconditional and the conditional half in one batch."""
+                 guidance: torch.Tensor, scales: np.ndarray, guess_mode: bool,
+                 step_noise=None,
+                 timestep_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The sampler ``mod``'s loop: each iteration the branch's taps,
+        then the base UNet on the scaled latents for the unconditional and
+        the conditional half in one batch."""
         b = latents.shape[0]
-        state = unipc.init_state(sched, latents.shape, latents.device)
+        state = mod.init_state(sched, latents.shape, latents.device)
         for i in range(sched.num_steps):
-            down, mid, up = self._branch(sched, i, latents, cond_task, cond5,
-                                         float(scales[i]), guess_mode)
-            lmi = unipc.scale_model_input(sched, latents.repeat(2, 1, 1, 1), i)
+            scaled = mod.scale_model_input(sched, latents, i)
             t = torch.tensor(int(sched.timesteps[i]), device=latents.device)
-            eps = self.unet(lmi, t, cond_plain, down_block_add_samples=down,
-                            mid_block_add_sample=mid,
-                            up_block_add_samples=up).float()
+            down, mid, up = self._branch(scaled, t, cond_task, cond5,
+                                         float(table_row(scales, i)),
+                                         guess_mode)
+            eps = self.unet(scaled.repeat(2, 1, 1, 1), t, cond_plain,
+                            down_block_add_samples=down,
+                            mid_block_add_sample=mid, up_block_add_samples=up,
+                            timestep_cond=timestep_cond).float()
             eps = eps[:b] + guidance * (eps[b:] - eps[:b])
-            latents, state = unipc.step(sched, state, eps, i, latents)
+            latents, state = sampler_step(mod, sched, state, eps, i, latents,
+                                          0.0, step_noise)
         return latents
 
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
@@ -171,17 +185,19 @@ class BrushNetPipeline:
                   fittings: torch.Tensor, image_u8: torch.Tensor,
                   mask_u8: torch.Tensor, guidance: torch.Tensor,
                   scales: np.ndarray, noise0: torch.Tensor,
-                  vae_noise: torch.Tensor, *, num_steps: int,
+                  vae_noise: torch.Tensor, step_noise=None, *, num_steps: int,
                   output_type: str, guess_mode: bool = False,
                   latents_in: Optional[torch.Tensor] = None,
-                  clip_skip: int = 0) -> torch.Tensor:
+                  clip_skip: int = 0, scheduler: str = "unipc") -> torch.Tensor:
         """Everything after host-side validation, on ``self.device``.
 
         ids_task (P, 4, 77); ids_plain (P, 2, 77); fittings (P,); image_u8
         (B, H, W, 3) uint8; mask_u8 (B, H, W, 1) uint8, 255 in the hole;
-        guidance (B,); scales (num_steps,) the branch's scale per step;
-        noise0 and vae_noise (B, H/8, W/8, 4) fp32."""
-        sched = unipc.make_unipc_schedule(self.config.scheduler, num_steps)
+        guidance (B,); scales the branch's scale per step, on the sampler's
+        iterations (``per_iteration``); noise0 and vae_noise (B, H/8, W/8,
+        4) fp32; step_noise one (B, H/8, W/8, 4) tensor per iteration for a
+        stochastic sampler, else None."""
+        mod, sched = make_sampler(scheduler, self.config.scheduler, num_steps)
         b, h, w, _ = image_u8.shape
         keep = 1.0 - (mask_u8 >= 128).float()
         masked_image = image_u8.float() * keep / 127.5 - 1.0
@@ -197,10 +213,17 @@ class BrushNetPipeline:
             latents = latents_in.float() * sched.init_noise_sigma
         else:
             latents = noise0 * sched.init_noise_sigma
+        timestep_cond = None
+        if self.config.unet.time_cond_proj_dim:
+            g = guidance.float().reshape(-1)
+            g = g.expand(b) if g.shape[0] == 1 else g
+            timestep_cond = guidance_scale_embedding(
+                torch.cat([g, g]) - 1.0, self.config.unet.time_cond_proj_dim)
 
-        latents = self._denoise(sched, latents, cond5, cond_task, cond_plain,
+        latents = self._denoise(mod, sched, latents, cond5, cond_task,
+                                cond_plain,
                                 guidance.float().reshape(-1, 1, 1, 1), scales,
-                                guess_mode)
+                                guess_mode, step_noise, timestep_cond)
         if output_type == "latent":
             return latents
         return to_output(self._decode(latents), output_type)
@@ -220,15 +243,16 @@ class BrushNetPipeline:
         Batched form: ``prompt`` a list of B prompts, with ``image`` /
         ``mask`` either one pair for all or B stacked pairs, and
         ``negative_prompt`` / ``fitting_degree`` / ``guidance_scale`` /
-        ``seed`` one value or one per request. Returns (B, H, W, 3) uint8,
-        (B, H, W, 3) float32 in [-1, 1] or (B, H/8, W/8, 4) float32 latents,
-        as numpy."""
+        ``seed`` one value or one per request. ``scheduler`` is any registry
+        sampler. Returns (B, H, W, 3) uint8, (B, H, W, 3) float32 in [-1, 1]
+        or (B, H/8, W/8, 4) float32 latents, as numpy."""
         multi = isinstance(prompt, (list, tuple))
         prompts = list(prompt) if multi else [prompt]
         negatives = as_list(negative_prompt, len(prompts))
         fittings = as_list(fitting_degree, len(prompts))
         guidances = as_list(guidance_scale, len(prompts))
-        check_scheduler(scheduler, num_inference_steps)
+        mod = check_scheduler(scheduler, self.config.scheduler,
+                              num_inference_steps)
         for f, g in zip(fittings, guidances):
             check_call_args(task=task, num_inference_steps=num_inference_steps,
                             guidance_scale=float(g), fitting_degree=float(f),
@@ -248,10 +272,14 @@ class BrushNetPipeline:
                for p, n in zip(prompts, negatives)]
         ids_task = np.stack([t for t, _ in ids])
         ids_plain = np.stack([u for _, u in ids])
-        scales = cond_scale_table(num_inference_steps,
-                                  float(brushnet_conditioning_scale),
-                                  control_guidance_start, control_guidance_end)
-        noise0, vae_noise = draw_noise(self.device, seeds, (h // 8, w // 8, 4), 2)
+        scales = per_iteration(mod, cond_scale_table(
+            num_inference_steps, float(brushnet_conditioning_scale),
+            control_guidance_start, control_guidance_end))
+        _, sched = make_sampler(scheduler, self.config.scheduler,
+                                num_inference_steps)
+        n_draws = sched.num_steps if takes_step_noise(mod) else 0
+        noise0, vae_noise, *step_noise = draw_noise(
+            self.device, seeds, (h // 8, w // 8, 4), 2 + n_draws)
 
         dev = self.device
         telemetry.reset_stages()
@@ -263,12 +291,12 @@ class BrushNetPipeline:
                 torch.as_tensor(img_b, device=dev),
                 torch.as_tensor(mask_b, device=dev),
                 torch.as_tensor(np.asarray(guidances, np.float32), device=dev),
-                scales, noise0, vae_noise,
+                scales, noise0, vae_noise, step_noise or None,
                 num_steps=num_inference_steps, output_type=output_type,
                 guess_mode=bool(guess_mode),
                 latents_in=(None if latents is None
                             else torch.as_tensor(latents, device=dev)),
-                clip_skip=int(clip_skip)).cpu().numpy()
+                clip_skip=int(clip_skip), scheduler=scheduler).cpu().numpy()
         telemetry.count("images", out.shape[0])
         telemetry.count("denoise_steps", num_inference_steps)
         return out

@@ -1,6 +1,25 @@
 """What the ppt-v1, ppt-v2 and ControlNet pipelines share: the int8 option,
 request batching, seeds and the branches' gating tables on the host,
-per-image noise, the VAE sample and the decode."""
+per-image noise, the sampler's step, the VAE sample and the decode.
+
+Randomness: each image has its own ``torch.Generator`` seeded with its
+seed, and ``draw_noise`` takes every draw of a call from it, in this
+order, each a (H/8, W/8, 4) standard normal:
+
+1. the initial latent noise;
+2. the VAE sample noise of the masked image;
+3. (ppt-v1 and ControlNet) the VAE sample noise of the image latents;
+4. the step noise, one draw per sampler iteration (one UNet evaluation:
+   heun's 2S-1, pndm's S+1), when the sampler takes it: the stochastic
+   samplers (euler_a, dpm_sde, lcm; ``stochastic = True``) and, on
+   ppt-v1 and ControlNet, DDIM with ``eta`` > 0.
+
+So a batched request draws exactly what each of its images draws alone.
+The numbers differ from the JAX package's threefry streams (folds 0, 1, 2
+of each image's key, then fold 4 for the step noise, or fold 3 of the
+first image's key for DDIM's eta); the pipelines' ``_generate`` takes the
+draws as tensors, so a test can hand both packages the same noise.
+"""
 
 from __future__ import annotations
 
@@ -10,7 +29,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from powerpaint_tpu_torch import schedulers
 from powerpaint_tpu_torch.core.validation import check_image_mask
+from powerpaint_tpu_torch.schedulers import ddim
 from powerpaint_tpu_torch.tasks.preprocess import to_numpy_image, to_numpy_mask
 
 
@@ -73,6 +94,51 @@ def cond_scale_table(num_steps: int, scale: float, start: float,
                                   or (i + 1) / num_steps > end)
                       for i in range(num_steps)], np.float32)
     return keeps * scale
+
+
+def make_sampler(name: str, scheduler_config, num_steps: int,
+                 keep_steps: Optional[int] = None):
+    """(module, schedule) of the registry sampler ``name``; ``keep_steps``
+    < ``num_steps`` keeps the last steps (strength < 1)."""
+    mod, make = schedulers.get(name)
+    keep = keep_steps if keep_steps is not None and keep_steps < num_steps else None
+    return mod, make(scheduler_config, num_steps, keep_steps=keep)
+
+
+def takes_step_noise(mod, eta: float = 0.0) -> bool:
+    """Whether the sampler takes one noise draw per iteration: the
+    stochastic samplers, and DDIM with ``eta`` > 0."""
+    return bool(getattr(mod, "stochastic", False)) or (mod is ddim and eta > 0.0)
+
+
+def sampler_step(mod, sched, state, eps: torch.Tensor, i: int,
+                 latents: torch.Tensor, eta: float,
+                 step_noise: Optional[Sequence[torch.Tensor]]):
+    """Iteration i of the sampler: (latents, state). ``eta`` is DDIM's
+    alone; ``step_noise`` (one tensor per iteration) reaches the samplers
+    that take it."""
+    if mod is ddim:
+        noise = step_noise[i] if eta > 0.0 else None
+        return ddim.step(sched, state, eps, i, latents, eta=eta, noise=noise)
+    if getattr(mod, "stochastic", False):
+        noise = step_noise[i] if step_noise is not None else None
+        return mod.step(sched, state, eps, i, latents, noise=noise)
+    return mod.step(sched, state, eps, i, latents)
+
+
+def per_iteration(mod, table: np.ndarray) -> np.ndarray:
+    """A per-user-step table (a branch's gating scales) on the sampler's
+    iteration axis: heun's two evaluations a step read their step's row.
+    (pndm's extra iteration reads the last row: ``table_row``.)"""
+    imap = getattr(mod, "iteration_step_map", None)
+    return table[imap(len(table))] if imap is not None else table
+
+
+def table_row(table: np.ndarray, i: int) -> np.ndarray:
+    """Row i of a per-iteration table, the last row past its end (pndm
+    runs S+1 iterations over S steps' rows; the JAX package's gather
+    clamps the same way)."""
+    return table[min(i, len(table) - 1)]
 
 
 def draw_noise(device, seeds: Sequence[int], shape,

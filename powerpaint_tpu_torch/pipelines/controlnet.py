@@ -12,14 +12,16 @@ onto the base UNet's skip connections and mid block (``models.unet``).
   (``control_guidance_start`` / ``_end``), gated per executed step (after
   the strength truncation) through a host table of scales; every branch
   runs at every step, with scale 0 outside its window, as in the JAX
-  package.
+  package. A sampler with two evaluations a step (heun) reads its step's
+  row at both (``pipelines.common.per_iteration``).
 - Guess mode: the branches see only the conditional half (its text
   context and the undoubled control image); the unconditional half gets
   zero residuals.
 - ``control_image=None`` is the plain v1 call (the reference's
   ``predict_woControl``).
-- The sampler is DDIM, as the port's v1; the JAX package's others are
-  ROADMAP A13.
+- The sampler is any of the registry's (``scheduler=``, DDIM by
+  default), as on the v1 pipeline; the branches see the sampler's scaled
+  latents, as the UNet does.
 
 Randomness is the v1 pipeline's: per-image ``torch.Generator`` draws in the
 v1 order, handed to ``_generate`` as tensors with the gating table, so a
@@ -39,7 +41,13 @@ from powerpaint_tpu_torch.core.validation import (
     check_control_image,
     check_scheduler,
 )
-from powerpaint_tpu_torch.pipelines.common import as_list, cond_scale_table
+from powerpaint_tpu_torch import schedulers
+from powerpaint_tpu_torch.pipelines.common import (
+    as_list,
+    cond_scale_table,
+    per_iteration,
+    table_row,
+)
 from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
 from powerpaint_tpu_torch.tasks.preprocess import to_numpy_image
 
@@ -79,13 +87,15 @@ class ControlNetPipeline(InpaintPipeline):
     def _residuals(self, i: int, latents: torch.Tensor, t: torch.Tensor,
                    cond: torch.Tensor, control: torch.Tensor,
                    scales: np.ndarray, guess_mode: bool) -> dict:
-        """The branches' residuals at step i, summed in branch order, as
-        the UNet's keyword arguments. ``control`` (N, B, H, W, 3) in
-        [0, 1]; ``scales`` (steps, N)."""
+        """The branches' residuals at iteration i, summed in branch order,
+        as the UNet's keyword arguments. ``latents`` the sampler's scaled
+        latents; ``control`` (N, B, H, W, 3) in [0, 1]; ``scales``
+        (iterations, N)."""
         b = latents.shape[0]
         down_sum, mid_sum = None, None
+        row = table_row(scales, i)
         for n, branch in enumerate(self.controlnet):
-            scale = float(scales[i, n])
+            scale = float(row[n])
             if guess_mode:
                 down, mid = branch(latents, t, cond[b:], control[n], scale,
                                    guess_mode=True)
@@ -113,16 +123,18 @@ class ControlNetPipeline(InpaintPipeline):
                   guess_mode: bool = False, **kw) -> torch.Tensor:
         """``InpaintPipeline._generate`` with the branches: control_u8 (N,
         B, H, W, 3) uint8, one control image per branch and image; scales
-        (executed steps, N), each branch's conditioning scale per step.
-        Without ``control_u8`` it is the v1 call."""
+        (executed steps, N), each branch's conditioning scale per step,
+        expanded onto heun's iterations (``per_iteration``). Without
+        ``control_u8`` it is the v1 call."""
         if control_u8 is None:
             return super()._generate(ids, fittings, image_u8, mask_u8,
                                      guidance, noise0, vae_noise, img_noise,
                                      step_noise, **kw)
-        n_steps = kw["strength_steps"]
-        if scales.shape != (n_steps, len(self.controlnet)):
-            raise ValueError(f"gating table {scales.shape} for {n_steps} "
-                             f"steps and {len(self.controlnet)} branches")
+        mod, _ = schedulers.get(kw.get("scheduler", "ddim"))
+        rows = len(per_iteration(mod, np.arange(kw["strength_steps"])))
+        if scales.shape != (rows, len(self.controlnet)):
+            raise ValueError(f"gating table {scales.shape} for {rows} "
+                             f"rows and {len(self.controlnet)} branches")
         control = control_u8.float() / 255.0
 
         def residuals(i, latents, t, cond):
@@ -177,14 +189,16 @@ class ControlNetPipeline(InpaintPipeline):
         Batched form, as the v1 pipeline's: ``prompt`` a list of B prompts,
         and ``control_image`` a list of B entries, each one image or a
         per-branch list. Returns what the v1 pipeline returns."""
-        check_scheduler(scheduler, num_inference_steps, ported="ddim")
+        mod = check_scheduler(scheduler, self.config.scheduler,
+                              num_inference_steps)
         v1_args = dict(
             prompt=prompt, negative_prompt=negative_prompt, task=task,
             fitting_degree=fitting_degree,
             num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, strength=strength, eta=eta,
             seed=seed, num_images_per_prompt=num_images_per_prompt,
-            latents=latents, output_type=output_type, clip_skip=clip_skip)
+            latents=latents, output_type=output_type, clip_skip=clip_skip,
+            scheduler=scheduler)
         if control_image is None:
             return super().__call__(image, mask, **v1_args)
 
@@ -198,11 +212,12 @@ class ControlNetPipeline(InpaintPipeline):
                             fitting_degree, num_inference_steps,
                             guidance_scale, strength, seed,
                             num_images_per_prompt, output_type, clip_skip,
-                            control_guidance_start=min(starts),
+                            scheduler, control_guidance_start=min(starts),
                             control_guidance_end=max(ends))
         control = self._controls(control_image,
                                  isinstance(prompt, (list, tuple)), req.images)
-        table = gating_table(req.strength_steps, scales, starts, ends)
+        table = per_iteration(
+            mod, gating_table(req.strength_steps, scales, starts, ends))
         return self._run(req, num_inference_steps, output_type, eta, latents,
                          clip_skip,
                          control_u8=torch.as_tensor(control, device=self.device),

@@ -3,16 +3,16 @@
 The port of ``powerpaint_tpu/pipelines/inpaint.py`` on PyTorch: one batched
 text encode (prompt A / B and the two negatives as four rows of one CLIP
 forward), the A/B fitting-degree blend, VAE encode of the masked image, a
-DDIM loop with classifier-free guidance folded into the batch (a Python
-loop where the JAX package has ``lax.scan``), and VAE decode.
+denoise loop with classifier-free guidance folded into the batch (a
+Python loop where the JAX package has ``lax.scan``) over any registry
+sampler (``scheduler=``, DDIM by default), and VAE decode.
 
-Randomness: each image has its own ``torch.Generator`` seeded with its
-seed, from which ``__call__`` draws, in this order, the initial latent
-noise, the VAE sample noise of the masked image, the VAE sample noise of
-the image latents and, when ``eta > 0``, one DDIM noise tensor per step. A
-batched request therefore reproduces each standalone result. The numbers
-differ from the JAX package's threefry streams; ``_generate`` takes the
-draws as tensors, so a test can hand both packages the same noise.
+Randomness: per-image ``torch.Generator`` draws in the order
+``pipelines.common`` documents (the initial latent noise, the two VAE
+sample noises, then the step noise of a stochastic sampler or of DDIM
+with ``eta > 0``), so a batched request reproduces each standalone
+result. ``_generate`` takes the draws as tensors, so a test can hand both
+packages the same noise.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from powerpaint_tpu_torch.core.validation import (
     check_call_args,
     check_clip_skip,
     check_output_type,
+    check_scheduler,
 )
 from powerpaint_tpu_torch.io.weights import load_models
 from powerpaint_tpu_torch.pipelines.common import (
@@ -36,12 +37,13 @@ from powerpaint_tpu_torch.pipelines.common import (
     batch_inputs,
     draw_noise,
     int8_x_scale,
+    make_sampler,
     resolve_seeds,
+    sampler_step,
+    takes_step_noise,
     to_output,
     vae_sample,
 )
-from powerpaint_tpu_torch.schedulers import ddim
-from powerpaint_tpu_torch.schedulers.common import make_schedule
 from powerpaint_tpu_torch.text.prompts import TaskPrompts, add_task
 
 
@@ -55,6 +57,7 @@ class Request(NamedTuple):
     guidances: list  # B guidance scales
     seeds: list  # B seeds
     strength_steps: int  # the steps executed
+    scheduler: str  # the registry sampler
 
 
 class InpaintPipeline:
@@ -111,25 +114,29 @@ class InpaintPipeline:
         return vae_sample(self.vae, images, noise,
                           self.config.vae.scaling_factor)
 
-    def _denoise(self, sched, latents: torch.Tensor, mask_lat: torch.Tensor,
-                 masked_lat: torch.Tensor, cond: torch.Tensor,
-                 guidance: torch.Tensor, eta: float,
+    def _denoise(self, mod, sched, latents: torch.Tensor,
+                 mask_lat: torch.Tensor, masked_lat: torch.Tensor,
+                 cond: torch.Tensor, guidance: torch.Tensor, eta: float,
                  step_noise: Optional[Sequence[torch.Tensor]],
                  residuals: Optional[Callable] = None) -> torch.Tensor:
-        """DDIM loop; the UNet sees [latents, mask, masked-image latents]
+        """The sampler ``mod``'s loop, one UNet evaluation an iteration; the
+        UNet sees [the sampler's scaled latents, mask, masked-image latents]
         for the unconditional and the conditional half in one batch.
-        ``residuals(i, latents, t, cond)``, when given, returns the keyword
-        arguments (the ControlNet residuals) of step i's UNet call."""
+        ``residuals(i, scaled_latents, t, cond)``, when given, returns the
+        keyword arguments (the ControlNet residuals) of iteration i's UNet
+        call."""
         b = latents.shape[0]
         extra = torch.cat([mask_lat, masked_lat], dim=-1).repeat(2, 1, 1, 1)
+        state = mod.init_state(sched, latents.shape, latents.device)
         for i in range(sched.num_steps):
-            lmi = torch.cat([latents.repeat(2, 1, 1, 1), extra], dim=-1)
+            scaled = mod.scale_model_input(sched, latents, i)
+            lmi = torch.cat([scaled.repeat(2, 1, 1, 1), extra], dim=-1)
             t = torch.tensor(int(sched.timesteps[i]), device=latents.device)
-            kw = residuals(i, latents, t, cond) if residuals is not None else {}
+            kw = residuals(i, scaled, t, cond) if residuals is not None else {}
             eps = self.unet(lmi, t, cond, **kw).float()
             eps = eps[:b] + guidance * (eps[b:] - eps[:b])
-            noise = step_noise[i] if eta > 0.0 else None
-            latents = ddim.step(sched, eps, i, latents, eta=eta, noise=noise)
+            latents, state = sampler_step(mod, sched, state, eps, i, latents,
+                                          eta, step_noise)
         return latents
 
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
@@ -146,18 +153,18 @@ class InpaintPipeline:
                   step_noise: Optional[Sequence[torch.Tensor]], *,
                   num_steps: int, strength_steps: int, output_type: str,
                   eta: float = 0.0, latents_in: Optional[torch.Tensor] = None,
-                  clip_skip: int = 0,
+                  clip_skip: int = 0, scheduler: str = "ddim",
                   residuals: Optional[Callable] = None) -> torch.Tensor:
         """Everything after host-side validation, on ``self.device``.
 
         ids (P, 4, 77); fittings (P,); image_u8 (B, H, W, 3) uint8; mask_u8
         (B, H, W, 1) uint8 in {0, 255}; guidance (B,); noise0, vae_noise,
         img_noise (B, H/8, W/8, 4) fp32; step_noise one (B, H/8, W/8, 4)
-        tensor per kept step when ``eta > 0``; ``residuals`` as
-        ``_denoise`` takes it."""
-        sched = make_schedule(
-            self.config.scheduler, num_steps,
-            keep_steps=strength_steps if strength_steps < num_steps else None)
+        tensor per sampler iteration when the sampler takes it
+        (``pipelines.common.takes_step_noise``), else None; ``residuals``
+        as ``_denoise`` takes it."""
+        mod, sched = make_sampler(scheduler, self.config.scheduler, num_steps,
+                                  strength_steps)
         b, h, w, _ = image_u8.shape
         init_image = image_u8.float() / 127.5 - 1.0
         mask = (mask_u8 >= 128).float()
@@ -174,23 +181,23 @@ class InpaintPipeline:
         if latents_in is not None:
             latents = latents_in.float() * sched.init_noise_sigma
         elif image_latents is not None:
-            latents = ddim.add_noise_at(sched, image_latents, noise0, 0)
+            latents = mod.add_noise_at(sched, image_latents, noise0, 0)
         else:
             latents = noise0 * sched.init_noise_sigma
 
-        latents = self._denoise(sched, latents, mask_lat, masked_lat, cond,
+        latents = self._denoise(mod, sched, latents, mask_lat, masked_lat, cond,
                                 guidance.float().reshape(-1, 1, 1, 1), eta,
                                 step_noise, residuals)
         if output_type == "latent":
             return latents
         return to_output(self._decode(latents), output_type)
 
-    def _draw_noise(self, seeds: Sequence[int], shape, n_steps: int,
-                    eta: float) -> List:
-        """Per-image draws: [noise0, vae_noise, img_noise, step_noise]."""
-        stacked = draw_noise(self.device, seeds, shape,
-                             3 + (n_steps if eta > 0.0 else 0))
-        return stacked[:3] + [stacked[3:] if eta > 0.0 else None]
+    def _draw_noise(self, seeds: Sequence[int], shape,
+                    n_step_draws: int) -> List:
+        """Per-image draws: [noise0, vae_noise, img_noise, step_noise]
+        (``n_step_draws`` step draws, None for none)."""
+        stacked = draw_noise(self.device, seeds, shape, 3 + n_step_draws)
+        return stacked[:3] + [stacked[3:] if n_step_draws else None]
 
     def __call__(self, image, mask, prompt="", negative_prompt="",
                  task: str = "text-guided", fitting_degree=1.0,
@@ -198,8 +205,10 @@ class InpaintPipeline:
                  strength: float = 1.0, eta: float = 0.0, seed=0,
                  num_images_per_prompt: int = 1,
                  latents: Optional[np.ndarray] = None,
-                 output_type: str = "uint8", clip_skip: int = 0) -> np.ndarray:
-        """Inpaint ``image`` (H, W, 3) where ``mask`` (H, W) is 1.
+                 output_type: str = "uint8", clip_skip: int = 0,
+                 scheduler: str = "ddim") -> np.ndarray:
+        """Inpaint ``image`` (H, W, 3) where ``mask`` (H, W) is 1, sampled
+        with the registry sampler ``scheduler`` (``eta`` is DDIM's).
 
         Batched form: ``prompt`` a list of B prompts, with ``image`` /
         ``mask`` either one pair for all or B stacked pairs, and
@@ -210,14 +219,16 @@ class InpaintPipeline:
         req = self._request(image, mask, prompt, negative_prompt, task,
                             fitting_degree, num_inference_steps,
                             guidance_scale, strength, seed,
-                            num_images_per_prompt, output_type, clip_skip)
+                            num_images_per_prompt, output_type, clip_skip,
+                            scheduler)
         return self._run(req, num_inference_steps, output_type, eta, latents,
                          clip_skip)
 
     def _request(self, image, mask, prompt, negative_prompt, task: str,
                  fitting_degree, num_inference_steps: int, guidance_scale,
                  strength: float, seed, num_images_per_prompt: int,
-                 output_type: str, clip_skip: int, **window) -> Request:
+                 output_type: str, clip_skip: int, scheduler: str = "ddim",
+                 **window) -> Request:
         """Validate and batch one call on the host (``window``: the
         ControlNet guidance window, checked with the rest)."""
         multi = isinstance(prompt, (list, tuple))
@@ -234,6 +245,7 @@ class InpaintPipeline:
                             fitting_degree=float(f), **window)
         check_output_type(output_type)
         check_clip_skip(clip_skip, self.config.text_encoder.num_hidden_layers)
+        check_scheduler(scheduler, self.config.scheduler, num_inference_steps)
         if len(guidances) != b:
             guidances = [guidances[0]] * b
         ids = np.stack([self.encode_task(add_task(p, n, task, "ppt-v1"))
@@ -241,7 +253,7 @@ class InpaintPipeline:
         strength_steps = min(int(num_inference_steps * strength),
                              num_inference_steps)
         return Request(img_b, mask_b, ids, fittings, guidances,
-                       resolve_seeds(seed, b), strength_steps)
+                       resolve_seeds(seed, b), strength_steps, scheduler)
 
     def _run(self, req: Request, num_inference_steps: int, output_type: str,
              eta: float, latents: Optional[np.ndarray], clip_skip: int,
@@ -250,8 +262,11 @@ class InpaintPipeline:
         arguments a subclass's ``_generate`` adds) under the telemetry
         stage ``generate``, and count the images and steps."""
         _, h, w, _ = req.images.shape
+        mod, sched = make_sampler(req.scheduler, self.config.scheduler,
+                                  num_inference_steps, req.strength_steps)
+        n_draws = sched.num_steps if takes_step_noise(mod, float(eta)) else 0
         noise0, vae_noise, img_noise, step_noise = self._draw_noise(
-            req.seeds, (h // 8, w // 8, 4), req.strength_steps, float(eta))
+            req.seeds, (h // 8, w // 8, 4), n_draws)
 
         dev = self.device
         telemetry.reset_stages()
@@ -268,7 +283,8 @@ class InpaintPipeline:
                 eta=float(eta),
                 latents_in=(None if latents is None
                             else torch.as_tensor(latents, device=dev)),
-                clip_skip=int(clip_skip), **extra).cpu().numpy()
+                clip_skip=int(clip_skip), scheduler=req.scheduler,
+                **extra).cpu().numpy()
         telemetry.count("images", out.shape[0])
         telemetry.count("denoise_steps", req.strength_steps)
         return out

@@ -1,9 +1,12 @@
-"""Diffusion schedule tables + timestep spacing, as host numpy.
+"""Diffusion schedule tables + timestep spacing, as host numpy, and the
+helpers the samplers share.
 
 SD1.5 scaled-linear betas and diffusers "leading" spacing with
 ``steps_offset``. Tables are float32 like the JAX package's; the step
 index is a Python int in the port's denoise loop, so every per-step
-scalar is read on the host and no table lives on the device.
+scalar is read on the host and no table lives on the device. A scalar the
+JAX package computes on the device in fp32 (a square root of a table
+entry) is computed here in numpy float32, so it is the same number.
 """
 
 from __future__ import annotations
@@ -61,6 +64,16 @@ def spaced_timesteps(cfg: SchedulerConfig, num_steps: int) -> np.ndarray:
     return np.clip(ts, 0, T - 1)
 
 
+def kept_timesteps(cfg: SchedulerConfig, num_steps: int,
+                   keep_steps: Optional[int] = None) -> np.ndarray:
+    """Descending inference timesteps, truncated to the LAST
+    ``keep_steps`` for strength < 1."""
+    ts = spaced_timesteps(cfg, num_steps)
+    if keep_steps is not None and keep_steps < num_steps:
+        ts = ts[num_steps - keep_steps:]
+    return ts
+
+
 def make_schedule(cfg: SchedulerConfig, num_steps: int,
                   keep_steps: Optional[int] = None) -> DiffusionSchedule:
     """``keep_steps`` < ``num_steps`` keeps the LAST ``keep_steps``
@@ -115,3 +128,30 @@ def to_eps_x0(sched: DiffusionSchedule, model_out: torch.Tensor,
     else:
         raise ValueError(p)
     return eps, x0
+
+
+def vp_add_noise_at(sched, x0: torch.Tensor, noise: torch.Tensor,
+                    i: int) -> torch.Tensor:
+    """q(x_t | x0) at step index i for the VP-space schedules that expose
+    ``timesteps`` and ``alphas_cumprod`` (dpm, deis, sde, lcm)."""
+    t = int(sched.timesteps[min(max(i, 0), sched.num_steps - 1)])
+    a = np.float32(sched.alphas_cumprod[max(t, 0)])
+    out = (float(np.sqrt(a)) * x0.float()
+           + float(np.sqrt(np.float32(1.0) - a)) * noise.float())
+    return out.to(x0.dtype)
+
+
+def sigma_add_noise_at(sched, x0: torch.Tensor, noise: torch.Tensor,
+                       i: int) -> torch.Tensor:
+    """x = x0 + sigma_i * noise for the sigma-space schedules, whose
+    ``sigmas`` table ends with sigmas[num_steps] == 0 (euler, euler_a,
+    lms)."""
+    s = float(sched.sigmas[min(max(i, 0), sched.num_steps)])
+    return (x0.float() + s * noise.float()).to(x0.dtype)
+
+
+def sigma_scale_model_input(sched, x: torch.Tensor, i: int) -> torch.Tensor:
+    """x / sqrt(sigma_i^2 + 1), the Karras input scaling; reads
+    ``sched.sigmas``."""
+    s = np.float32(sched.sigmas[i])
+    return (x.float() / float(np.sqrt(s * s + np.float32(1.0)))).to(x.dtype)

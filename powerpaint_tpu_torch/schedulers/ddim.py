@@ -1,10 +1,11 @@
 """DDIM sampler over (schedule, step index): the deterministic eta = 0
 update and the eta > 0 stochastic term (Song et al. 2020, eq. 12);
-``clip_sample=False`` (SD convention)."""
+``clip_sample=False`` (SD convention). DDIM is memoryless: its state is
+None, kept for the registry's uniform interface."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,10 +24,19 @@ def add_noise_at(sched: DiffusionSchedule, x0: torch.Tensor,
     return add_noise(sched, x0, noise, t)
 
 
-def step(sched: DiffusionSchedule, model_out: torch.Tensor, i: int,
+def init_state(sched: DiffusionSchedule, shape, device) -> None:
+    return None
+
+
+def scale_model_input(sched: DiffusionSchedule, x: torch.Tensor,
+                      i: int) -> torch.Tensor:
+    return x
+
+
+def step(sched: DiffusionSchedule, state, model_out: torch.Tensor, i: int,
          x: torch.Tensor, *, eta: float = 0.0,
-         noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x_t -> x_{t-1}."""
+         noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, None]:
+    """x_t -> x_{t-1}; ``noise`` is used only with ``eta`` > 0."""
     t = int(sched.timesteps[i])
     t_prev = int(sched.prev_timesteps[i])
     a_t = torch.tensor(alpha_at(sched, t), dtype=torch.float32)
@@ -40,4 +50,4 @@ def step(sched: DiffusionSchedule, model_out: torch.Tensor, i: int,
                   + sigma * noise.float())
     else:
         x_prev = torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
-    return x_prev.to(x.dtype)
+    return x_prev.to(x.dtype), state

@@ -19,9 +19,6 @@ import argparse
 import sys
 import time
 
-# the sampler each path has in the port (ROADMAP A13 brings the others)
-PORTED_SCHEDULER = {"ppt-v1": "ddim", "ppt-v2": "unipc"}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("powerpaint_tpu_torch")
@@ -60,12 +57,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=45)
     p.add_argument("--guidance_scale", type=float, default=7.5)
     p.add_argument("--seed", type=int, default=0)
+    # a literal copy of powerpaint_tpu_torch.schedulers.SCHEDULERS, so
+    # --help imports no torch; tests/test_torch_cli.py holds the two equal
     p.add_argument("--scheduler", default=None,
                    choices=["ddim", "pndm", "unipc", "dpm", "euler",
                             "euler_a", "heun", "lms", "deis", "dpm_sde",
                             "lcm"],
                    help="sampler (default: ddim for v1, unipc for v2, the "
-                        "only ones ported yet; ROADMAP A13 brings the rest)")
+                        "reference defaults)")
     p.add_argument("--control_type", default=None,
                    choices=[None, "canny", "depth", "hed", "pose"],
                    help="ControlNet conditioning (the command line's route "
@@ -104,10 +103,6 @@ def unported(args, defaults) -> list:
             ("--control_type", args.control_type, "A12")):
         if given:
             out.append(f"{flag} is not ported yet (ROADMAP {item})")
-    ported = PORTED_SCHEDULER[args.version]
-    if args.scheduler not in (None, ported):
-        out.append(f"--scheduler {args.scheduler} is not ported yet for "
-                   f"{args.version} (ROADMAP A13); it samples with {ported}")
     return out
 
 
@@ -184,7 +179,7 @@ def run_one_shot(args) -> int:
 
     pipe = build_pipeline(args)
     kwargs = {}
-    if args.scheduler is not None and args.version == "ppt-v2":
+    if args.scheduler is not None:
         kwargs["scheduler"] = args.scheduler
 
     t0 = time.time()
@@ -215,6 +210,12 @@ def main(argv=None) -> int:
     problems = unported(args, parser.parse_args([]))
     if problems:
         parser.error("; ".join(problems))
+    if args.scheduler is not None:
+        # LCM's step bound and the step range, before the stack is built
+        from powerpaint_tpu_torch.core.config import SchedulerConfig
+        from powerpaint_tpu_torch.core.validation import check_scheduler
+
+        check_scheduler(args.scheduler, SchedulerConfig(), args.steps)
     return run_one_shot(args)
 
 

@@ -52,11 +52,12 @@ CONVERT = {"unet": convert_unet, "vae": convert_vae, "brushnet": convert_brushne
            "text_encoder_brushnet": convert_clip_text}
 
 
-def v2_weights():
-    """Numpy state dicts of every v2 family with random biases and norm
-    affines, and the JAX package's trees of the same weights."""
-    state = init_state(tiny_v2_config(), torch.Generator().manual_seed(0),
-                       device="cpu")
+def v2_weights(config=None):
+    """Numpy state dicts of every v2 family (of ``config``, the tiny v2 one
+    by default) with random biases and norm affines, and the JAX package's
+    trees of the same weights."""
+    state = init_state(config or tiny_v2_config(),
+                       torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.RandomState(0)
     sd_np = {}
     for family, sd in state.items():

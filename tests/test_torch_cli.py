@@ -5,7 +5,10 @@ The controller is held to the JAX package's with stub pipelines on each
 side (the ControlNet route too), so the test sees exactly what each hands
 its pipeline and what each makes of the same output; the command line's
 parser is held to the JAX parser, and a tiny one-shot run goes through the
-port on the CPU.
+port on the CPU. The samplers' call surface: ``scheduler=`` reaches the
+pipeline through the controller and the command line, each registry name
+runs on each of the three tiny pipelines, and a bad name or LCM past its
+grid is an ``InputValidationError`` before any device work.
 """
 
 import argparse
@@ -187,8 +190,7 @@ def test_parser_matches_jax():
     (["--checkpoint_dir", "ckpt"], "A14"), (["--lora", "x.safetensors"], "A14"),
     (["--textual_inversion", "t.bin"], "A14"), (["--serve"], "A17"),
     (["--micro-batch", "8"], "A17"), (["--aot-cache", "c.aot"], "A17"),
-    (["--control_type", "canny"], "A12"), (["--scheduler", "pndm"], "A13"),
-    (["--version", "ppt-v2", "--scheduler", "ddim"], "A13")])
+    (["--control_type", "canny"], "A12")])
 def test_unported_options_are_refused(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(argv + ["--image", "unused.png"])
@@ -200,7 +202,9 @@ def test_ported_scheduler_and_defaults_are_accepted():
     parser = cli.build_parser()
     defaults = parser.parse_args([])
     for argv in ([], ["--scheduler", "ddim"], ["--micro-batch", "4"],
-                 ["--version", "ppt-v2", "--scheduler", "unipc"]):
+                 ["--version", "ppt-v2", "--scheduler", "unipc"],
+                 ["--scheduler", "pndm"],
+                 ["--version", "ppt-v2", "--scheduler", "ddim"]):
         assert cli.unported(parser.parse_args(argv), defaults) == []
 
 
@@ -231,3 +235,140 @@ def test_one_shot_tiny_on_the_cpu(tmp_path, capsys, monkeypatch, version, int8):
     assert GLOBAL.last_call_report().keys() == {"generate"}
     if version == "ppt-v2":
         assert os.path.exists(tmp_path / "trace" / "trace.json")
+
+
+def test_cli_scheduler_choices_are_the_registry():
+    from powerpaint_tpu_torch import schedulers
+
+    port = _options(cli.build_parser())["scheduler"]
+    assert tuple(port.choices) == schedulers.SCHEDULERS
+
+
+def test_controller_forwards_scheduler_as_jax(numpy_blend):
+    """``scheduler=`` is one of ``infer``'s pipeline keyword arguments, on
+    the plain and on the ControlNet route, in both packages."""
+    kw = dict(CASES[0], scheduler="euler")
+    got, (_, _, args) = _infer(controller, StubPipeline(), kw)
+    _, (_, _, jargs) = _infer(jax_controller, StubPipeline(), kw)
+    assert args["scheduler"] == jargs["scheduler"] == "euler" and args == jargs
+    image, mask = _request()
+    cn = StubPipeline()
+    controller.PowerPaint(StubPipeline(), controlnet_pipeline=cn).infer(
+        image, mask, control_type="canny", control_image=np.zeros(
+            (696, 528, 3), np.uint8), scheduler="heun", num_inference_steps=3)
+    assert cn.calls[0][2]["scheduler"] == "heun"
+
+
+@pytest.fixture(scope="module")
+def tiny_pipelines():
+    """The three tiny pipelines of the port, random weights, on the CPU."""
+    from powerpaint_tpu_torch.io.weights import init_state
+    from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
+    from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+    from powerpaint_tpu_torch.testing import (
+        tiny_v1_config,
+        tiny_v1_controlnet_config,
+        tiny_v2_config,
+    )
+    from powerpaint_tpu_torch.text.tokenizer import (
+        HashTokenizer,
+        TokenizerWrapper,
+        add_task_tokens,
+    )
+
+    tok = TokenizerWrapper(HashTokenizer(994))
+    add_task_tokens(tok)
+    out = {}
+    for name, cls, cfg in (("v1", InpaintPipeline, tiny_v1_config()),
+                           ("v2", BrushNetPipeline, tiny_v2_config()),
+                           ("cn", ControlNetPipeline, tiny_v1_controlnet_config())):
+        state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+        out[name] = cls(cfg, state, tok, dtype=torch.float32, device="cpu")
+    return out
+
+
+@pytest.mark.parametrize("pipeline", ["v1", "v2", "cn"])
+@pytest.mark.parametrize("kw,match", [
+    (dict(scheduler="karras"), "unknown scheduler"),
+    (dict(scheduler="lcm", num_inference_steps=60), "original_inference_steps"),
+    (dict(scheduler="LCM", num_inference_steps=51), "original_inference_steps")],
+    ids=["unknown", "lcm-60", "lcm-51"])
+def test_bad_sampler_raises_before_device_work(tiny_pipelines, monkeypatch,
+                                               pipeline, kw, match):
+    from powerpaint_tpu_torch.core.validation import InputValidationError
+
+    pipe = tiny_pipelines[pipeline]
+    monkeypatch.setattr(pipe, "_generate", None)  # any device work fails
+    rng = np.random.RandomState(0)
+    image = (rng.rand(64, 64, 3) * 255).astype(np.uint8)
+    mask = np.zeros((64, 64), np.float32)
+    mask[16:48, 16:48] = 1.0
+    extra = ([np.zeros((64, 64, 3), np.uint8)] if pipeline == "cn" else [])
+    kw = {"num_inference_steps": 4, **kw}
+    with pytest.raises(InputValidationError, match=match):
+        pipe(image, mask, *extra, prompt="x", **kw)
+
+
+@pytest.mark.parametrize("argv,code", [
+    (["--scheduler", "karras"], 2),
+    (["--scheduler", "lcm", "--steps", "60"], None),
+    (["--version", "ppt-v2", "--scheduler", "lcm", "--steps", "60"], None)],
+    ids=["unknown", "lcm-60-v1", "lcm-60-v2"])
+def test_cli_refuses_a_bad_sampler_before_building(argv, code, monkeypatch,
+                                                   capsys):
+    """An unknown name is the parser's error (exit 2); LCM past its grid is
+    the pipelines' ``InputValidationError``, before the stack is built."""
+    from powerpaint_tpu_torch.core.validation import InputValidationError
+
+    monkeypatch.setattr(cli, "build_pipeline", None)
+    if code is not None:
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv + ["--image", "unused.png"])
+        assert exc.value.code == code and "karras" in capsys.readouterr().err
+        return
+    with pytest.raises(InputValidationError, match="original_inference_steps"):
+        cli.main(argv + ["--image", "unused.png"])
+
+
+def test_one_shot_passes_the_scheduler(tmp_path, monkeypatch):
+    """``--scheduler`` reaches the ppt-v1 pipeline's call (it used to be
+    ppt-v2's alone)."""
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+
+    seen = []
+    call = InpaintPipeline.__call__
+    monkeypatch.setattr(InpaintPipeline, "__call__",
+                        lambda self, *a, **k: seen.append(k) or call(self, *a, **k))
+    rng = np.random.RandomState(2)
+    Image.fromarray((rng.rand(64, 64, 3) * 255).astype(np.uint8)).save(
+        tmp_path / "in.png")
+    m = np.zeros((64, 64), np.uint8)
+    m[16:48, 16:48] = 255
+    Image.fromarray(m).save(tmp_path / "mask.png")
+    assert cli.main(["--tiny", "--device", "cpu", "--image", str(tmp_path / "in.png"),
+                     "--mask", str(tmp_path / "mask.png"), "--steps", "2",
+                     "--short_side", "64", "--weight_dtype", "float32",
+                     "--scheduler", "euler_a",
+                     "--output", str(tmp_path / "out.png")]) == 0
+    assert seen[0]["scheduler"] == "euler_a"
+
+
+@pytest.mark.parametrize("pipeline", ["v1", "v2", "cn"])
+@pytest.mark.parametrize("name", ["ddim", "pndm", "unipc", "dpm", "euler",
+                                  "euler_a", "heun", "lms", "deis", "dpm_sde",
+                                  "lcm"])
+def test_every_sampler_runs_on_every_pipeline(tiny_pipelines, pipeline, name):
+    """``scheduler=`` takes each registry name on the three pipelines: a
+    finite image, and the same one again from the same seed."""
+    pipe = tiny_pipelines[pipeline]
+    rng = np.random.RandomState(0)
+    image = (rng.rand(32, 32, 3) * 255).astype(np.uint8)
+    mask = np.zeros((32, 32), np.float32)
+    mask[8:24, 8:24] = 1.0
+    extra = [np.zeros((32, 32, 3), np.uint8)] if pipeline == "cn" else []
+    kw = dict(prompt="x", num_inference_steps=2, scheduler=name, seed=3,
+              output_type="float32")
+    out = pipe(image, mask, *extra, **kw)
+    assert out.shape == (1, 32, 32, 3) and np.isfinite(out).all()
+    np.testing.assert_array_equal(pipe(image, mask, *extra, **kw), out)

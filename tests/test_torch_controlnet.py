@@ -319,7 +319,7 @@ def test_gating_table_and_inputs_match_jax(two_branch_pipes, kw):
     ("two", dict(control_guidance_start=0.6, control_guidance_end=0.5),
      "control_guidance_start"),
     ("small", {}, "must match image"),
-    ("two", dict(scheduler="unipc"), "ROADMAP A13"),
+    ("two", dict(scheduler="karras"), "unknown scheduler"),
     ("two", dict(task="paint"), "unknown task"),
     ("three requests", dict(prompt=["a", "b"]), "3 control entries for 2"),
 ], ids=["images", "scales", "window-length", "window", "size", "scheduler",

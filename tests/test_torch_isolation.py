@@ -90,3 +90,12 @@ def test_the_annotator_modules_are_covered_and_load_no_host_extras():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_sampler_modules_are_covered():
+    """Every sampler of the registry is a port module checked like the
+    rest."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {f"schedulers/{m}.py" for m in (
+        "__init__", "common", "ddim", "pndm", "unipc", "dpm", "euler",
+        "ancestral", "heun", "lms", "deis", "sde", "lcm")} <= names

@@ -92,17 +92,30 @@ def _jax_noise(seed, n_steps=0):
     return draws, steps
 
 
-def _port_generate(port, task, steps, strength=1.0, eta=0.0):
+def _jax_step_noise(seed, n_iterations):
+    """A stochastic sampler's step noise in the JAX pipeline
+    (pipelines/inpaint.py:365-370, :222-229): fold 4 of the image's key,
+    then fold i for iteration i."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 4)
+    return [torch.from_numpy(np.array(jax.random.normal(
+        jax.random.fold_in(key, i), (HW // 8, HW // 8, 4), jnp.float32))[None])
+        for i in range(n_iterations)]
+
+
+def _port_generate(port, task, steps, strength=1.0, eta=0.0, scheduler="ddim"):
     image, mask = _inputs()
     kept = min(int(steps * strength), steps)
     (n0, nv, ni), step_noise = _jax_noise(SEED, kept if eta > 0 else 0)
+    if scheduler != "ddim":  # euler_a: one draw an iteration, one a step
+        step_noise = _jax_step_noise(SEED, kept)
     ids = port.encode_task(add_task("a red bench", "", task))[None]
     out = port._generate(
         torch.from_numpy(ids).long(), torch.tensor([FIT]),
         torch.from_numpy(image[None]),
         torch.from_numpy((mask >= 0.5).astype(np.uint8)[None, ..., None] * 255),
         torch.tensor([GUIDE]), n0, nv, ni, step_noise,
-        num_steps=steps, strength_steps=kept, output_type="uint8", eta=eta)
+        num_steps=steps, strength_steps=kept, output_type="uint8", eta=eta,
+        scheduler=scheduler)
     return out.numpy()
 
 
@@ -131,6 +144,20 @@ def test_strength_and_eta_match_jax(pipes, kw):
                     fitting_degree=FIT, num_inference_steps=5,
                     guidance_scale=GUIDE, seed=SEED, **kw)
     _assert_close(_port_generate(port, "text-guided", 5, **kw), want, str(kw))
+
+
+def test_euler_a_with_strength_matches_jax(pipes):
+    """A stochastic sigma-space sampler: the start is x0 + sigma * noise
+    (strength 0.6), the UNet sees x / sqrt(sigma^2 + 1), and each step
+    takes the JAX pipeline's fold-4 step noise."""
+    jax_pipe, port = pipes
+    image, mask = _inputs()
+    want = jax_pipe(image, mask, prompt="a red bench", task="text-guided",
+                    fitting_degree=FIT, num_inference_steps=5,
+                    guidance_scale=GUIDE, seed=SEED, strength=0.6,
+                    scheduler="euler_a")
+    _assert_close(_port_generate(port, "text-guided", 5, strength=0.6,
+                                 scheduler="euler_a"), want, "euler_a")
 
 
 def test_call_surface(pipes):

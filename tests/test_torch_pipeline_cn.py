@@ -245,3 +245,19 @@ def test_batched_matches_alone(port):
     two = port(image, mask, edges, prompt=PROMPT, seed=3,
                num_images_per_prompt=2, **kw)
     assert np.abs(two[0].astype(int) - a[0].astype(int)).max() <= 1
+
+
+def test_batched_euler_a_matches_each_request_alone(port):
+    """A stochastic sampler's step noise comes from each image's own
+    generator: a two-request batch with a control image each gives each
+    request's standalone image (fp32 on the CPU, max 1 uint8 level)."""
+    image, mask, edges, edges_b = _inputs()
+    kw = dict(num_inference_steps=3, scheduler="euler_a", fitting_degree=FIT)
+    both = port(image, mask, [edges, edges_b], prompt=[PROMPT, "a dog"],
+                seed=[3, 9], **kw)
+    alone = [port(image, mask, edges, prompt=PROMPT, seed=3, **kw),
+             port(image, mask, edges_b, prompt="a dog", seed=9, **kw)]
+    for got, want in zip(both, alone):
+        assert np.abs(got.astype(int) - want[0].astype(int)).max() <= 1
+    assert not np.array_equal(
+        alone[0], port(image, mask, edges, prompt=PROMPT, seed=4, **kw))

@@ -170,6 +170,51 @@ def test_call_surface(pipes):
     assert lat.shape == (1, HW // 8, HW // 8, 4) and lat.dtype == np.float32
 
 
+def test_lcm_unet_with_guidance_embedding_matches_jax():
+    """An LCM-distilled UNet (``time_cond_proj_dim`` 8) at 4 LCM steps: the
+    CFG-doubled guidance embedding of w - 1 reaches the UNet as
+    ``timestep_cond`` and each step takes the JAX pipeline's fold-4 step
+    noise (pipelines/brushnet.py:270-274, :298-310, :382-390). Guidance
+    then changes the image beyond the CFG combine."""
+    cfg = tiny_v2_config()
+    cfg = cfg.replace(unet=cfg.unet.replace(time_cond_proj_dim=8))
+    jax_cfg = jax_tiny_v2_config()
+    jax_cfg = jax_cfg.replace(unet=jax_cfg.unet.replace(time_cond_proj_dim=8))
+    sd_np, trees = v2_weights(cfg)
+    assert trees["unet"]["time_embedding"]["cond_proj"]["kernel"].shape == (8, 32)
+    tok = TokenizerWrapper(HashTokenizer(994))
+    add_task_tokens(tok)
+    image, mask = _inputs()
+    want = JaxPipeline(jax_cfg, trees, tok, dtype=jnp.float32)(
+        image, mask, prompt="a red bench", task="text-guided",
+        fitting_degree=FIT, num_inference_steps=4, guidance_scale=5.0,
+        seed=SEED, scheduler="lcm")
+    port = BrushNetPipeline(cfg, sd_np, tok, dtype=torch.float32, device="cpu")
+    key = jax.random.fold_in(jax.random.PRNGKey(SEED), 4)
+    step_noise = [torch.from_numpy(np.array(jax.random.normal(
+        jax.random.fold_in(key, i), (HW // 8, HW // 8, 4), jnp.float32))[None])
+        for i in range(4)]
+    ids_task, ids_plain = port.encode_task(add_task(
+        v2_prompt_suffix("a red bench", "text-guided"), "", "text-guided",
+        "ppt-v2"))
+
+    def generate(guidance):
+        return port._generate(
+            torch.from_numpy(ids_task[None]).long(),
+            torch.from_numpy(ids_plain[None]).long(), torch.tensor([FIT]),
+            torch.from_numpy(image[None]),
+            torch.from_numpy((mask >= 0.5).astype(np.uint8)[None, ..., None] * 255),
+            torch.tensor([guidance]), cond_scale_table(4, 1.0, 0.0, 1.0),
+            *_jax_noise(SEED), step_noise, num_steps=4, output_type="uint8",
+            scheduler="lcm").numpy()
+
+    got = generate(5.0)
+    mx, mean = _diff(got, want)
+    assert mx <= MAX_UINT8_DIFF and mean <= MEAN_UINT8_DIFF, (
+        f"lcm: max uint8 diff {mx}, mean {mean:.3f}")
+    assert not np.array_equal(generate(9.0), got)
+
+
 def test_cond_scale_table_gates_steps():
     np.testing.assert_array_equal(cond_scale_table(4, 0.5, 0.0, 0.5),
                                   [0.5, 0.5, 0.0, 0.0])
@@ -181,7 +226,7 @@ def test_cond_scale_table_gates_steps():
     dict(task="paint"), dict(output_type="pil"), dict(clip_skip=5),
     dict(fitting_degree=1.5), dict(control_guidance_start=0.8,
                                    control_guidance_end=0.2),
-    dict(scheduler="ddim"), dict(num_inference_steps=0)])
+    dict(scheduler="karras"), dict(num_inference_steps=0)])
 def test_bad_arguments_raise_before_device_work(pipes, kw, monkeypatch):
     _, port = pipes
     monkeypatch.setattr(port, "_generate", None)  # any device work fails

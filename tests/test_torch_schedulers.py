@@ -43,8 +43,9 @@ def test_ddim_step_matches(i, eta):
     want, _ = jax_ddim.step(ref, jax_ddim.init_state(ref, x.shape, x.dtype),
                             jnp.asarray(eps), i, jnp.asarray(x), eta=eta,
                             noise=jnp.asarray(noise))
-    got = ddim.step(ours, torch.from_numpy(eps), i, torch.from_numpy(x),
-                    eta=eta, noise=torch.from_numpy(noise))
+    got, _ = ddim.step(ours, ddim.init_state(ours, x.shape, "cpu"),
+                       torch.from_numpy(eps), i, torch.from_numpy(x),
+                       eta=eta, noise=torch.from_numpy(noise))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
 

@@ -117,3 +117,53 @@ def test_load_models_keeps_norms_fp32_and_casts_compute(state_np):
                     {**state_np, "vae": {k: v for k, v in state_np["vae"].items()
                                          if "quant_conv" not in k}},
                     device="cpu", dtype=torch.float32)
+
+
+def test_lcm_time_cond_proj_carries_both_ways_and_matches_jax():
+    """``time_embedding.cond_proj.weight`` (a bias-free linear) goes from a
+    diffusers state dict into the port's UNet and, through the JAX
+    package's converter and ``params_from_jax``, back unchanged; the UNet
+    forward with the guidance embedding as ``timestep_cond`` equals the JAX
+    one at the tiny config."""
+    from powerpaint_tpu.models.layers import (
+        guidance_scale_embedding as jax_guidance_embedding,
+    )
+    from powerpaint_tpu_torch.models.layers import guidance_scale_embedding
+    from powerpaint_tpu_torch.models.unet import UNet2DConditionModel
+
+    cfg = tiny_v1_config()
+    cfg = cfg.replace(unet=cfg.unet.replace(time_cond_proj_dim=8))
+    sd = {k: v.numpy() for k, v in init_state(
+        cfg, torch.Generator().manual_seed(3), device="cpu")["unet"].items()}
+    assert sd["time_embedding.cond_proj.weight"].shape == (32, 8)
+    assert "time_embedding.cond_proj.bias" not in sd
+    tree = convert_unet(sd)
+    assert tree["time_embedding"]["cond_proj"]["kernel"].shape == (8, 32)
+    back = params_from_jax(tree, "unet")
+    assert back.keys() == sd.keys()
+    np.testing.assert_array_equal(back["time_embedding.cond_proj.weight"],
+                                  sd["time_embedding.cond_proj.weight"])
+    unet = UNet2DConditionModel(cfg.unet).eval()
+    unet.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                         strict=True)
+
+    w = np.asarray([4.0, 6.5], np.float32)
+    emb = guidance_scale_embedding(torch.from_numpy(w), 8)
+    np.testing.assert_allclose(emb.numpy(), np.asarray(
+        jax_guidance_embedding(jnp.asarray(w), 8)), atol=2e-5, rtol=2e-4)
+    jax_cfg = jax_tiny_v1_config()
+    jax_cfg = jax_cfg.replace(unet=jax_cfg.unet.replace(time_cond_proj_dim=8))
+    rng = np.random.RandomState(3)
+    sample = rng.randn(2, 8, 8, 9).astype(np.float32)
+    ctx = rng.randn(2, 77, 32).astype(np.float32)
+    t = np.asarray([981, 501], np.int32)
+    want = jax.jit(JaxUNet(jax_cfg.unet, dtype=jnp.float32).apply)(
+        {"params": tree}, sample, t, ctx, timestep_cond=jnp.asarray(emb.numpy()))
+    with torch.no_grad():
+        got = unet(torch.from_numpy(sample), torch.from_numpy(t),
+                   torch.from_numpy(ctx), timestep_cond=emb)
+        plain = unet(torch.from_numpy(sample), torch.from_numpy(t),
+                     torch.from_numpy(ctx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=1e-4)
+    assert not torch.allclose(plain, got, atol=1e-3)
