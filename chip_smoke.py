@@ -99,6 +99,25 @@ Phases, in order; any failure exits non-zero:
    evaluations) and a window. Launches exact at the sampler's evaluation
    count; seconds per image and the denoise loop's device ms per UNet
    evaluation for each sampler.
+   7d. Checkpoints, LoRA and textual inversion (``run_checkpoint_path``),
+   full width, in ``smoke_out/checkpoints`` (free disk logged and checked
+   first, each layout removed after use): ppt-v1's random weights (seed 0)
+   written in fp16 in the reference's directory layout with the port's
+   safetensors writer, loaded by ``powerpaint_tpu_torch.load`` on the
+   card (load and host-read GB/s), every tensor bitwise the in-memory
+   pipeline's and one 20-step DDIM image bitwise its image; a kohya LoRA
+   (rank 8, alpha 4, scale 0.8: every UNet attention and feed-forward
+   projection, every CLIP self-attention projection, a LoCon on every
+   ResNet conv) merged (seconds), nothing unmatched, the image changed,
+   a per-call scale of 0.3 restoring every weight and the image bitwise,
+   the unload within one bf16 ulp; a 2-vector textual-inversion token
+   that changes the image and leaves other prompts' encodings bitwise;
+   the same LoRA on the int8 pipeline, every conv's int8 weights bitwise
+   the quantisation of its merged weight and the first evaluation's int8
+   units within ``int8_check`` of their plain versions; then ppt-v2's
+   two-directory layout (the task text encoder a ``.bin``) loaded, its
+   20-step UniPC image bitwise the in-memory pipeline's. Launches exact
+   per call (phase 3's and 4's).
 8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, each also
    with one other sampler: euler_a at strength 0.6, LCM on an LCM UNet,
    heun with a window; and ppt-v1 with int8) must give the same image
@@ -206,6 +225,8 @@ def host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # The card's SM count and its top SM clock in Hz (nvidia-smi), set in main().
 SM_COUNT = [132]
 SM_CLOCK_HZ = [1.98e9]
+# nvidia-smi's "name, power.limit" of the card, set in main()
+CARD = ["not read"]
 
 
 def exp2_floor_ms(n_exp2: float) -> float:
@@ -2076,6 +2097,339 @@ def kernel_resources(nvcc_logs: dict) -> None:
         log(cuobjdump=name, gmma_per_kernel=counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 7d: checkpoints, LoRA and textual inversion
+# ---------------------------------------------------------------------------
+
+
+def _fp16_state(cfg, device) -> dict:
+    """``init_state`` (seed 0) with every float tensor in fp16: the weights
+    a checkpoint in fp16 holds."""
+    from powerpaint_tpu_torch.io.weights import init_state
+
+    state = init_state(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device, dtype=torch.float16)
+    return {f: {k: v.half() if v.is_floating_point() else v
+                for k, v in sd.items()} for f, sd in state.items()}
+
+
+def _with_position_ids(sd: dict) -> dict:
+    """A transformers CLIP state dict carries its ``position_ids`` buffer."""
+    return {**sd, "text_model.embeddings.position_ids": torch.arange(77)[None]}
+
+
+def _write(path: str, sd: dict) -> int:
+    """``sd`` to ``path`` (safetensors with the port's writer, or a torch
+    pickle for ``.bin``); returns the file's bytes."""
+    import os
+
+    from powerpaint_tpu_torch.io.safetensors import save_file
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if path.endswith(".bin"):
+        torch.save({k: v.cpu() for k, v in sd.items()}, path)
+    else:
+        save_file(sd, path)
+    return os.path.getsize(path)
+
+
+def _read_seconds(paths) -> float:
+    """Seconds to read the files into CPU state dicts again (the page cache
+    warm, as for the load just timed): the loader's host share."""
+    from powerpaint_tpu_torch.io.convert import load_state_dict
+
+    t0 = time.perf_counter()
+    for path in paths:
+        load_state_dict(path)
+    return time.perf_counter() - t0
+
+
+def _same_weights(label: str, got, want) -> None:
+    """Every tensor of ``got``'s state dict bitwise ``want``'s."""
+    a, b = got.state_dict(), want.state_dict()
+    check(a.keys() == b.keys(), f"{label}: state-dict names differ")
+    bad = [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+    check(not bad, f"{label}: {len(bad)} tensors differ from the in-memory "
+                   f"pipeline's, e.g. {bad[:3]}")
+
+
+def kohya_lora(pipe, rank: int = 8, alpha: float = 4.0, seed: int = 0) -> dict:
+    """A kohya-format LoRA over every UNet attention and feed-forward
+    projection, every CLIP self-attention projection, and a LoCon on every
+    ResNet unit's conv1 / conv2, fp16, from a seed."""
+    import re
+
+    g = torch.Generator().manual_seed(seed)
+    unet = re.compile(r".*(attn[12]\.(to_[qkv]|to_out\.0)|ff\.net\.(0\.proj|2)"
+                      r"|resnets\.\d+\.conv[12])$")
+    clip = re.compile(r".*self_attn\.(q|k|v|out)_proj$")
+    sd = {}
+    for prefix, model, pattern in (("lora_unet_", pipe.unet, unet),
+                                   ("lora_te_", pipe.text_encoder, clip)):
+        for name, m in model.named_modules():
+            if not pattern.fullmatch(name):
+                continue
+            w = m.weight
+            key = prefix + name.replace(".", "_")
+            sd[key + ".lora_down.weight"] = (
+                torch.randn(rank, *w.shape[1:], generator=g)
+                * w[0].numel() ** -0.5).half()
+            sd[key + ".lora_up.weight"] = (
+                torch.randn(w.shape[0], rank, *([1, 1] if w.ndim == 4 else []),
+                            generator=g) * 0.1).half()
+            sd[key + ".alpha"] = torch.tensor(alpha)
+    return sd
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def run_checkpoint_path(device):
+    """Phase 7d: full-width checkpoints written in the reference's layouts
+    (fp16, the port's own safetensors writer), loaded through
+    ``powerpaint_tpu_torch.load`` on the card, a kohya LoRA (merge,
+    per-call scale, unload, on int8 too) and a textual-inversion token."""
+    import os
+    import shutil
+
+    import powerpaint_tpu_torch
+    from powerpaint_tpu_torch.core.config import ppt_v1_config, ppt_v2_config
+    from powerpaint_tpu_torch.models.layers import Conv2D
+    from powerpaint_tpu_torch.ops import conv
+    from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+
+    work = os.path.join("smoke_out", "checkpoints")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    v1_cfg, v2_cfg = ppt_v1_config(), ppt_v2_config()
+    from powerpaint_tpu_torch.io.weights import build_models
+
+    need = 2 * sum(p.numel() for m in build_models(v2_cfg).values()
+                   for p in m.parameters()) + (1 << 30)
+    free = shutil.disk_usage(work).free
+    log(phase="checkpoints", disk_free_bytes=free, disk_needed_bytes=need)
+    check(free >= need, f"checkpoints: {free} bytes free under {work}, "
+                        f"{need} needed")
+    image, mask = inputs(HW, 0)
+    prompt = "a red bench in a park"
+    kw = dict(prompt=prompt, seed=1, num_inference_steps=STEPS,
+              guidance_scale=GUIDANCE)
+
+    # 1. a ppt-v1 directory
+    root = os.path.join(work, "ppt-v1")
+    state = _fp16_state(v1_cfg, device)
+    files = {os.path.join(root, *rel): sd for rel, sd in (
+        (("unet", "diffusion_pytorch_model.safetensors"), state["unet"]),
+        (("text_encoder", "model.safetensors"),
+         _with_position_ids(state["text_encoder"])),
+        (("vae", "diffusion_pytorch_model.safetensors"), state["vae"]))}
+    t0 = time.perf_counter()
+    nbytes = sum(_write(path, sd) for path, sd in files.items())
+    write_s = time.perf_counter() - t0
+    ref = InpaintPipeline(v1_cfg, state, _tokenizer(v1_cfg),
+                          dtype=torch.bfloat16, device=device)
+    del state
+    want = ref(image, mask, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = powerpaint_tpu_torch.load(root, "ppt-v1").pipeline
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    read_s = _read_seconds(files)
+    log(checkpoint="ppt-v1", card=CARD[0], bytes=nbytes, write_seconds=write_s,
+        load_seconds=load_s, load_gb_per_s=nbytes / load_s / 1e9,
+        read_seconds=read_s, read_gb_per_s=nbytes / read_s / 1e9)
+    del files
+    check(pipe.unet.conv_in.weight.device.type == device.type,
+          "ppt-v1 load: not on the card")
+    for f in ("unet", "vae", "text_encoder"):
+        _same_weights(f"ppt-v1 load {f}", getattr(pipe, f), getattr(ref, f))
+    del ref
+    torch.cuda.empty_cache()
+
+    expected = lambda kw: expected_launches(v1_cfg, kw["num_inference_steps"])  # noqa: E731
+    call = _caller(pipe, image, mask, expected)
+    reset_counts()  # the path starts here
+    base = call("ckpt v1 loaded", **kw)
+    log(call="ckpt v1 loaded", card=CARD[0], image_seconds=call.seconds)
+    check(np.array_equal(base, want),
+          "ppt-v1 load: the image is not the in-memory pipeline's")
+
+    # 2. a kohya LoRA on the loaded pipeline
+    lora_path = os.path.join(work, "style_lora.safetensors")
+    _write(lora_path, kohya_lora(pipe))
+    before = {f"{t}.{k}": v.clone() for t in ("unet", "text_encoder")
+              for k, v in getattr(pipe, t).state_dict().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unmatched = pipe.load_lora_weights(lora_path, scale=0.8)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    plan = pipe._loaded_loras[-1][0]
+    log(lora="kohya rank 8 alpha 4 scale 0.8", card=CARD[0],
+        modules=len(plan.items), merge_seconds=merge_s, unmatched=unmatched)
+    check(unmatched == [], f"lora: unmatched {unmatched}")
+    styled = call("ckpt v1 lora 0.8", **kw)
+    log(call="ckpt v1 lora 0.8", card=CARD[0], image_seconds=call.seconds)
+    check(not np.array_equal(styled, base), "lora: the image did not change")
+    merged = [t.clone() for t in plan.tensors()]
+    call("ckpt v1 lora per-call 0.3", cross_attention_kwargs={"scale": 0.3}, **kw)
+    again = call("ckpt v1 lora after per-call", **kw)
+    check(np.array_equal(again, styled),
+          "lora: the per-call scale did not restore the image")
+    check(all(torch.equal(a, b) for a, b in zip(plan.tensors(), merged)),
+          "lora: the per-call scale did not restore every weight bitwise")
+    merged = {f"{t}.{k}": v.clone() for t in ("unet", "text_encoder")
+              for k, v in getattr(pipe, t).state_dict().items()}
+    pipe.unload_lora_weights()
+    after = {f"{t}.{k}": v for t in ("unet", "text_encoder")
+             for k, v in getattr(pipe, t).state_dict().items()}
+    worst, exact, total = 0.0, 0, 0
+    for k, b in before.items():
+        a, m = after[k], merged[k]
+        if torch.equal(m, b):
+            continue  # not touched
+        err = (a.float() - b.float()).abs()
+        ulp = bf16_ulp(torch.maximum(torch.maximum(a.float().abs(), b.float().abs()),
+                                     m.float().abs()))
+        check(bool((err <= ulp).all()), f"unload: {k} beyond one bf16 ulp")
+        worst = max(worst, float((err / bf16_ulp(b)).max()))
+        exact += int((err == 0).sum())
+        total += err.numel()
+    log(lora_unload=True, touched_values=total, exactly_restored=exact / total,
+        max_error_in_base_ulps=worst)
+    del before, merged, after
+
+    # 3. a textual-inversion token
+    ti_path = os.path.join(work, "cat-toy.safetensors")
+    g = torch.Generator().manual_seed(3)
+    dim = pipe.text_encoder.config.hidden_size
+    _write(ti_path, {"<cat-toy>": torch.randn(2, dim, generator=g) * 0.02})
+    ti_prompt = "a <cat-toy> on a red bench"
+    plain_ids = torch.as_tensor(pipe.tokenizer([prompt]), device=device,
+                                dtype=torch.long)
+    with torch.no_grad():
+        plain_before = pipe.text_encoder(plain_ids)
+    no_ti = call("ckpt v1 token prompt before TI", **{**kw, "prompt": ti_prompt})
+    pipe.add_textual_inversion(ti_path)
+    with_ti = call("ckpt v1 token prompt with TI", **{**kw, "prompt": ti_prompt})
+    with torch.no_grad():
+        check(torch.equal(pipe.text_encoder(plain_ids), plain_before),
+              "textual inversion: a prompt without the token encodes otherwise")
+    d = np.abs(with_ti.astype(np.int32) - no_ti.astype(np.int32))
+    log(textual_inversion="<cat-toy> x 2", max_uint8_diff=int(d.max()),
+        mean_uint8_diff=float(d.mean()))
+    check(d.max() > 0, "textual inversion: the image did not change")
+    launches = _path_counts("checkpoints ppt-v1", expected_launches(v1_cfg, STEPS))
+    del pipe, call
+    torch.cuda.empty_cache()
+
+    # 4. int8 + LoRA
+    t0 = time.perf_counter()
+    pipe8 = powerpaint_tpu_torch.load(root, "ppt-v1", int8=True).pipeline
+    log(phase="setup", path="checkpoints ppt-v1 int8",
+        seconds=time.perf_counter() - t0, x_scale=pipe8.int8_x_scale)
+    pipe8.load_lora_weights(lora_path, scale=0.8)
+    convs = [m for m in pipe8.unet.modules()
+             if isinstance(m, Conv2D) and m.int8_x_scale is not None]
+    for m in convs:
+        w_q, w_scale = conv.quantize_weights_int8(m.weight)
+        check(torch.equal(m.w_q, w_q) and torch.equal(m.w_scale, w_scale),
+              "int8 lora: a conv's int8 weights are not those of its merged weight")
+    sites, first = [], [True]
+
+    def record(mod, args, kwargs, out):
+        x = args[0]
+        if first[0] and conv.int8_site(x.shape[1], x.shape[2], x.shape[3],
+                                       mod.out_channels):
+            sites.append((mod, x.detach().clone(), kwargs["gn"], out.detach().clone()))
+
+    hooks = [m.register_forward_hook(record, with_kwargs=True) for m in convs]
+    hooks.append(pipe8.unet.register_forward_hook(
+        lambda *a: first.__setitem__(0, False)))
+    call8 = _caller(pipe8, image, mask, lambda kw: expected_launches(
+        v1_cfg, kw["num_inference_steps"], int8_hw=HW))
+    reset_counts()  # the int8 calls start here
+    call8("ckpt v1 int8 lora 0.8", **kw)
+    for h in hooks:
+        h.remove()
+    n_sites = sum(conv.int8_site(*s) for s in unet_sites(v1_cfg.unet, HW // 8, HW // 8))
+    check(len(sites) == n_sites, f"int8 lora: {len(sites)} units, not {n_sites}")
+    worst, flips = 0.0, 0
+    for m, x, gn, out in sites:
+        want = conv.conv3x3_gn_silu_int8_plain(
+            x, m.w_q, m.w_scale, m.bias_fp32, gn.weight, gn.bias,
+            x_scale=m.int8_x_scale, num_groups=gn.num_groups, eps=gn.eps)
+        err, ok, n = int8_check(out, want, x, m.w_q, m.w_scale, m.bias_fp32,
+                                True, (gn.weight, gn.bias), gn.num_groups,
+                                m.int8_x_scale)
+        check(ok, f"int8 lora: a unit {tuple(x.shape)} is {err} from its plain "
+                  "version, beyond the flip bound")
+        worst, flips = max(worst, err), flips + n
+    log(path="checkpoints ppt-v1 int8 lora", int8_units_checked=len(sites),
+        max_abs_err=worst, flip_candidates=flips)
+    int8_launches = _path_counts("checkpoints ppt-v1 int8",
+                                 expected_launches(v1_cfg, STEPS, int8_hw=HW))
+    del pipe8, call8, sites
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+    # 5. the ppt-v2 two-directory layout
+    root = os.path.join(work, "ppt-v2")
+    base_dir = os.path.join(root, "realisticVisionV60B1_v51VAE")
+    bn_dir = os.path.join(root, "PowerPaint_Brushnet")
+    state = _fp16_state(v2_cfg, device)
+    files = {path: sd for path, sd in (
+        (os.path.join(base_dir, "unet", "diffusion_pytorch_model.safetensors"),
+         state["unet"]),
+        (os.path.join(base_dir, "vae", "diffusion_pytorch_model.safetensors"),
+         state["vae"]),
+        (os.path.join(base_dir, "text_encoder", "model.safetensors"),
+         _with_position_ids(state["text_encoder"])),
+        (os.path.join(bn_dir, "diffusion_pytorch_model.safetensors"),
+         state["brushnet"]),
+        (os.path.join(bn_dir, "pytorch_model.bin"),
+         _with_position_ids(state["text_encoder_brushnet"])))}
+    t0 = time.perf_counter()
+    nbytes = sum(_write(path, sd) for path, sd in files.items())
+    write_s = time.perf_counter() - t0
+    ref = BrushNetPipeline(v2_cfg, state, _tokenizer(v2_cfg),
+                           dtype=torch.bfloat16, device=device)
+    del state
+    want = ref(image, mask, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = powerpaint_tpu_torch.load(root, "ppt-v2").pipeline
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    read_s = _read_seconds(files)
+    log(checkpoint="ppt-v2", card=CARD[0], bytes=nbytes, write_seconds=write_s,
+        load_seconds=load_s, load_gb_per_s=nbytes / load_s / 1e9,
+        read_seconds=read_s, read_gb_per_s=nbytes / read_s / 1e9)
+    del files
+    for f in ("unet", "vae", "text_encoder", "brushnet", "text_encoder_brushnet"):
+        _same_weights(f"ppt-v2 load {f}", getattr(pipe, f), getattr(ref, f))
+    del ref
+    torch.cuda.empty_cache()
+    call = _caller(pipe, image, mask, lambda kw: expected_launches_v2(
+        v2_cfg, kw["num_inference_steps"]))
+    reset_counts()  # the ppt-v2 call starts here
+    got = call("ckpt v2 loaded", **kw)
+    log(call="ckpt v2 loaded", card=CARD[0], image_seconds=call.seconds)
+    check(np.array_equal(got, want),
+          "ppt-v2 load: the image is not the in-memory pipeline's")
+    v2_launches = _path_counts("checkpoints ppt-v2",
+                               expected_launches_v2(v2_cfg, STEPS))
+    del pipe, call
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    return {k: launches[k] + int8_launches[k] + v2_launches[k] for k in launches}
+
+
 def profile_call(label: str, run_call) -> None:
     """One 20-step call under ``torch.profiler``: device time by kernel
     family and the top kernels, and the device's busy share of the call's
@@ -2317,6 +2671,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    CARD[0] = smi
     SM_COUNT[0] = torch.cuda.get_device_properties(0).multi_processor_count
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -2351,7 +2706,8 @@ def main() -> None:
              ("cli", run_cli),
              ("ppt-v1 + controlnet", lambda d: run_cn_path(d, refs["ppt-v1"])),
              ("annotators + safety", run_annotator_path),
-             ("samplers", run_sampler_path))
+             ("samplers", run_sampler_path),
+             ("checkpoints + lora", run_checkpoint_path))
     for label, run in paths:
         t0 = time.perf_counter()
         counts = run(device)

@@ -55,10 +55,21 @@ class PowerPaint:
 
     @classmethod
     def from_checkpoint(cls, checkpoint_dir: str, version: str = "ppt-v1",
-                        dtype=None):
-        raise NotImplementedError(
-            "loading a checkpoint directory is not ported yet (ROADMAP A14); "
-            "build a pipeline from a state dict and pass it to PowerPaint()")
+                        dtype=None, **kwargs):
+        """A controller over the pipeline of a reference-layout checkpoint
+        directory (or, for ppt-v1, an original-SD single file), linear and
+        conv weights in ``dtype`` (bf16 by default). ``kwargs`` go to
+        ``io.checkpoint.load_ppt_v1`` / ``load_ppt_v2``: ``device`` (the
+        card unless ``"cpu"`` is asked for), ``int8``, ``config``."""
+        import torch
+
+        from powerpaint_tpu_torch.io.checkpoint import load_ppt_v1, load_ppt_v2
+
+        loaders = {"ppt-v1": load_ppt_v1, "ppt-v2": load_ppt_v2}
+        if version not in loaders:
+            raise ValueError(f"version {version!r}: one of {sorted(loaders)}")
+        return cls(loaders[version](checkpoint_dir,
+                                    dtype=dtype or torch.bfloat16, **kwargs))
 
     def infer(
         self,

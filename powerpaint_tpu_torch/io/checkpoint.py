@@ -1,0 +1,255 @@
+"""Checkpoint directories and single files to pipelines (the port of
+``powerpaint_tpu/io/checkpoint.py``'s loaders).
+
+The reference's layouts:
+
+ppt-v1 (``checkpoints/ppt-v1``)::
+
+    unet/*.safetensors           the fine-tuned 9-channel SD-inpainting UNet
+    text_encoder/*.safetensors   the fine-tuned CLIP with the task-token rows
+    vae/, tokenizer/             from the SD1.5 base (``base_dir``)
+    safety_checker/              optional: registered as the default checker
+
+ppt-v2 (``checkpoints/ppt-v2``)::
+
+    realisticVisionV60B1_v51VAE/{unet,vae,text_encoder,tokenizer}/
+    PowerPaint_Brushnet/diffusion_pytorch_model.safetensors   (BrushNet)
+    PowerPaint_Brushnet/pytorch_model.bin          (the task text encoder)
+
+(or the base's four directories at the root: the flat layout), and an
+original-SD single file (``load_single_file``). Each directory's weights are
+its first ``*.safetensors``, else ``*.bin``, else ``*.pth``.
+
+Every loader reads each family into CPU tensors in its stored dtype and
+builds the pipeline from them on ``device`` (the card unless the caller
+asks for ``"cpu"``), where ``io.weights.load_models`` casts them (linear
+and conv weights to ``dtype``, bf16 by default), stores conv weights
+channels-last and quantises the int8 units (``int8``, as the pipelines
+take it). What the JAX loaders accept and the port cannot compute yet is
+refused with ``NotImplementedError`` naming its ROADMAP item: an
+asymmetric VAE (A16), IP-Adapter weights or an image encoder (A14b), a
+native orbax directory (A19).
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from typing import Dict, Optional
+
+import torch
+
+from powerpaint_tpu_torch.core.config import (
+    PowerPaintConfig,
+    ppt_v1_config,
+    ppt_v2_config,
+)
+from powerpaint_tpu_torch.io import convert as C
+from powerpaint_tpu_torch.text.tokenizer import (
+    HashTokenizer,
+    TokenizerWrapper,
+    add_task_tokens,
+    load_tokenizer,
+)
+
+
+def _find_weights(*candidates: str) -> Optional[str]:
+    for pattern in candidates:
+        hits = sorted(glob.glob(pattern))
+        if hits:
+            return hits[0]
+    return None
+
+
+def _dir_weights_path(d: str) -> Optional[str]:
+    return _find_weights(os.path.join(d, "*.safetensors"),
+                         os.path.join(d, "*.bin"), os.path.join(d, "*.pth"))
+
+
+def _load_dir_weights(d: str) -> Optional[Dict[str, torch.Tensor]]:
+    path = _dir_weights_path(d)
+    return C.load_state_dict(path) if path else None
+
+
+def _sync_text_config(config: PowerPaintConfig, text_sd) -> PowerPaintConfig:
+    """The vocabulary and the task rows as the loaded table has them, so
+    the tokenizer's ids and the table's rows agree."""
+    vocab, n_ext = C.text_table_rows(text_sd)
+    return config.replace(text_encoder=config.text_encoder.replace(
+        vocab_size=vocab, num_external_tokens=n_ext))
+
+
+def _build_tokenizer(base_dir: str, vocab_size: int, n_ext: int):
+    """CLIP BPE from ``base_dir``'s vocabulary files, else the hash
+    tokenizer over the table's vocabulary; the task tokens when the table
+    has task rows."""
+    tokenizer = load_tokenizer(base_dir)
+    if isinstance(tokenizer.base, HashTokenizer):
+        tokenizer = TokenizerWrapper(HashTokenizer(vocab_size=vocab_size))
+    if n_ext:
+        add_task_tokens(tokenizer)
+    return tokenizer
+
+
+def _refuse_native(root: str) -> None:
+    if (os.path.exists(os.path.join(root, "config.json"))
+            and os.path.exists(os.path.join(root, "params"))):
+        raise NotImplementedError(
+            f"{root!r} is a native orbax checkpoint (the JAX package's "
+            "save_native / train CLI output), which the port does not read "
+            "yet (ROADMAP A19)")
+
+
+def _refuse_asymmetric(vae_sd) -> None:
+    if C.infer_condition_layers(vae_sd):
+        raise NotImplementedError(
+            "an asymmetric VAE (AsymmetricAutoencoderKL, a "
+            "decoder.condition_encoder) is not ported yet (ROADMAP A16)")
+
+
+def load_ppt_v1(root: str, *, base_dir: Optional[str] = None,
+                config: Optional[PowerPaintConfig] = None,
+                dtype: torch.dtype = torch.bfloat16, device="cuda",
+                int8: Optional[bool] = None):
+    """An ``InpaintPipeline`` from a ppt-v1 checkpoint directory.
+
+    ``root`` holds the fine-tuned unet/ and text_encoder/; ``base_dir``
+    (default ``root``) holds vae/ and tokenizer/ from the SD1.5 base.
+    ``root`` may also be an original-SD single file (``load_single_file``).
+    A ``safety_checker/`` directory with weights under either is registered
+    as the process's checker, unless one is registered already (ppt-v1
+    runs the checker by default)."""
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+
+    if os.path.isfile(root):
+        return load_single_file(root, base_dir=base_dir, config=config,
+                                dtype=dtype, device=device, int8=int8)
+    _refuse_native(root)
+    base_dir = base_dir or root
+    config = config or ppt_v1_config()
+    state = {"unet": _load_dir_weights(os.path.join(root, "unet")),
+             "text_encoder": _load_dir_weights(os.path.join(root, "text_encoder")),
+             "vae": _load_dir_weights(os.path.join(base_dir, "vae"))}
+    missing = [n for n, sd in state.items() if sd is None]
+    if missing:
+        raise FileNotFoundError(
+            f"checkpoint dir {root!r} missing weights for: {missing}")
+    _refuse_asymmetric(state["vae"])
+    state["text_encoder"] = C.convert_clip_text(state["text_encoder"])
+    config = _sync_text_config(config, state["text_encoder"])
+    tokenizer = _build_tokenizer(base_dir, config.text_encoder.vocab_size,
+                                 config.text_encoder.num_external_tokens)
+    _maybe_register_safety(root, base_dir, device=device)
+    return InpaintPipeline(config, state, tokenizer, dtype=dtype,
+                           device=device, int8=int8)
+
+
+def _maybe_register_safety(*roots: Optional[str], device="cuda") -> None:
+    """Register the CLIP safety checker from the first ``safety_checker/``
+    directory with weights under ``roots``, if no checker is registered."""
+    from powerpaint_tpu_torch.core import safety
+
+    if safety.get_safety_checker() is not None:
+        return
+    for r in roots:
+        if not r:
+            continue
+        d = os.path.join(r, "safety_checker")
+        if os.path.isdir(d) and _dir_weights_path(d):
+            safety.register_safety_checker(load_safety_checker(d, device=device))
+            return
+
+
+def load_single_file(path: str, *, base_dir: Optional[str] = None,
+                     config: Optional[PowerPaintConfig] = None,
+                     dtype: torch.dtype = torch.bfloat16, device="cuda",
+                     int8: Optional[bool] = None):
+    """An ``InpaintPipeline`` from one original-SD checkpoint file (the
+    diffusers ``FromSingleFileMixin`` surface). Its UNet takes 4 or 9
+    input channels (read from ``conv_in``). A single file carries no
+    vocabulary: ``base_dir`` with a ``tokenizer/`` gives CLIP BPE, else the
+    hash tokenizer stands in."""
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+
+    config = config or ppt_v1_config()
+    state = C.convert_single_file(C.load_state_dict(path))
+    missing = [n for n in ("unet", "text_encoder", "vae") if n not in state]
+    if missing:
+        raise FileNotFoundError(
+            f"single-file checkpoint {path!r} missing components: {missing}")
+    cin = int(state["unet"]["conv_in.weight"].shape[1])
+    if cin != config.unet.in_channels:
+        config = config.replace(unet=config.unet.replace(in_channels=cin))
+    config = _sync_text_config(config, state["text_encoder"])
+    tokenizer = _build_tokenizer(base_dir or os.path.dirname(path) or ".",
+                                 config.text_encoder.vocab_size,
+                                 config.text_encoder.num_external_tokens)
+    return InpaintPipeline(config, state, tokenizer, dtype=dtype,
+                           device=device, int8=int8)
+
+
+def load_ppt_v2(root: str, *, config: Optional[PowerPaintConfig] = None,
+                dtype: torch.dtype = torch.bfloat16, device="cuda",
+                int8: Optional[bool] = None):
+    """A ``BrushNetPipeline`` from the ppt-v2 two-directory layout (or its
+    flat form). The task rows, and so the tokenizer's task tokens, come
+    from the BrushNet text encoder."""
+    from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
+
+    _refuse_native(root)
+    config = config or ppt_v2_config()
+    base = os.path.join(root, "realisticVisionV60B1_v51VAE")
+    bn_dir = os.path.join(root, "PowerPaint_Brushnet")
+    if not os.path.isdir(base):
+        base = root  # the flat layout
+    paths = {
+        "base unet": _dir_weights_path(os.path.join(base, "unet")),
+        "vae": _dir_weights_path(os.path.join(base, "vae")),
+        "base text_encoder": _dir_weights_path(os.path.join(base, "text_encoder")),
+        "brushnet": _find_weights(
+            os.path.join(bn_dir, "diffusion_pytorch_model*.safetensors"),
+            os.path.join(bn_dir, "*.safetensors")),
+        "brushnet text_encoder": _find_weights(
+            os.path.join(bn_dir, "pytorch_model*.bin"),
+            os.path.join(bn_dir, "text_encoder", "*.safetensors"),
+            os.path.join(bn_dir, "text_encoder", "*.bin")),
+    }
+    missing = [n for n, p in paths.items() if p is None]
+    if missing:
+        raise FileNotFoundError(
+            f"checkpoint dir {root!r} missing weights for: {missing}")
+    adapters = [p for p in (
+        _find_weights(*(os.path.join(root, f"{stem}*.{ext}")
+                        for stem in ("ip_adapter", "ip-adapter")
+                        for ext in ("safetensors", "bin"))),
+        _dir_weights_path(os.path.join(root, "image_encoder")),
+        _dir_weights_path(os.path.join(base, "image_encoder"))) if p]
+    if adapters:
+        raise NotImplementedError(
+            f"IP-Adapter weights or an image encoder ({adapters[0]!r}) are "
+            "not ported yet (ROADMAP A14b)")
+    state = {"unet": C.load_state_dict(paths["base unet"]),
+             "vae": C.load_state_dict(paths["vae"]),
+             "text_encoder": C.convert_clip_text(
+                 C.load_state_dict(paths["base text_encoder"])),
+             "brushnet": C.load_state_dict(paths["brushnet"]),
+             "text_encoder_brushnet": C.convert_clip_text(
+                 C.load_state_dict(paths["brushnet text_encoder"]))}
+    _refuse_asymmetric(state["vae"])
+    config = _sync_text_config(config, state["text_encoder_brushnet"])
+    tokenizer = _build_tokenizer(base, config.text_encoder.vocab_size,
+                                 config.text_encoder.num_external_tokens)
+    return BrushNetPipeline(config, state, tokenizer, dtype=dtype,
+                            device=device, int8=int8)
+
+
+def load_safety_checker(d: str, *, device="cuda"):
+    """A registrable ``CLIPSafetyChecker`` (fp32) from a diffusers
+    ``safety_checker/`` directory, its config read from the shapes."""
+    from powerpaint_tpu_torch.core.safety import CLIPSafetyChecker
+
+    sd = _load_dir_weights(d)
+    if sd is None:
+        raise FileNotFoundError(f"no safety-checker weights under {d!r}")
+    return CLIPSafetyChecker(C.infer_clip_vision_config(sd), state=sd,
+                             device=device)

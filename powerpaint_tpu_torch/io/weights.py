@@ -51,6 +51,7 @@ from powerpaint_tpu_torch.core.config import (
     dpt_hybrid_midas_config,
     safety_checker_config,
 )
+from powerpaint_tpu_torch.io.convert import load_state_dict
 from powerpaint_tpu_torch.models.annotators import BodyPoseModel, HEDNetwork
 from powerpaint_tpu_torch.models.brushnet import BrushNetModel
 from powerpaint_tpu_torch.models.clip_vision import (
@@ -224,7 +225,7 @@ def _vae(tree: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
-def _clip(tree: dict) -> Dict[str, np.ndarray]:
+def _clip(tree: dict, tokenizer=None) -> Dict[str, np.ndarray]:
     emb = "text_model.embeddings."
     sd = {}
     for path, arr in _flatten(tree):
@@ -235,8 +236,18 @@ def _clip(tree: dict) -> Dict[str, np.ndarray]:
         elif top == "position_embedding":
             sd[f"{emb}position_embedding.weight"] = arr
         elif top == "external_embedding":
-            for name, rows in zip(TASK_TOKEN_ORDER,
-                                  np.split(arr, len(TASK_TOKEN_ORDER))):
+            if tokenizer is None:
+                blocks = [(n, len(arr) // len(TASK_TOKEN_ORDER))
+                          for n in TASK_TOKEN_ORDER]
+            else:
+                blocks = [(p, len(names))
+                          for p, names in tokenizer.token_map.items()]
+            sizes = [k for _, k in blocks]
+            if sum(sizes) != len(arr):
+                raise ValueError(f"{len(arr)} external rows, the placeholders "
+                                 f"{blocks} take {sum(sizes)}")
+            for (name, _), rows in zip(blocks,
+                                       np.split(arr, np.cumsum(sizes)[:-1])):
                 sd[f"{emb}token_embedding.trainable_embeddings.{name}"] = rows
         elif top == "final_layer_norm":
             sd["text_model." + _torch_key(path)] = arr
@@ -367,14 +378,17 @@ def _annotator(tree: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
-def params_from_jax(tree, family: str, config=None):
+def params_from_jax(tree, family: str, config=None, tokenizer=None):
     """JAX-package parameter tree of one family (``unet``, ``vae``,
     ``text_encoder``, ``brushnet``, ``text_encoder_brushnet``,
     ``controlnet``, or one of ``ANNOTATOR_FAMILIES``) -> state dict of
     numpy arrays with the port's (and diffusers / transformers / the
     published checkpoints') names and layouts. A ``controlnet`` tuple or
     list of trees (Multi-ControlNet) gives a list of state dicts. ``dpt``
-    takes its ``DPTConfig`` (the Intel/dpt-hybrid-midas one by default)."""
+    takes its ``DPTConfig`` (the Intel/dpt-hybrid-midas one by default).
+    A text tower's ``external_embedding`` rows split into one block per
+    placeholder of ``tokenizer`` (the task tokens and any user token, in
+    registration order), or evenly over the task tokens without one."""
     if family == "dpt":
         return _dpt(tree, config or dpt_hybrid_midas_config())
     if family in ("hed", "bodypose"):
@@ -390,7 +404,7 @@ def params_from_jax(tree, family: str, config=None):
     if family == "vae":
         return _vae(tree)
     if family in ("text_encoder", "text_encoder_brushnet"):
-        return _clip(tree)
+        return _clip(tree, tokenizer)
     raise ValueError(f"unknown family {family!r}; one of "
                      f"{V2_FAMILIES + ('controlnet',) + ANNOTATOR_FAMILIES}")
 
@@ -519,25 +533,16 @@ def published_keys(family: str, state: dict) -> dict:
     return out
 
 
-def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A state dict from a local ``.safetensors`` file or a torch pickle
-    (``.pth`` / ``.bin``, read with ``weights_only``)."""
-    if path.endswith(".safetensors"):
-        from safetensors.torch import load_file
-
-        return load_file(path)
-    return torch.load(path, map_location="cpu", weights_only=True)
-
-
 def load_annotator(family: str, state=None, *, checkpoint: Optional[str] = None,
                    config=None, device="cuda") -> nn.Module:
     """One of ``ANNOTATOR_FAMILIES`` on ``device`` in fp32, eval mode,
-    from ``state`` (tensors or numpy arrays) or the file ``checkpoint``,
+    from ``state`` (tensors or numpy arrays) or the file ``checkpoint``
+    (``.safetensors``, read by the port's own reader, or a torch pickle),
     strict on names and shapes after ``published_keys``."""
     if state is None:
         if checkpoint is None:
             raise ValueError(f"{family}: need state or checkpoint")
-        state = load_checkpoint(checkpoint)
+        state = load_state_dict(checkpoint)
     state = published_keys(family, state)
     model = build_annotator(family, config, state=state)
     sd = {k: (v if torch.is_tensor(v)

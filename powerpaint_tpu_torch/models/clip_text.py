@@ -30,20 +30,34 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class TaskTokenEmbedding(nn.Module):
-    """Base token table plus the learned task-token rows."""
+    """Base token table plus named blocks of learned rows: the task tokens'
+    (``num_external`` rows split evenly over ``names``), then any a user
+    adds (``add_rows``: textual inversion), each block's ids following the
+    ones before it, as the tokenizer registers them."""
 
     def __init__(self, vocab_size: int, dim: int, num_external: int,
                  names: Sequence[str] = TASK_TOKEN_ORDER):
         super().__init__()
-        if num_external % len(names):
+        if names and num_external % len(names):
             raise ValueError(f"{num_external} task rows do not split over "
                              f"{len(names)} placeholders")
-        self.names = tuple(names)
+        self.names = list(names)
         self.wrapped = nn.Embedding(vocab_size, dim)
-        rows = num_external // len(names)
+        rows = num_external // len(names) if names else 0
         self.trainable_embeddings = nn.ParameterDict({
             n: nn.Parameter(torch.zeros(rows, dim)) for n in self.names
         })
+
+    def add_rows(self, name: str, rows: torch.Tensor) -> None:
+        """Append a block of rows, ``trainable_embeddings.<name>`` in the
+        state dict (the reference's name for an added embedding), in the
+        table's dtype and on its device."""
+        if "." in name or name in self.trainable_embeddings:
+            raise ValueError(f"cannot add a block of rows named {name!r}")
+        w = self.wrapped.weight
+        self.trainable_embeddings[name] = nn.Parameter(
+            rows.to(w.device, w.dtype), requires_grad=False)
+        self.names.append(name)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         table = torch.cat([self.wrapped.weight] + [
@@ -139,6 +153,20 @@ class CLIPTextModel(nn.Module):
         super().__init__()
         self.config = config
         self.text_model = CLIPTextTransformer(config)
+
+    def add_token_rows(self, name: str, rows: torch.Tensor) -> None:
+        """Append a user token's rows (n, D) to the token table; a plain
+        table becomes a ``TaskTokenEmbedding`` around it first, with no task
+        rows."""
+        emb = self.text_model.embeddings
+        if isinstance(emb.token_embedding, nn.Embedding):
+            table = emb.token_embedding
+            with torch.device("meta"):
+                wrapper = TaskTokenEmbedding(table.num_embeddings,
+                                             table.embedding_dim, 0, names=())
+            wrapper.wrapped = table
+            emb.token_embedding = wrapper
+        emb.token_embedding.add_rows(name, rows)
 
     def forward(self, input_ids: torch.Tensor, clip_skip: int = 0) -> torch.Tensor:
         """``clip_skip``: stop ``clip_skip`` layers early and apply the final

@@ -46,6 +46,7 @@ from powerpaint_tpu_torch.core.validation import (
     check_output_type,
     check_scheduler,
 )
+from powerpaint_tpu_torch.io.lora import LoraMixin
 from powerpaint_tpu_torch.io.weights import load_models
 from powerpaint_tpu_torch.pipelines.common import (
     as_list,
@@ -66,7 +67,7 @@ from powerpaint_tpu_torch.models.layers import guidance_scale_embedding
 from powerpaint_tpu_torch.text.prompts import TaskPrompts, add_task, v2_prompt_suffix
 
 
-class BrushNetPipeline:
+class BrushNetPipeline(LoraMixin):
     """``BrushNetPipeline(config, state, tokenizer)(image, mask, prompt)``.
 
     ``state`` holds one diffusers / transformers named state dict per family
@@ -237,7 +238,8 @@ class BrushNetPipeline:
                  num_images_per_prompt: int = 1, guess_mode: bool = False,
                  latents: Optional[np.ndarray] = None,
                  output_type: str = "uint8", clip_skip: int = 0,
-                 scheduler: str = "unipc") -> np.ndarray:
+                 scheduler: str = "unipc",
+                 cross_attention_kwargs: Optional[dict] = None) -> np.ndarray:
         """Inpaint ``image`` (H, W, 3) where ``mask`` (H, W) is 1.
 
         Batched form: ``prompt`` a list of B prompts, with ``image`` /
@@ -245,7 +247,14 @@ class BrushNetPipeline:
         ``negative_prompt`` / ``fitting_degree`` / ``guidance_scale`` /
         ``seed`` one value or one per request. ``scheduler`` is any registry
         sampler. Returns (B, H, W, 3) uint8, (B, H, W, 3) float32 in [-1, 1]
-        or (B, H/8, W/8, 4) float32 latents, as numpy."""
+        or (B, H/8, W/8, 4) float32 latents, as numpy.
+        ``cross_attention_kwargs={"scale": s}``: the loaded LoRA's scale for
+        this call alone (``LoraMixin``)."""
+        if cross_attention_kwargs:
+            call_kw = {k: v for k, v in locals().items()
+                       if k not in ("self", "cross_attention_kwargs")}
+            return self._with_lora_scale(cross_attention_kwargs,
+                                         lambda: self(**call_kw))
         multi = isinstance(prompt, (list, tuple))
         prompts = list(prompt) if multi else [prompt]
         negatives = as_list(negative_prompt, len(prompts))
@@ -271,7 +280,10 @@ class BrushNetPipeline:
                                          "ppt-v2"))
                for p, n in zip(prompts, negatives)]
         ids_task = np.stack([t for t, _ in ids])
-        ids_plain = np.stack([u for _, u in ids])
+        # a user token's ids lie past the plain tower's table; they read its
+        # last row, as the JAX package's gather clamps them
+        ids_plain = np.minimum(np.stack([u for _, u in ids]),
+                               self.config.text_encoder.vocab_size - 1)
         scales = per_iteration(mod, cond_scale_table(
             num_inference_steps, float(brushnet_conditioning_scale),
             control_guidance_start, control_guidance_end))

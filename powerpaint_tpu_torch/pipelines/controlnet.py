@@ -178,8 +178,8 @@ class ControlNetPipeline(InpaintPipeline):
                  scheduler: str = "ddim", seed=0,
                  num_images_per_prompt: int = 1, guess_mode: bool = False,
                  latents: Optional[np.ndarray] = None,
-                 output_type: str = "uint8",
-                 clip_skip: int = 0) -> np.ndarray:
+                 output_type: str = "uint8", clip_skip: int = 0,
+                 cross_attention_kwargs: Optional[dict] = None) -> np.ndarray:
         """Inpaint ``image`` where ``mask`` is 1, conditioned on
         ``control_image`` ((H, W, 3) uint8 edges, depth, ..., or a list of
         them, one per branch). ``controlnet_conditioning_scale``,
@@ -188,7 +188,15 @@ class ControlNetPipeline(InpaintPipeline):
 
         Batched form, as the v1 pipeline's: ``prompt`` a list of B prompts,
         and ``control_image`` a list of B entries, each one image or a
-        per-branch list. Returns what the v1 pipeline returns."""
+        per-branch list. Returns what the v1 pipeline returns.
+        ``cross_attention_kwargs={"scale": s}``: the loaded LoRA's scale for
+        this call alone (``LoraMixin``)."""
+        if cross_attention_kwargs:
+            call_kw = {k: v for k, v in locals().items()  # not super()'s cell
+                       if k not in ("self", "cross_attention_kwargs",
+                                    "__class__")}
+            return self._with_lora_scale(cross_attention_kwargs,
+                                         lambda: self(**call_kw))
         mod = check_scheduler(scheduler, self.config.scheduler,
                               num_inference_steps)
         v1_args = dict(

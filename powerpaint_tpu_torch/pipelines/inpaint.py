@@ -31,6 +31,7 @@ from powerpaint_tpu_torch.core.validation import (
     check_output_type,
     check_scheduler,
 )
+from powerpaint_tpu_torch.io.lora import LoraMixin
 from powerpaint_tpu_torch.io.weights import load_models
 from powerpaint_tpu_torch.pipelines.common import (
     as_list,
@@ -60,7 +61,7 @@ class Request(NamedTuple):
     scheduler: str  # the registry sampler
 
 
-class InpaintPipeline:
+class InpaintPipeline(LoraMixin):
     """``InpaintPipeline(config, state, tokenizer)(image, mask, prompt)``.
 
     ``state`` holds one diffusers / transformers named state dict per family
@@ -206,7 +207,8 @@ class InpaintPipeline:
                  num_images_per_prompt: int = 1,
                  latents: Optional[np.ndarray] = None,
                  output_type: str = "uint8", clip_skip: int = 0,
-                 scheduler: str = "ddim") -> np.ndarray:
+                 scheduler: str = "ddim",
+                 cross_attention_kwargs: Optional[dict] = None) -> np.ndarray:
         """Inpaint ``image`` (H, W, 3) where ``mask`` (H, W) is 1, sampled
         with the registry sampler ``scheduler`` (``eta`` is DDIM's).
 
@@ -215,7 +217,13 @@ class InpaintPipeline:
         ``negative_prompt`` / ``fitting_degree`` / ``guidance_scale`` /
         ``seed`` one value or one per request. Returns (B, H, W, 3) uint8,
         (B, H, W, 3) float32 in [-1, 1] or (B, H/8, W/8, 4) float32 latents,
-        as numpy."""
+        as numpy. ``cross_attention_kwargs={"scale": s}``: the loaded
+        LoRA's scale for this call alone (``LoraMixin``)."""
+        if cross_attention_kwargs:
+            call_kw = {k: v for k, v in locals().items()
+                       if k not in ("self", "cross_attention_kwargs")}
+            return self._with_lora_scale(cross_attention_kwargs,
+                                         lambda: self(**call_kw))
         req = self._request(image, mask, prompt, negative_prompt, task,
                             fitting_degree, num_inference_steps,
                             guidance_scale, strength, seed,

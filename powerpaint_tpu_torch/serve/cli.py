@@ -6,8 +6,10 @@ reference app.py:546-556 flags).
 
 The options, their choices and defaults are the JAX package's, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
-the kernels). Without a checkpoint a random-weight stack runs: the full
-path executes, the image is noise. ``POWERPAINT_INT8=1`` in the environment
+the kernels). ``--checkpoint_dir`` loads a reference-layout checkpoint
+(``io.checkpoint``), and ``--lora`` / ``--textual_inversion`` apply to it;
+without one a random-weight stack runs: the full path executes, the image
+is noise. ``POWERPAINT_INT8=1`` in the environment
 runs the int8 W8A8 ResNet units, as in the JAX package. Options whose
 modules are not ported yet stop the command with the ROADMAP item that
 brings them; none is ignored.
@@ -25,16 +27,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", choices=["ppt-v1", "ppt-v2"],
                    default="ppt-v1")
     p.add_argument("--checkpoint_dir", default=None,
-                   help="reference-layout checkpoint root (not ported yet: "
-                        "ROADMAP A14)")
+                   help="reference-layout checkpoint root (or, for ppt-v1, "
+                        "an original-SD single file)")
     p.add_argument("--weight_dtype", choices=["bfloat16", "float32"],
                    default="bfloat16")
     p.add_argument("--lora", action="append", default=[], metavar="PATH[:SCALE]",
-                   help="merge a LoRA checkpoint (not ported yet: ROADMAP A14)")
+                   help="merge a LoRA checkpoint (diffusers/kohya format) "
+                        "into the loaded weights; repeatable")
     p.add_argument("--textual_inversion", action="append", default=[],
                    metavar="PATH[:TOKEN]",
-                   help="register a textual-inversion embedding (not ported "
-                        "yet: ROADMAP A14)")
+                   help="register a user textual-inversion embedding; "
+                        "repeatable")
     p.add_argument("--clip_skip", type=int, default=0,
                    help="skip the last N CLIP layers when encoding")
     p.add_argument("--serve", action="store_true",
@@ -77,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resize short side before inference (640 tasks / "
                         "512 outpaint in the reference)")
     p.add_argument("--tiny", action="store_true",
-                   help="use the tiny test config (fast smoke runs)")
+                   help="use the tiny test config (fast smoke runs; with "
+                        "--checkpoint_dir, the checkpoint's)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the call to DIR")
     p.add_argument("--aot-cache", dest="aot_cache", default=None,
@@ -94,9 +98,6 @@ def unported(args, defaults) -> list:
     """One message per given option whose module is not ported yet."""
     out = []
     for flag, given, item in (
-            ("--checkpoint_dir", args.checkpoint_dir, "A14"),
-            ("--lora", args.lora, "A14"),
-            ("--textual_inversion", args.textual_inversion, "A14"),
             ("--serve", args.serve, "A17"),
             ("--micro-batch", args.micro_batch != defaults.micro_batch, "A17"),
             ("--aot-cache", args.aot_cache, "A17"),
@@ -107,6 +108,28 @@ def unported(args, defaults) -> list:
 
 
 def build_pipeline(args):
+    """The pipeline of ``--checkpoint_dir``, or the random-weight demo stack
+    of ``args.version`` (full width or ``--tiny``, from seed 0), on
+    ``args.device``, with ``--lora`` and ``--textual_inversion`` applied."""
+    import torch
+
+    from powerpaint_tpu_torch.testing import tiny_v1_config, tiny_v2_config
+
+    dtype = torch.bfloat16 if args.weight_dtype == "bfloat16" else torch.float32
+    v1 = args.version == "ppt-v1"
+    if args.checkpoint_dir:
+        from powerpaint_tpu_torch.io.checkpoint import load_ppt_v1, load_ppt_v2
+
+        config = None
+        if args.tiny:
+            config = tiny_v1_config() if v1 else tiny_v2_config()
+        load = load_ppt_v1 if v1 else load_ppt_v2
+        return apply_adapters(load(args.checkpoint_dir, config=config,
+                                   dtype=dtype, device=args.device), args)
+    return apply_adapters(random_pipeline(args, dtype), args)
+
+
+def random_pipeline(args, dtype):
     """The random-weight demo stack of ``args.version``, full width or
     ``--tiny``, from seed 0, on ``args.device``."""
     import torch
@@ -120,7 +143,6 @@ def build_pipeline(args):
         add_task_tokens,
     )
 
-    dtype = torch.bfloat16 if args.weight_dtype == "bfloat16" else torch.float32
     v1 = args.version == "ppt-v1"
     if args.tiny:
         cfg = tiny_v1_config() if v1 else tiny_v2_config()
@@ -140,6 +162,36 @@ def build_pipeline(args):
     from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
 
     return BrushNetPipeline(cfg, state, tok, dtype=dtype, device=device)
+
+
+def apply_adapters(pipe, args):
+    """``--lora PATH[:SCALE]`` (scale 1 by default) and
+    ``--textual_inversion PATH[:TOKEN]`` (the file's own token name by
+    default), in the order given."""
+    for spec in args.lora:
+        path, _, scale = spec.rpartition(":")
+        if not path or not _is_float(scale):
+            path, scale = spec, "1.0"
+        unmatched = pipe.load_lora_weights(path, scale=float(scale))
+        msg = f"lora: merged {path} (scale {scale})"
+        if unmatched:
+            msg += f"; {len(unmatched)} unmatched modules"
+        print(msg)
+    for spec in args.textual_inversion:
+        path, _, token = spec.rpartition(":")
+        if not path:
+            path, token = spec, None
+        pipe.add_textual_inversion(path, token=token or None)
+        print(f"textual inversion: registered {spec}")
+    return pipe
+
+
+def _is_float(s: str) -> bool:
+    try:
+        float(s)
+        return True
+    except ValueError:
+        return False
 
 
 def run_one_shot(args) -> int:

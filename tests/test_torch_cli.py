@@ -159,14 +159,125 @@ def test_controller_without_a_controlnet_pipeline_raises_as_jax():
 
 
 def test_controller_refuses_what_is_not_ported():
+    """What a call cannot do is refused; ``from_checkpoint`` loads (ROADMAP
+    A14a), so a directory without weights is the JAX package's
+    ``FileNotFoundError``."""
     image, mask = _request()
     pp = controller.PowerPaint(StubPipeline())
     with pytest.raises(ValueError, match="ControlNet"):
         pp.infer(image, mask, control_type="canny")
     with pytest.raises(ValueError, match="requires a mask"):
         pp.infer(image, None)
-    with pytest.raises(NotImplementedError, match="A14"):
-        controller.PowerPaint.from_checkpoint("/nonexistent")
+    errors = []
+    for module in (controller, jax_controller):
+        with pytest.raises(FileNotFoundError) as exc:
+            module.PowerPaint.from_checkpoint("/nonexistent")
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1]
+
+
+def _write_tiny_checkpoint(root, lora_path, ti_path):
+    """A tiny ppt-v1 directory in the reference layout, a kohya LoRA over
+    two UNet projections and a ResNet conv, and a 2-vector A1111
+    textual-inversion file."""
+    from powerpaint_tpu_torch.io.safetensors import save_file
+    from powerpaint_tpu_torch.io.weights import init_state
+    from powerpaint_tpu_torch.testing import tiny_v1_config
+
+    state = init_state(tiny_v1_config(), torch.Generator().manual_seed(0),
+                       device="cpu")
+    for family, name in (("unet", "diffusion_pytorch_model"),
+                         ("text_encoder", "model"),
+                         ("vae", "diffusion_pytorch_model")):
+        os.makedirs(root / family)
+        save_file(state[family], str(root / family / f"{name}.safetensors"))
+    g = torch.Generator().manual_seed(1)
+    lora = {}
+    for module in ("down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q",
+                   "down_blocks.1.attentions.0.transformer_blocks.0.ff.net.2",
+                   "up_blocks.2.resnets.1.conv1"):
+        w = state["unet"][module + ".weight"]
+        name = "lora_unet_" + module.replace(".", "_")
+        lora[name + ".lora_down.weight"] = torch.randn(4, *w.shape[1:],
+                                                       generator=g) * 0.1
+        lora[name + ".lora_up.weight"] = torch.randn(
+            w.shape[0], 4, *([1, 1] if w.ndim == 4 else []), generator=g) * 0.1
+        lora[name + ".alpha"] = torch.tensor(2.0)
+    save_file(lora, str(lora_path))
+    torch.save({"<cat-toy>": torch.randn(2, 32, generator=g)}, ti_path)
+
+
+@pytest.mark.parametrize("flag", ["--checkpoint_dir", "--lora",
+                                  "--textual_inversion"])
+def test_a14_options_load(tmp_path, capsys, flag):
+    """The three options ROADMAP A14a ported: ``--checkpoint_dir`` as a
+    tiny one-shot run on the CPU with all three, which writes the PNG;
+    ``--lora PATH:SCALE`` merges into the demo stack at that scale;
+    ``--textual_inversion PATH`` registers the file's token."""
+    from powerpaint_tpu_torch.io import lora
+
+    ckpt, lora_path, ti = (tmp_path / "ppt-v1", tmp_path / "style.safetensors",
+                           tmp_path / "cat-toy.pt")
+    _write_tiny_checkpoint(ckpt, lora_path, ti)
+    parser = cli.build_parser()
+    base = ["--tiny", "--device", "cpu", "--weight_dtype", "float32"]
+    if flag == "--checkpoint_dir":
+        rng = np.random.RandomState(1)
+        Image.fromarray((rng.rand(64, 64, 3) * 255).astype(np.uint8)).save(
+            tmp_path / "in.png")
+        m = np.zeros((64, 64), np.uint8)
+        m[16:48, 16:48] = 255
+        Image.fromarray(m).save(tmp_path / "mask.png")
+        out = tmp_path / "out.png"
+        argv = base + ["--checkpoint_dir", str(ckpt), "--lora", f"{lora_path}:0.5",
+                       "--textual_inversion", str(ti),
+                       "--image", str(tmp_path / "in.png"),
+                       "--mask", str(tmp_path / "mask.png"), "--output", str(out),
+                       "--steps", "2", "--short_side", "64",
+                       "--prompt", "a <cat-toy> on a bench"]
+        assert cli.unported(parser.parse_args(argv), parser.parse_args([])) == []
+        assert cli.main(argv) == 0
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert lines[0] == f"lora: merged {lora_path} (scale 0.5)"
+        assert lines[1] == f"textual inversion: registered {ti}"
+        assert lines[-1].startswith(f"wrote {out} (64x64) in ")
+        with Image.open(out) as im:
+            assert im.size == (64, 64) and im.mode == "RGB"
+        return
+    if flag == "--lora":
+        pipe = cli.build_pipeline(parser.parse_args(
+            base + ["--lora", f"{lora_path}:0.5"]))
+        want = cli.build_pipeline(parser.parse_args(base))
+        assert want.load_lora_weights(str(lora_path), scale=0.5) == []
+        for t in lora.TARGETS:
+            theirs = getattr(want, t).state_dict()
+            for k, v in getattr(pipe, t).state_dict().items():
+                assert torch.equal(v, theirs[k]), k
+        assert pipe._loaded_loras[-1][1] == 0.5
+        return
+    pipe = cli.build_pipeline(parser.parse_args(
+        base + ["--version", "ppt-v2", "--textual_inversion", str(ti)]))
+    assert pipe.tokenizer.token_map["<cat-toy>"] == ["<cat-toy>_0", "<cat-toy>_1"]
+    table = pipe.text_encoder_brushnet.text_model.embeddings.token_embedding
+    assert table.names[-1] == "<cat-toy>"
+    assert torch.equal(table.trainable_embeddings["<cat-toy>"],
+                       torch.load(ti)["<cat-toy>"])
+
+
+def test_entry_points_run_on_the_card_unless_asked():
+    """``device`` defaults to the card at every entry point; on a machine
+    without one, a load that is not asked for the CPU fails, never falls
+    back to it."""
+    import inspect
+
+    import powerpaint_tpu_torch
+    from powerpaint_tpu_torch.io import checkpoint
+
+    for fn in (checkpoint.load_ppt_v1, checkpoint.load_ppt_v2,
+               checkpoint.load_single_file, checkpoint.load_safety_checker):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert cli.build_parser().parse_args([]).device == "cuda"
+    assert callable(powerpaint_tpu_torch.load)
 
 
 def _options(parser):
@@ -187,8 +298,7 @@ def test_parser_matches_jax():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--checkpoint_dir", "ckpt"], "A14"), (["--lora", "x.safetensors"], "A14"),
-    (["--textual_inversion", "t.bin"], "A14"), (["--serve"], "A17"),
+    (["--serve"], "A17"),
     (["--micro-batch", "8"], "A17"), (["--aot-cache", "c.aot"], "A17"),
     (["--control_type", "canny"], "A12")])
 def test_unported_options_are_refused(argv, item, capsys):

@@ -99,3 +99,23 @@ def test_the_sampler_modules_are_covered():
     assert {f"schedulers/{m}.py" for m in (
         "__init__", "common", "ddim", "pndm", "unipc", "dpm", "euler",
         "ancestral", "heun", "lms", "deis", "sde", "lcm")} <= names
+
+
+def test_the_loader_modules_are_covered_and_load_no_safetensors_package():
+    """The checkpoint, LoRA and textual-inversion modules are checked like
+    the rest, and the port reads ``.safetensors`` files with its own reader:
+    the GPU host has no ``safetensors`` package."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"io/safetensors.py", "io/convert.py", "io/checkpoint.py",
+            "io/lora.py"} <= names
+    code = ("import sys\n"
+            "import powerpaint_tpu_torch\n"
+            "import powerpaint_tpu_torch.io.checkpoint\n"
+            "import powerpaint_tpu_torch.io.lora\n"
+            "import powerpaint_tpu_torch.serve.cli\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] == "
+            "'safetensors')\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
