@@ -18,7 +18,8 @@ Phases, in order; any failure exits non-zero:
    LayerNorm, all in CUDA) against its plain PyTorch version at the
    main paths' shapes (LayerNorm also at a ragged C on misaligned rows;
    GroupNorm at every BiT shape of the DPT forward and LayerNorm at the
-   safety checker's rows, in fp32, the annotator path's type),
+   safety checker's rows, in fp32, the annotator path's type; every kernel
+   also at a 768 x 512 image's shapes, where H != W),
    in fp32 (TF32 off for matmuls and convs) and in bf16, and timed beside
    the plain version, one PyTorch library call of the same function (or
    the chain of calls named), and the data-sheet bound. The int8 units and the quantising modes must be bitwise equal to
@@ -118,6 +119,23 @@ Phases, in order; any failure exits non-zero:
    two-directory layout (the task text encoder a ``.bin``) loaded, its
    20-step UniPC image bitwise the in-memory pipeline's. Launches exact
    per call (phase 3's and 4's).
+   7e. The call surface (``run_call_surface_path``), full width, bf16:
+   ppt-v1's blended embeddings of a 20-step DDIM call given back as
+   ``prompt_embeds`` (the image bitwise, the text encoder's 25 LayerNorms
+   not launched), a callback every 5 steps (called at 0, 5, 10, 15 with
+   (1, 64, 64, 4) copies; image and launches unchanged); a portrait call,
+   a 640 x 480 input to ``height=768, width=512``, in bf16 (seconds and the
+   denoise loop's device ms beside 512^2's) and int8 (the split from
+   ``int8_site`` at that shape, the first evaluation's int8 units within
+   ``int8_check``); the native blend of the portrait result against numpy
+   and the native BPE's ids against the Python BPE's; a full-width
+   ControlNet (seed 1) written in fp16 as a diffusers directory and loaded
+   by ``load_controlnet`` (every tensor the source as the pipelines cast
+   it; load GB/s), a portrait call over the ppt-v1 stack, and
+   ``serve.cli.main --control_type hed --controlnet_dir`` on the demo
+   stack; ppt-v2's ``prompt_embeds`` (the task tower not launched) and the
+   18-step custom ``timesteps=`` grid at 768 x 512 (18 evaluations), and
+   ``timesteps=`` refused on DDIM. Launches exact per call.
 8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, each also
    with one other sampler: euler_a at strength 0.6, LCM on an LCM UNet,
    heun with a window; and ppt-v1 with int8) must give the same image
@@ -259,6 +277,10 @@ ATTN_SHAPES = [
     (2, 4096, 77, 8, 40), (2, 1024, 77, 8, 80), (2, 256, 77, 8, 160),
     (2, 64, 77, 8, 160),
     (1, 4096, 4096, 1, 512),
+    # a 768 x 512 (portrait) image: self-attention at the first two levels,
+    # the cross-attention at the first, and the VAE's mid attention
+    (2, 6144, 6144, 8, 40), (2, 1536, 1536, 8, 80), (2, 6144, 77, 8, 40),
+    (1, 6144, 6144, 1, 512),
 ]
 # (shape (B, S, C), eps, silu): ResNet norms at each UNet level, the widest
 # up-block concat, the transformer input norm, and the VAE's largest maps.
@@ -268,6 +290,8 @@ GN_SHAPES = [
     ((2, 64, 2560), 1e-5, True), ((2, 4096, 320), 1e-6, False),
     ((1, 262144, 128), 1e-6, True), ((1, 65536, 256), 1e-6, True),
     ((1, 4096, 512), 1e-6, False),
+    # a 768 x 512 image: the UNet's first level, the VAE's largest map
+    ((2, 6144, 320), 1e-5, True), ((1, 393216, 128), 1e-6, True),
 ]
 # (B, H, W, Cin, Cout, groups): ResNet units (conv3x3_gn_silu) of the UNet
 # and the BrushNet at a 512x512 image under CFG (the first level, the
@@ -281,11 +305,13 @@ CONV_SHAPES = {
     "conv3x3_gn_silu": [
         (2, 64, 64, 320, 320, 32), (2, 64, 64, 960, 320, 32),
         (2, 16, 16, 2560, 1280, 32), (2, 8, 8, 1280, 1280, 32),
-        (1, 512, 512, 128, 128, 32), (1, 8, 8, 48, 40, 24)],
+        (1, 512, 512, 128, 128, 32), (1, 8, 8, 48, 40, 24),
+        # H != W: a 768 x 512 image's first UNet level and deep level
+        (2, 96, 64, 320, 320, 32), (2, 12, 8, 1280, 1280, 32)],
     "conv3x3": [
         (2, 64, 64, 640, 640, 0), (2, 16, 16, 1280, 1280, 0),
         (1, 512, 512, 256, 256, 0), (2, 64, 64, 320, 320, 0),
-        (1, 8, 8, 48, 40, 0)],
+        (1, 8, 8, 48, 40, 0), (2, 96, 64, 640, 640, 0)],
 }
 # (B, H, W, Cin, Cout, groups): the int8 form (with and without the
 # prologue) at ResNet units the JAX package quantises at a 512x512 image:
@@ -293,12 +319,13 @@ CONV_SHAPES = {
 # and the VAE encoder's (256, 128 -> 256); then a ragged fp32-only shape.
 INT8_SHAPES = [(2, 64, 64, 320, 320, 32), (2, 64, 64, 960, 320, 32),
                (2, 16, 16, 2560, 1280, 32), (2, 8, 8, 1280, 1280, 32),
-               (1, 256, 256, 128, 256, 32), (1, 5, 7, 20, 12, 10)]
+               (1, 256, 256, 128, 256, 32), (1, 5, 7, 20, 12, 10),
+               (2, 96, 64, 320, 320, 32), (2, 24, 16, 1280, 1280, 32)]
 X_SCALE = 8.0 / 127.0  # the JAX package's default POWERPAINT_INT8_XSCALE
 # (shape, eps): transformer-block norms at each UNet level and CLIP's.
 LN_SHAPES = [
     ((2, 4096, 320), 1e-5), ((2, 1024, 640), 1e-5), ((2, 256, 1280), 1e-5),
-    ((2, 64, 1280), 1e-5), ((4, 77, 768), 1e-5),
+    ((2, 64, 1280), 1e-5), ((4, 77, 768), 1e-5), ((2, 6144, 320), 1e-5),
 ]
 # The safety checker's LayerNorm rows, fp32 (ViT-L/14: 257 tokens of 1024,
 # then the class token alone).
@@ -1008,18 +1035,23 @@ def _total(*parts) -> dict:
     return {k: sum(n * d.get(k, 0) for n, d in parts) for k in KERNELS}
 
 
+def _hw(hw):
+    """(H, W) of an image size given as one side or as (H, W)."""
+    return (hw, hw) if isinstance(hw, int) else tuple(hw)
+
+
 def _models(cfg, int8_hw, *unets):
     """Per-evaluation launches of each UNet config in ``unets`` (the first
     with ``conv_norm_out``) and of one VAE encode and decode, split by
-    ``int8_split`` at an int8_hw x int8_hw image when int8 is on."""
+    ``int8_split`` at an ``int8_hw`` image (one side, or (H, W)) when int8
+    is on."""
     parts = [unet_launches(u, with_out_norm=i == 0) for i, u in enumerate(unets)]
     parts += [vae_launches(cfg.vae, False), vae_launches(cfg.vae, True)]
     if int8_hw is None:
         return parts
-    lat = int8_hw // 8
-    sites = [unet_sites(u, lat, lat) for u in unets] + [
-        vae_sites(cfg.vae, int8_hw, int8_hw, False),
-        vae_sites(cfg.vae, int8_hw, int8_hw, True)]
+    h, w = _hw(int8_hw)
+    sites = [unet_sites(u, h // 8, w // 8) for u in unets] + [
+        vae_sites(cfg.vae, h, w, False), vae_sites(cfg.vae, h, w, True)]
     return [int8_split(p, s) for p, s in zip(parts, sites)]
 
 
@@ -1033,32 +1065,38 @@ def evaluations(cfg, scheduler: str, steps: int, strength: float = 1.0) -> int:
 
 
 def expected_launches(cfg, steps: int, strength: float = 1.0,
-                      int8_hw=None, scheduler: str = "ddim") -> dict:
+                      int8_hw=None, scheduler: str = "ddim",
+                      text_encoder: bool = True) -> dict:
     """Kernel launches one ppt-v1 ``__call__`` implies, from the config: one
     UNet evaluation per sampler iteration over the kept steps, CLIP's 2
-    LayerNorms a layer and the final one, one or two VAE encodes (image
-    latents only at strength < 1) and one decode; with int8 on
-    (``int8_hw``, the image's side), the ResNet units ``int8_site`` admits
-    on the int8 kernel."""
+    LayerNorms a layer and the final one (none when ``text_encoder`` is
+    False: both embeddings given), one or two VAE encodes (image latents
+    only at strength < 1) and one decode; with int8 on (``int8_hw``, the
+    image's side or its (H, W)), the ResNet units ``int8_site`` admits on
+    the int8 kernel."""
     t = cfg.text_encoder
     kept = min(int(steps * strength), steps)
     n_enc = 2 if kept < steps else 1
     text = {"layer_norm": 2 * t.num_hidden_layers + 1}
     unet, enc, dec = _models(cfg, int8_hw, cfg.unet)
     return _total((evaluations(cfg, scheduler, steps, strength), unet),
-                  (1, text), (n_enc, enc), (1, dec))
+                  (int(text_encoder), text), (n_enc, enc), (1, dec))
 
 
 def expected_launches_v2(cfg, steps: int, int8_hw=None,
-                         scheduler: str = "unipc") -> dict:
+                         scheduler: str = "unipc",
+                         task_tower: bool = True) -> dict:
     """One ppt-v2 ``__call__``: per sampler iteration one BrushNet and one
     base-UNet evaluation (guess mode and gated steps run the branch all
-    the same), the two text towers, one VAE encode and one decode."""
+    the same), the two text towers (the plain one alone when
+    ``task_tower`` is False: both embeddings given), one VAE encode and
+    one decode."""
     t = cfg.text_encoder
     text = {"layer_norm": 2 * t.num_hidden_layers + 1}
     unet, branch, enc, dec = _models(cfg, int8_hw, cfg.unet, cfg.brushnet.base)
     n = evaluations(cfg, scheduler, steps)
-    return _total((n, unet), (n, branch), (2, text), (1, enc), (1, dec))
+    return _total((n, unet), (n, branch), (1 + int(task_tower), text),
+                  (1, enc), (1, dec))
 
 
 def expected_launches_cn(cfg, steps: int, branches: int = 1,
@@ -1069,8 +1107,9 @@ def expected_launches_cn(cfg, steps: int, branches: int = 1,
     u = cfg.controlnet.base
     branch = controlnet_launches(u)
     if int8_hw is not None:
-        lat = int8_hw // 8
-        branch = int8_split(branch, unet_sites(u, lat, lat, encoder_only=True))
+        h, w = _hw(int8_hw)
+        branch = int8_split(branch, unet_sites(u, h // 8, w // 8,
+                                               encoder_only=True))
     v1 = expected_launches(cfg, steps, int8_hw=int8_hw, scheduler=scheduler)
     return _total((1, v1), (evaluations(cfg, scheduler, steps) * branches,
                             branch))
@@ -1128,11 +1167,14 @@ def instrument(pipe, stage_seconds: dict, finite: list, models=()) -> None:
             m.forward = timed(m.forward, stage)
 
 
-def inputs(hw: int, seed: int):
+def inputs(hw, seed: int):
+    """A random image of side ``hw`` (or (H, W)) and a centred square
+    hole."""
+    h, w = _hw(hw)
     rng = np.random.RandomState(seed)
-    image = (rng.rand(hw, hw, 3) * 255).astype(np.uint8)
-    mask = np.zeros((hw, hw), np.float32)
-    mask[hw // 4:3 * hw // 4, hw // 4:3 * hw // 4] = 1.0
+    image = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+    mask = np.zeros((h, w), np.float32)
+    mask[h // 4:3 * h // 4, w // 4:3 * w // 4] = 1.0
     return image, mask
 
 
@@ -1154,7 +1196,8 @@ def _caller(pipe, image, mask, expected, models=()):
     stage_seconds, finite = {}, []
     instrument(pipe, stage_seconds, finite, models)
 
-    def call(label, **kw):
+    def call(label, at=None, **kw):
+        """``at``: another (image, mask) pair for this call."""
         kw.setdefault("num_inference_steps", STEPS)
         kw.setdefault("guidance_scale", GUIDANCE)
         before = read_counts()
@@ -1162,7 +1205,7 @@ def _caller(pipe, image, mask, expected, models=()):
         finite.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = pipe(image, mask, **kw)
+        out = pipe(*(at or (image, mask)), **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         after = read_counts()
@@ -2430,6 +2473,457 @@ def run_checkpoint_path(device):
     return {k: launches[k] + int8_launches[k] + v2_launches[k] for k in launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 7e: the call surface
+# ---------------------------------------------------------------------------
+
+PORTRAIT = (768, 512)
+PORTRAIT_INPUT = (640, 480)
+CUSTOM_GRID = [999, 950, 900, 850, 800, 700, 600, 500, 400, 300, 250, 200,
+               150, 100, 75, 50, 25, 10]
+TIMESTEPS_ERROR = ("explicit timesteps= lists are only supported with the "
+                   "unipc scheduler on the v2 pipeline")
+BPE_PROMPTS = ["a red bench in a park", "A Cat, sitting!  on a sofa",
+               "blurry, low quality, watermark", "an old wooden boat on a "
+               "lake at sunset", "portrait of a woman, 85mm, f/1.8",
+               "remove the person", "a vase of flowers on a table", "",
+               "café crème brûlée", "two dogs playing in the snow 4k"]
+
+
+def _capture_cond(pipe, v2: bool) -> dict:
+    """Wrap ``pipe._encode_prompts`` to keep the (negative, positive)
+    embeddings of the blended pair (ppt-v2: the branch's) it returns, as
+    float32 numpy."""
+    box, inner = {}, pipe._encode_prompts
+
+    def wrapped(*a, **kw):
+        out = inner(*a, **kw)
+        cond = out[0] if v2 else out
+        b = cond.shape[0] // 2
+        box["dtype"] = cond.dtype
+        box["neg"] = cond[:b].float().cpu().numpy()
+        box["pos"] = cond[b:].float().cpu().numpy()
+        return out
+
+    pipe._encode_prompts = wrapped
+    return box
+
+
+def _embeds_calls(call, box, label, **kw):
+    """The plain call, then one with its own blended pair given back as
+    numpy fp32: the image must be bitwise the same. Returns the image and
+    the plain call's seconds."""
+    base = call(f"{label} plain", **kw)
+    seconds = call.seconds
+    check(box["dtype"] == torch.float32,
+          f"{label}: the blended pair is {box['dtype']}, not float32")
+    given = call(f"{label} prompt_embeds", prompt_embeds=box["pos"],
+                 negative_prompt_embeds=box["neg"], **kw)
+    check(np.array_equal(given, base),
+          f"{label}: prompt_embeds did not give the plain call's image")
+    log(call=f"{label} prompt_embeds", card=CARD[0], seconds=call.seconds,
+        plain_seconds=seconds)
+    return base, seconds
+
+
+def _int8_units(pipe):
+    """Record every int8 unit of the UNet's first evaluation of the next
+    call: returns (records, remove)."""
+    from powerpaint_tpu_torch.models.layers import Conv2D
+    from powerpaint_tpu_torch.ops import conv
+
+    sites, first = [], [True]
+
+    def record(mod, args, kwargs, out):
+        x = args[0]
+        if first[0] and conv.int8_site(x.shape[1], x.shape[2], x.shape[3],
+                                       mod.out_channels):
+            sites.append((mod, x.detach().clone(), kwargs["gn"],
+                          out.detach().clone()))
+
+    hooks = [m.register_forward_hook(record, with_kwargs=True)
+             for m in pipe.unet.modules()
+             if isinstance(m, Conv2D) and m.int8_x_scale is not None]
+    hooks.append(pipe.unet.register_forward_hook(
+        lambda *a: first.__setitem__(0, False)))
+    return sites, lambda: [h.remove() for h in hooks]
+
+
+def _check_int8_units(label: str, sites) -> None:
+    from powerpaint_tpu_torch.ops import conv
+
+    worst, flips = 0.0, 0
+    for m, x, gn, out in sites:
+        want = conv.conv3x3_gn_silu_int8_plain(
+            x, m.w_q, m.w_scale, m.bias_fp32, gn.weight, gn.bias,
+            x_scale=m.int8_x_scale, num_groups=gn.num_groups, eps=gn.eps)
+        err, ok, n = int8_check(out, want, x, m.w_q, m.w_scale, m.bias_fp32,
+                                True, (gn.weight, gn.bias), gn.num_groups,
+                                m.int8_x_scale)
+        check(ok, f"{label}: an int8 unit {tuple(x.shape)} is {err} from its "
+                  "plain version, beyond the flip bound")
+        worst, flips = max(worst, err), flips + n
+    log(path=label, int8_units_checked=len(sites), max_abs_err=worst,
+        flip_candidates=flips)
+
+
+def learn_bpe(texts, n_merges: int):
+    """A byte-level CLIP-style vocabulary and merges learned from ``texts``
+    (the most frequent pair merged first): every byte alone and with
+    ``</w>``, the merges, the two special tokens."""
+    from powerpaint_tpu_torch.text.tokenizer import bytes_to_unicode, segment_words
+
+    b2u = bytes_to_unicode()
+    words = {}
+    for t in texts:
+        for w in segment_words(t):
+            s = [b2u[b] for b in w.encode("utf-8")]
+            s[-1] += "</w>"
+            words[tuple(s)] = words.get(tuple(s), 0) + 1
+    vocab = {}
+    for c in b2u.values():
+        vocab[c] = len(vocab)
+    for c in b2u.values():
+        vocab[c + "</w>"] = len(vocab)
+    merges = []
+    for _ in range(n_merges):
+        pairs = {}
+        for w, n in words.items():
+            for p in zip(w[:-1], w[1:]):
+                pairs[p] = pairs.get(p, 0) + n
+        if not pairs:
+            break
+        best = max(sorted(pairs), key=pairs.get)
+        merges.append(best)
+        vocab.setdefault(best[0] + best[1], len(vocab))
+        new = {}
+        for w, n in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            new[tuple(out)] = new.get(tuple(out), 0) + n
+        words = new
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    return vocab, merges
+
+
+def run_call_surface_path(device):
+    """Phase 7e: the call surface at full width, bf16 (and int8 once),
+    guidance 7.5. ppt-v1 (20 DDIM steps, 512^2): the blended embeddings of
+    a call given back as ``prompt_embeds`` (bitwise the image, the text
+    encoder's 25 LayerNorms not launched), a callback every 5 steps
+    (bitwise the image, the launches unchanged); a portrait call, a 640 x
+    480 input to ``height=768, width=512``, in bf16 and int8 (the int8 units
+    of its first evaluation within ``int8_check``). ppt-v2 (20 UniPC
+    steps): ``prompt_embeds`` (the task tower not launched), then the
+    18-step custom grid at 768 x 512 (18 evaluations), and the refusal of
+    ``timesteps=`` on DDIM. A full-width ControlNet (seed 1) written in
+    fp16 as a diffusers directory, loaded by ``load_controlnet`` (every
+    tensor the source cast as the pipelines cast it), a 20-step portrait
+    call over the ppt-v1 stack, and the command line's ``--control_type hed
+    --controlnet_dir`` on the demo stack. The natives: the portrait blend
+    against numpy, the BPE's ids against the Python BPE's. Launches exact
+    per call."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+    import re
+    import shutil
+
+    from PIL import Image
+
+    from powerpaint_tpu_torch.core.config import (
+        ppt_v1_config,
+        ppt_v1_controlnet_config,
+        ppt_v2_config,
+    )
+    from powerpaint_tpu_torch.core.validation import InputValidationError
+    from powerpaint_tpu_torch.io.checkpoint import load_controlnet
+    from powerpaint_tpu_torch.io.weights import build_models, init_state, random_state
+    from powerpaint_tpu_torch.ops import _build
+    from powerpaint_tpu_torch.ops.conv import int8_site
+    from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
+    from powerpaint_tpu_torch.pipelines.common import apply_target_hw
+    from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+    from powerpaint_tpu_torch.serve import cli
+    from powerpaint_tpu_torch.tasks import control, postprocess
+    from powerpaint_tpu_torch.text import native as native_bpe
+    from powerpaint_tpu_torch.text.tokenizer import ClipBPETokenizer
+
+    v1_cfg, v2_cfg = ppt_v1_config(), ppt_v2_config()
+    prompt = "a red bench in a park"
+    image, mask = inputs(HW, 0)
+    portrait_in = inputs(PORTRAIT_INPUT, 2)
+    total = {k: 0 for k in KERNELS}
+
+    def path_done(label, one_call):
+        for k, n in _path_counts(label, one_call).items():
+            total[k] += n
+
+    def build(cls, cfg, **kw):
+        state = init_state(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device, dtype=torch.bfloat16)
+        return cls(cfg, state, _tokenizer(cfg), dtype=torch.bfloat16,
+                   device=device, **kw)
+
+    # 1. ppt-v1: prompt_embeds, the callback, the portrait call
+    t0 = time.perf_counter()
+    pipe = build(InpaintPipeline, v1_cfg)
+    log(phase="setup", path="call surface ppt-v1", seconds=time.perf_counter() - t0)
+
+    def v1_expected(kw):
+        return expected_launches(
+            v1_cfg, kw["num_inference_steps"],
+            text_encoder=kw.get("negative_prompt_embeds") is None)
+
+    call = _caller(pipe, image, mask, v1_expected)
+    box = _capture_cond(pipe, v2=False)
+    latents = {}
+    decode = pipe._decode
+    pipe._decode = lambda z: latents.__setitem__("final", z.float().cpu().numpy()) \
+        or decode(z)
+    kw = dict(prompt=prompt, seed=1)
+    call("surface v1 warm-up", prompt="a cat", seed=99)
+    reset_counts()  # the path starts here
+    base, plain_s = _embeds_calls(call, box, "surface v1", **kw)
+    fewer = (expected_launches(v1_cfg, STEPS)["layer_norm"]
+             - v1_expected({"num_inference_steps": STEPS,
+                            "negative_prompt_embeds": 0})["layer_norm"])
+    n_text = 2 * v1_cfg.text_encoder.num_hidden_layers + 1  # 25 at full width
+    log(path="surface v1", layer_norms_spared_by_prompt_embeds=fewer)
+    check(fewer == n_text, f"surface v1: prompt_embeds spares {fewer} "
+                           f"LayerNorms, not {n_text}")
+    seen = []
+    got = call("surface v1 callback every 5", callback=lambda i, x: seen.append(
+        (i, x)), callback_steps=5, **kw)
+    log(call="surface v1 callback every 5", card=CARD[0], seconds=call.seconds,
+        plain_seconds=plain_s, callback_steps=[i for i, _ in seen])
+    check([i for i, _ in seen] == list(range(0, STEPS, 5)),
+          f"callback: called at {[i for i, _ in seen]}")
+    check(all(x.shape == (1, HW // 8, HW // 8, 4) and x.dtype == np.float32
+              for _, x in seen), "callback: latents of another shape")
+    check(not np.array_equal(seen[-1][1], latents["final"]),
+          f"callback: the latents at i = {seen[-1][0]} are the final ones")
+    check(np.array_equal(got, base), "callback: the image changed")
+    portrait = call("surface v1 portrait 768x512", at=portrait_in,
+                    height=PORTRAIT[0], width=PORTRAIT[1], **kw)
+    check(portrait.shape == (1, *PORTRAIT, 3),
+          f"portrait: output {portrait.shape}")
+    portrait_s = call.seconds
+    ms_512 = denoise_device_ms(pipe, lambda: pipe(image, mask, **kw,
+                                                  num_inference_steps=STEPS))
+    ms_portrait = denoise_device_ms(pipe, lambda: pipe(
+        *portrait_in, height=PORTRAIT[0], width=PORTRAIT[1], **kw,
+        num_inference_steps=STEPS))
+    log(path="surface v1 portrait", card=CARD[0], seconds_per_image=portrait_s,
+        seconds_per_image_512=plain_s, denoise_device_ms=ms_portrait,
+        denoise_device_ms_512=ms_512,
+        device_ms_ratio=(ms_portrait / ms_512) if ms_512 and ms_portrait else None)
+    path_done("call surface ppt-v1", expected_launches(v1_cfg, STEPS))
+
+    # 2. the natives on the portrait result
+    img_p, mask_p = apply_target_hw(*portrait_in, *PORTRAIT, False)
+    blended = postprocess.blend_result(portrait[0], img_p, mask_p)
+    plain = postprocess.blend_result_plain(portrait[0], img_p, mask_p)
+    d = np.abs(blended.astype(np.int32) - plain.astype(np.int32))
+    native_ms = host_ms(lambda: postprocess.blend_result(portrait[0], img_p, mask_p),
+                        iters=5, warmup=1)
+    numpy_ms = host_ms(lambda: postprocess.blend_result_plain(
+        portrait[0], img_p, mask_p), iters=5, warmup=1)
+    log(natives="blend 768x512", card=CARD[0], host_cpus=os.cpu_count(),
+        gxx_native_target=_build._native_target(),
+        max_uint8_diff_vs_numpy=int(d.max()),
+        values_differing=int((d > 0).sum()), native_ms=native_ms, numpy_ms=numpy_ms)
+    check(d.max() <= 1, f"native blend: {d.max()} levels from the numpy blend "
+                        "(Queue C's bound: 1, rounding against truncation)")
+    vocab, merges = learn_bpe(BPE_PROMPTS, 400)
+    py_tok, c_tok = ClipBPETokenizer(vocab, merges), native_bpe.NativeBPETokenizer(
+        vocab, merges)
+    ids = [c_tok.encode_text(t) for t in BPE_PROMPTS]
+    t0 = time.perf_counter()
+    want_ids = [py_tok.encode_text(t) for t in BPE_PROMPTS]
+    py_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for t in BPE_PROMPTS:
+        c_tok.encode_text(t)
+    c_s = time.perf_counter() - t0
+    log(natives="bpe", vocab=len(vocab), merges=len(merges), prompts=len(ids),
+        ids=sum(map(len, ids)), identical=ids == want_ids, native_ms=c_s * 1e3,
+        python_ms=py_s * 1e3)
+    check(ids == want_ids, "native BPE: ids differ from the Python BPE's")
+
+    # 3. the portrait call with int8 on
+    t0 = time.perf_counter()
+    pipe8 = build(InpaintPipeline, v1_cfg, int8=True)
+    log(phase="setup", path="call surface ppt-v1 int8",
+        seconds=time.perf_counter() - t0)
+    want8 = expected_launches(v1_cfg, STEPS, int8_hw=PORTRAIT)
+    call8 = _caller(pipe8, *portrait_in, lambda kw: want8)
+    pkw = dict(kw, height=PORTRAIT[0], width=PORTRAIT[1])
+    call8("surface v1 int8 portrait warm-up", **pkw)
+    sites, remove = _int8_units(pipe8)
+    reset_counts()  # the int8 call starts here
+    out8 = call8("surface v1 int8 portrait 768x512", **pkw)
+    remove()
+    n_sites = sum(int8_site(*s) for s in unet_sites(
+        v1_cfg.unet, PORTRAIT[0] // 8, PORTRAIT[1] // 8))
+    check(len(sites) == n_sites, f"int8 portrait: {len(sites)} units, not {n_sites}")
+    _check_int8_units("surface v1 int8 portrait", sites)
+    log(path="surface v1 int8 portrait", card=CARD[0], seconds_per_image=call8.seconds,
+        int8_units_per_evaluation=n_sites, launches_expected=want8,
+        psnr_vs_bf16=psnr(out8, portrait))
+    path_done("call surface ppt-v1 int8", want8)
+    del pipe8, call8, sites
+    torch.cuda.empty_cache()
+
+    # 4. the ControlNet directory, a portrait call over the ppt-v1 stack
+    work = os.path.join("smoke_out", "controlnet")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cn_cfg = ppt_v1_controlnet_config()
+    model = build_models(cn_cfg)["controlnet"]
+    need = 2 * sum(p.numel() for p in model.parameters()) + (1 << 30)
+    free = shutil.disk_usage(work).free
+    log(phase="controlnet directory", disk_free_bytes=free, disk_needed_bytes=need)
+    check(free >= need, f"controlnet: {free} bytes free under {work}, {need} needed")
+    src = {k: v.half() for k, v in random_state(
+        model, torch.Generator(device=device).manual_seed(1), device=device,
+        dtype=torch.float16).items()}
+    with open(os.path.join(work, "config.json"), "w") as f:
+        json.dump({"_class_name": "ControlNetModel",
+                   **dataclasses.asdict(cn_cfg.controlnet.base), "in_channels": 4,
+                   "conditioning_channels": cn_cfg.controlnet.conditioning_channels,
+                   "conditioning_embedding_out_channels":
+                       list(cn_cfg.controlnet.conditioning_embedding_out_channels)},
+                  f)
+    nbytes = _write(os.path.join(work, "diffusion_pytorch_model.safetensors"), src)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    branch = load_controlnet(work)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(checkpoint="controlnet", card=CARD[0], bytes=nbytes, load_seconds=load_s,
+        load_gb_per_s=nbytes / load_s / 1e9,
+        params=sum(p.numel() for p in branch.parameters()))
+    got_sd = branch.state_dict()
+    check(got_sd.keys() == src.keys(), "controlnet load: state-dict names differ")
+    linear = {f"{n}.{p}" for n, m in branch.named_modules()
+              if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d))
+              for p, _ in m.named_parameters(recurse=False)}
+    bad = [k for k, v in got_sd.items()
+           if v.dtype != (torch.bfloat16 if k in linear else torch.float32)
+           or not torch.equal(v, src[k].to(v.dtype))]
+    check(not bad, f"controlnet load: {len(bad)} tensors are not the source's, "
+                   f"e.g. {bad[:3]}")
+    check(branch.config == cn_cfg.controlnet.replace(
+        base=cn_cfg.controlnet.base.replace(in_channels=4)),
+        f"controlnet load: config {branch.config}")
+    del src, got_sd
+    cn = ControlNetPipeline.from_pipeline(pipe, branch)
+    cn_want = expected_launches_cn(cn.config, STEPS)
+    call_cn = _caller(cn, *portrait_in, lambda kw: cn_want,
+                      models=(("controlnet", "denoise_controlnet"),
+                              ("unet", "denoise_base_unet")))
+    edges = edge_map(PORTRAIT_INPUT[0], 4)[:, :PORTRAIT_INPUT[1]]
+    reset_counts()  # the ControlNet call starts here
+    out_cn = call_cn("surface cn loaded portrait 768x512", control_image=edges,
+                     **pkw)
+    d = np.abs(out_cn.astype(np.int32) - portrait.astype(np.int32))
+    log(path="surface cn portrait", card=CARD[0], seconds_per_image=call_cn.seconds,
+        vs_v1_portrait_max_uint8_diff=int(d.max()))
+    check(out_cn.shape == (1, *PORTRAIT, 3) and d.max() > 0,
+          "controlnet portrait: the branch changed nothing")
+    path_done("call surface controlnet", cn_want)
+    del cn, call_cn, branch, pipe, call
+    torch.cuda.empty_cache()
+
+    # 5. the command line: --control_type hed --controlnet_dir on the demo
+    # stack (a 512^2 image: HED at its bucket's size needs no OpenCV)
+    out_dir = os.path.join("smoke_out", "cli_control")
+    os.makedirs(out_dir, exist_ok=True)
+    cli_image, cli_mask = inputs(HW, 5)
+    paths = {k: os.path.join(out_dir, f"{k}.png") for k in ("image", "mask", "out")}
+    Image.fromarray(cli_image).save(paths["image"])
+    Image.fromarray((cli_mask * 255).astype(np.uint8)).save(paths["mask"])
+    argv = ["--image", paths["image"], "--mask", paths["mask"], "--output",
+            paths["out"], "--prompt", prompt, "--steps", str(STEPS),
+            "--short_side", str(HW), "--seed", "1", "--control_type", "hed",
+            "--controlnet_dir", work]
+    control._REGISTRY.pop("hed", None)  # the command's own random HED
+    reset_counts()  # the command starts here
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(argv)
+    secs = time.perf_counter() - t0
+    cli_want = expected_launches_cn(cn_cfg, STEPS)
+    launches = read_counts()
+    lines = printed.getvalue().strip().splitlines()
+    log(path="cli control", card=CARD[0], argv=argv, rc=rc, printed=lines,
+        seconds=secs, launches=launches)
+    check(rc == 0, f"cli control: exit code {rc}")
+    check(launches == cli_want,
+          f"cli control: launches {launches}, expected {cli_want}")
+    check(len(lines) >= 2 and re.fullmatch(
+        rf"control: hed map \({HW}x{HW}\) in [0-9.]+s", lines[-2]) is not None
+        and re.fullmatch(rf"wrote {re.escape(paths['out'])} \({HW}x{HW}\) in "
+                         rf"[0-9.]+s \({STEPS} steps, control hed\)", lines[-1])
+        is not None, f"cli control: output {lines}")
+    with Image.open(paths["out"]) as im:
+        check(im.size == (HW, HW) and im.mode == "RGB",
+              f"cli control: wrote {im.size} {im.mode}")
+    path_done("call surface cli control", cli_want)
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+
+    # 6. ppt-v2: prompt_embeds, then the custom grid at 768 x 512
+    t0 = time.perf_counter()
+    pipe = build(BrushNetPipeline, v2_cfg)
+    log(phase="setup", path="call surface ppt-v2", seconds=time.perf_counter() - t0)
+
+    def v2_expected(kw):
+        steps = (len(kw["timesteps"]) if kw.get("timesteps")
+                 else kw["num_inference_steps"])
+        return expected_launches_v2(
+            v2_cfg, steps, task_tower=kw.get("negative_prompt_embeds") is None)
+
+    call = _caller(pipe, image, mask, v2_expected,
+                   models=(("brushnet", "denoise_brushnet"),
+                           ("unet", "denoise_base_unet")))
+    box = _capture_cond(pipe, v2=True)
+    call("surface v2 warm-up", prompt="a cat", seed=99)
+    reset_counts()  # the path starts here
+    _embeds_calls(call, box, "surface v2", **kw)
+    evals = []
+    hook = pipe.unet.register_forward_pre_hook(lambda *a: evals.append(1))
+    grid = call("surface v2 custom grid 768x512", at=portrait_in,
+                timesteps=CUSTOM_GRID, height=PORTRAIT[0], width=PORTRAIT[1], **kw)
+    hook.remove()
+    log(call="surface v2 custom grid 768x512", card=CARD[0],
+        unet_evaluations=len(evals), seconds_per_image=call.seconds)
+    check(len(evals) == len(CUSTOM_GRID),
+          f"custom grid: {len(evals)} evaluations, not {len(CUSTOM_GRID)}")
+    check(grid.shape == (1, *PORTRAIT, 3), f"custom grid: output {grid.shape}")
+    try:
+        pipe(image, mask, prompt=prompt, timesteps=CUSTOM_GRID, scheduler="ddim")
+        refused = None
+    except InputValidationError as e:
+        refused = str(e)
+    check(refused == TIMESTEPS_ERROR, f"timesteps= on ddim: {refused!r}")
+    path_done("call surface ppt-v2", expected_launches_v2(v2_cfg, STEPS))
+    del pipe, call
+    torch.cuda.empty_cache()
+    return total
+
+
 def profile_call(label: str, run_call) -> None:
     """One 20-step call under ``torch.profiler``: device time by kernel
     family and the top kernels, and the device's busy share of the call's
@@ -2707,7 +3201,8 @@ def main() -> None:
              ("ppt-v1 + controlnet", lambda d: run_cn_path(d, refs["ppt-v1"])),
              ("annotators + safety", run_annotator_path),
              ("samplers", run_sampler_path),
-             ("checkpoints + lora", run_checkpoint_path))
+             ("checkpoints + lora", run_checkpoint_path),
+             ("call surface", run_call_surface_path))
     for label, run in paths:
         t0 = time.perf_counter()
         counts = run(device)

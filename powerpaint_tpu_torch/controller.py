@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from powerpaint_tpu_torch.core.metrics import GLOBAL as telemetry
+from powerpaint_tpu_torch.core.validation import InputValidationError
 from powerpaint_tpu_torch.core.safety import apply_safety_checker
 from powerpaint_tpu_torch.tasks.control import get_control_image
 from powerpaint_tpu_torch.tasks.postprocess import blend_result, red_overlay
@@ -55,21 +56,41 @@ class PowerPaint:
 
     @classmethod
     def from_checkpoint(cls, checkpoint_dir: str, version: str = "ppt-v1",
-                        dtype=None, **kwargs):
+                        dtype=None, controlnet_dir: Optional[str] = None,
+                        **kwargs):
         """A controller over the pipeline of a reference-layout checkpoint
         directory (or, for ppt-v1, an original-SD single file), linear and
         conv weights in ``dtype`` (bf16 by default). ``kwargs`` go to
         ``io.checkpoint.load_ppt_v1`` / ``load_ppt_v2``: ``device`` (the
-        card unless ``"cpu"`` is asked for), ``int8``, ``config``."""
+        card unless ``"cpu"`` is asked for), ``int8``, ``config``.
+        ``controlnet_dir`` (ppt-v1 only, as the reference offers ControlNet):
+        a diffusers ControlNet directory (``io.checkpoint.load_controlnet``),
+        whose branch over the loaded ppt-v1 models is the
+        ``controlnet_pipeline``."""
         import torch
 
-        from powerpaint_tpu_torch.io.checkpoint import load_ppt_v1, load_ppt_v2
+        from powerpaint_tpu_torch.io.checkpoint import (
+            load_controlnet,
+            load_ppt_v1,
+            load_ppt_v2,
+        )
 
         loaders = {"ppt-v1": load_ppt_v1, "ppt-v2": load_ppt_v2}
         if version not in loaders:
             raise ValueError(f"version {version!r}: one of {sorted(loaders)}")
-        return cls(loaders[version](checkpoint_dir,
-                                    dtype=dtype or torch.bfloat16, **kwargs))
+        if controlnet_dir is not None and version != "ppt-v1":
+            raise ValueError("controlnet_dir needs version 'ppt-v1': the "
+                             "ControlNet branch conditions the ppt-v1 UNet")
+        dtype = dtype or torch.bfloat16
+        pipe = loaders[version](checkpoint_dir, dtype=dtype, **kwargs)
+        if controlnet_dir is None:
+            return cls(pipe)
+        from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+
+        branch = load_controlnet(controlnet_dir, dtype=dtype,
+                                 device=kwargs.get("device", "cuda"),
+                                 int8=kwargs.get("int8"))
+        return cls(pipe, ControlNetPipeline.from_pipeline(pipe, branch))
 
     def infer(
         self,
@@ -103,8 +124,15 @@ class PowerPaint:
         few distinct shapes. ``control_type`` routes the call to the
         ControlNet pipeline, with ``control_image`` or, when none is given,
         ``tasks.control.get_control_image`` of the preprocessed image,
-        resized to the image where the preprocessor gives another size."""
+        resized to the image where the preprocessor gives another size.
+
+        A caller's ``control_image`` at the processed image's size passes as
+        it is; at the input image's size it goes through the image's own
+        resize (the same filter), outpainting canvas, crop and bucket pad
+        (edge pixels replicated, as the image's), so it stays aligned with
+        the image; at any other size the call is refused."""
         img = to_numpy_image(image)
+        in_hw = img.shape[:2]
 
         # reference resize policy: 640 short side for tasks, 512 for outpaint
         target = 512 if task == OUTPAINTING else short_side
@@ -151,6 +179,12 @@ class PowerPaint:
                     # control image to the call's height and width
                     control_image = resize_to(control_image, None,
                                               *img.shape[:2])[0]
+            else:
+                control_image = _align_control(
+                    to_numpy_image(control_image), in_hw, img.shape[:2],
+                    lambda x: _like_image(
+                        x, target, task, horizontal_expansion_ratio,
+                        vertical_expansion_ratio, resolution_bucketing))
             out = self.controlnet_pipeline(
                 img, msk, control_image=np.asarray(control_image),
                 controlnet_conditioning_scale=controlnet_conditioning_scale,
@@ -173,3 +207,32 @@ class PowerPaint:
             timings_ms=telemetry.last_call_report(),
             nsfw_flags=nsfw_flags,
         )
+
+
+def _like_image(x: np.ndarray, target: int, task: str, h_ratio: float,
+                v_ratio: float, bucketing: bool) -> np.ndarray:
+    """An (H, W, 3) uint8 array at the input image's size through the
+    image's own steps in ``PowerPaint.infer``: the short-side resize,
+    the outpainting canvas, the crop to multiples of 8 and the bucket
+    pad."""
+    if min(x.shape[:2]) > target:
+        x = resize_short_side(x, target)
+    if task == OUTPAINTING:
+        x = outpaint_canvas(x, h_ratio, v_ratio)[0]
+    x = crop_to_multiple_of_8(x)
+    if bucketing:
+        x = pad_to_bucket(x, np.zeros(x.shape[:2], np.float32))[0]
+    return x
+
+
+def _align_control(control: np.ndarray, in_hw, hw, like_image) -> np.ndarray:
+    """A caller's control map for the processed image of size ``hw``: as
+    it is at that size, through ``like_image`` at the input image's size
+    ``in_hw``, refused at any other."""
+    if control.shape[:2] == tuple(hw):
+        return control
+    if control.shape[:2] == tuple(in_hw):
+        return like_image(control)
+    raise InputValidationError(
+        f"control image {tuple(control.shape[:2])} matches neither the input "
+        f"image {tuple(in_hw)} nor the processed image {tuple(hw)}")

@@ -16,8 +16,10 @@ ppt-v2 (``checkpoints/ppt-v2``)::
     PowerPaint_Brushnet/diffusion_pytorch_model.safetensors   (BrushNet)
     PowerPaint_Brushnet/pytorch_model.bin          (the task text encoder)
 
-(or the base's four directories at the root: the flat layout), and an
-original-SD single file (``load_single_file``). Each directory's weights are
+(or the base's four directories at the root: the flat layout), an
+original-SD single file (``load_single_file``), and a diffusers ControlNet
+directory (``load_controlnet``: ``config.json`` and
+``diffusion_pytorch_model.safetensors`` or ``.bin``). Each directory's weights are
 its first ``*.safetensors``, else ``*.bin``, else ``*.pth``.
 
 Every loader reads each family into CPU tensors in its stored dtype and
@@ -34,13 +36,16 @@ native orbax directory (A19).
 from __future__ import annotations
 
 import glob
+import json
 import os
 from typing import Dict, Optional
 
 import torch
 
 from powerpaint_tpu_torch.core.config import (
+    ControlNetConfig,
     PowerPaintConfig,
+    UNetConfig,
     ppt_v1_config,
     ppt_v2_config,
 )
@@ -253,3 +258,45 @@ def load_safety_checker(d: str, *, device="cuda"):
         raise FileNotFoundError(f"no safety-checker weights under {d!r}")
     return CLIPSafetyChecker(C.infer_clip_vision_config(sd), state=sd,
                              device=device)
+
+
+def controlnet_config_from_dict(d: dict) -> ControlNetConfig:
+    """A ``ControlNetConfig`` from a diffusers ControlNet ``config.json``
+    (the UNet's keys flat beside the conditioning embedding's) or from the
+    package's own nested form (a ``base`` entry)."""
+    d = {k: v for k, v in d.items() if v is not None}
+    if not isinstance(d.get("base"), dict):
+        d["base"] = UNetConfig.from_dict(d)
+    return ControlNetConfig.from_dict(d)
+
+
+def load_controlnet(path: str, *, dtype: torch.dtype = torch.bfloat16,
+                    device="cuda", int8: Optional[bool] = None):
+    """A ``ControlNetModel`` (its config as ``.config``) from a diffusers
+    ControlNet directory: ``config.json`` and
+    ``diffusion_pytorch_model.safetensors`` (else ``.bin``). The names are
+    diffusers', as the port's; the weights go through the pipelines' cast
+    (linear and conv weights to ``dtype``, conv weights channels-last) on
+    ``device`` (the card unless ``"cpu"`` is asked for), and ``int8`` (as
+    the pipelines take it) quantises the ResNet units. Give the branch to
+    ``pipelines.controlnet.ControlNetPipeline.from_pipeline``."""
+    from powerpaint_tpu_torch.io.weights import _load
+    from powerpaint_tpu_torch.models.controlnet import ControlNetModel
+    from powerpaint_tpu_torch.pipelines.common import int8_x_scale
+
+    config_path = os.path.join(path, "config.json")
+    weights = _find_weights(
+        os.path.join(path, "diffusion_pytorch_model*.safetensors"),
+        os.path.join(path, "diffusion_pytorch_model*.bin"))
+    if weights is None:
+        raise FileNotFoundError(
+            f"controlnet dir {path!r} missing weights for: ['controlnet']")
+    if not os.path.isfile(config_path):
+        raise FileNotFoundError(
+            f"controlnet dir {path!r} missing config.json for: ['controlnet']")
+    with open(config_path, encoding="utf-8") as f:
+        config = controlnet_config_from_dict(json.load(f))
+    with torch.device("meta"):
+        model = ControlNetModel(config)
+    return _load(model, C.load_state_dict(weights), torch.device(device),
+                 dtype, int8_x_scale(int8))

@@ -1,4 +1,5 @@
-"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+"""Build the CUDA sources under ``csrc/`` with nvcc, and the host natives
+under the repository's ``native/`` with g++, and load them with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled on first use into a shared library with
 a plain C interface, ``_build/lib<name>-<hash>.so`` inside the package
@@ -6,6 +7,13 @@ a plain C interface, ``_build/lib<name>-<hash>.so`` inside the package
 headers ``csrc/*.cuh`` and the flags, so an edited source is rebuilt.
 Nothing is built when a module is imported: nvcc and the card exist only
 on the GPU host.
+
+The host natives (``native/image_ops.cpp``, ``native/bpe_tokenizer.cpp``)
+build the same way with the flags of ``native/build.sh`` into
+``_build/libppt_<name>-<hash>.so``; the JAX package's own copies under
+``powerpaint_tpu/native/`` are never read. Every build writes a file named
+by its process id and renames it into place, so processes that build at
+once leave one whole library.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NATIVE = Path(__file__).resolve().parent.parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -89,3 +98,56 @@ def load(name: str) -> ctypes.CDLL:
 
 
 SOURCES = ("flash_attention", "conv3x3", "conv3x3_int8", "group_norm", "layer_norm")
+
+# native/<source>.cpp -> the library's name and native/build.sh's flags
+NATIVE_SOURCES = {"image": ("image_ops", ("-O3", "-shared", "-fPIC",
+                                          "-std=c++17", "-march=native")),
+                  "bpe": ("bpe_tokenizer", ("-O3", "-shared", "-fPIC",
+                                            "-std=c++17"))}
+
+
+@functools.lru_cache(maxsize=None)
+def _native_target() -> str:
+    """What ``-march=native`` means to this host's g++ (its ``-march=`` and
+    ``-mtune=`` lines): a build for one CPU is not reused on another."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        return ""
+    out = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
+                         capture_output=True, text=True).stdout
+    return " ".join(line.split()[-1] for line in out.splitlines()
+                    if line.strip().startswith(("-march=", "-mtune=")))
+
+
+def native_library_path(name: str) -> Path:
+    source, flags = NATIVE_SOURCES[name]
+    key = " ".join(flags)
+    if "-march=native" in flags:
+        key += " " + _native_target()
+    digest = hashlib.sha256((NATIVE / f"{source}.cpp").read_bytes() + key.encode())
+    return BUILD_DIR / f"libppt_{name}-{digest.hexdigest()[:12]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load_native(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name`` ("image" or "bpe"), compiled with
+    g++ from ``native/`` if it is not built yet; raises with the compiler's
+    output when it cannot be built."""
+    out = native_library_path(name)
+    if not out.exists():
+        source, flags = NATIVE_SOURCES[name]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError(f"g++ not found: native/{source}.cpp cannot "
+                               "be built")
+        proc = subprocess.run(
+            [cxx, *flags, "-o", str(tmp), str(NATIVE / f"{source}.cpp")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed for native/{source}.cpp (exit "
+                               f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))

@@ -22,6 +22,13 @@ The port of ``powerpaint_tpu/pipelines/brushnet.py`` on PyTorch:
   embedding of w - 1 as ``timestep_cond`` at every evaluation, one row per
   image of the CFG batch.
 
+The call surface of the reference's pipeline: ``prompt_embeds`` /
+``negative_prompt_embeds`` replace the branch's task-blended pair (the
+base UNet's plain tower still encodes; with both given the task tower does
+not run), ``callback`` / ``callback_steps`` observe the loop
+(``pipelines.common.StepCallbackMixin``), ``height`` / ``width`` resize the
+inputs first, and ``timesteps=`` (UniPC only) gives the sampler's grid.
+
 Randomness: per-image ``torch.Generator`` draws in the order
 ``pipelines.common`` documents (the initial latent noise, the VAE sample
 noise of the masked image, then a stochastic sampler's step noise), so a
@@ -32,7 +39,7 @@ streams.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,14 +56,19 @@ from powerpaint_tpu_torch.core.validation import (
 from powerpaint_tpu_torch.io.lora import LoraMixin
 from powerpaint_tpu_torch.io.weights import load_models
 from powerpaint_tpu_torch.pipelines.common import (
+    StepCallbackMixin,
+    apply_target_hw,
     as_list,
     batch_inputs,
     cond_scale_table,
     draw_noise,
+    embeds_rows,
     int8_x_scale,
     make_sampler,
+    norm_embeds,
     per_iteration,
     resolve_seeds,
+    resolve_timesteps,
     sampler_step,
     table_row,
     takes_step_noise,
@@ -67,7 +79,7 @@ from powerpaint_tpu_torch.models.layers import guidance_scale_embedding
 from powerpaint_tpu_torch.text.prompts import TaskPrompts, add_task, v2_prompt_suffix
 
 
-class BrushNetPipeline(LoraMixin):
+class BrushNetPipeline(LoraMixin, StepCallbackMixin):
     """``BrushNetPipeline(config, state, tokenizer)(image, mask, prompt)``.
 
     ``state`` holds one diffusers / transformers named state dict per family
@@ -110,24 +122,34 @@ class BrushNetPipeline(LoraMixin):
                 self.tokenizer([prompts.promptU, prompts.negative_promptU]))
 
     def _encode_prompts(self, ids_task: torch.Tensor, ids_plain: torch.Tensor,
-                        fittings: torch.Tensor, b: int,
-                        clip_skip: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                        fittings: torch.Tensor, b: int, clip_skip: int,
+                        pos_in: Optional[torch.Tensor] = None,
+                        neg_in: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """ids_task (P, 4, 77), ids_plain (P, 2, 77) -> the CFG contexts
         (2B, 77, D) [negatives; positives] of the branch (task embeddings,
-        each pair blended ``A * t + (1 - t) * B``) and of the base UNet
-        (plain embeddings; ``clip_skip`` applies to this tower)."""
+        each pair blended ``A * t + (1 - t) * B``, float32) and of the base
+        UNet (plain embeddings; ``clip_skip`` applies to this tower).
+        ``pos_in`` / ``neg_in`` (B, 77, D) float32 replace the branch's
+        halves; with both the task tower does not run."""
         p, _, s = ids_task.shape
-        emb = self.text_encoder_brushnet(ids_task.reshape(p * 4, s))
-        emb = emb.reshape(p, 4, s, -1)
-        t = fittings.reshape(-1, 1, 1)
-        pos_t = emb[:, 0] * t + (1.0 - t) * emb[:, 1]
-        neg_t = emb[:, 2] * t + (1.0 - t) * emb[:, 3]
+        if pos_in is None or neg_in is None:
+            emb = self.text_encoder_brushnet(ids_task.reshape(p * 4, s))
+            emb = emb.reshape(p, 4, s, -1)
+            t = fittings.reshape(-1, 1, 1)
+            pos_t = emb[:, 0] * t + (1.0 - t) * emb[:, 1]
+            neg_t = emb[:, 2] * t + (1.0 - t) * emb[:, 3]
+            if p != b:  # one prompt, several images
+                pos_t, neg_t = (e.repeat_interleave(b // p, dim=0)
+                                for e in (pos_t, neg_t))
+        pos_t = pos_t if pos_in is None else pos_in
+        neg_t = neg_t if neg_in is None else neg_in
         plain = self.text_encoder(ids_plain.reshape(p * 2, s),
                                   clip_skip=clip_skip).reshape(p, 2, s, -1)
         pos_u, neg_u = plain[:, 0], plain[:, 1]
-        if p != b:  # one prompt, several images
-            pos_t, neg_t, pos_u, neg_u = (e.repeat_interleave(b // p, dim=0)
-                                          for e in (pos_t, neg_t, pos_u, neg_u))
+        if p != b:
+            pos_u, neg_u = (e.repeat_interleave(b // p, dim=0)
+                            for e in (pos_u, neg_u))
         return torch.cat([neg_t, pos_t]), torch.cat([neg_u, pos_u])
 
     def _vae_sample(self, images: torch.Tensor,
@@ -171,6 +193,7 @@ class BrushNetPipeline(LoraMixin):
                             mid_block_add_sample=mid, up_block_add_samples=up,
                             timestep_cond=timestep_cond).float()
             eps = eps[:b] + guidance * (eps[b:] - eps[:b])
+            self._run_step_callback(i, latents)
             latents, state = sampler_step(mod, sched, state, eps, i, latents,
                                           0.0, step_noise)
         return latents
@@ -189,7 +212,11 @@ class BrushNetPipeline(LoraMixin):
                   vae_noise: torch.Tensor, step_noise=None, *, num_steps: int,
                   output_type: str, guess_mode: bool = False,
                   latents_in: Optional[torch.Tensor] = None,
-                  clip_skip: int = 0, scheduler: str = "unipc") -> torch.Tensor:
+                  clip_skip: int = 0, scheduler: str = "unipc",
+                  timesteps: Optional[Sequence[int]] = None,
+                  prompt_embeds: Optional[torch.Tensor] = None,
+                  negative_prompt_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
         """Everything after host-side validation, on ``self.device``.
 
         ids_task (P, 4, 77); ids_plain (P, 2, 77); fittings (P,); image_u8
@@ -197,14 +224,19 @@ class BrushNetPipeline(LoraMixin):
         guidance (B,); scales the branch's scale per step, on the sampler's
         iterations (``per_iteration``); noise0 and vae_noise (B, H/8, W/8,
         4) fp32; step_noise one (B, H/8, W/8, 4) tensor per iteration for a
-        stochastic sampler, else None."""
-        mod, sched = make_sampler(scheduler, self.config.scheduler, num_steps)
+        stochastic sampler, else None; ``timesteps`` UniPC's grid in place of
+        the spacing formula (``num_steps`` its length); ``prompt_embeds`` /
+        ``negative_prompt_embeds`` (B, 77, D) float32 or None, as
+        ``_encode_prompts`` takes them."""
+        mod, sched = make_sampler(scheduler, self.config.scheduler, num_steps,
+                                  custom_timesteps=timesteps)
         b, h, w, _ = image_u8.shape
         keep = 1.0 - (mask_u8 >= 128).float()
         masked_image = image_u8.float() * keep / 127.5 - 1.0
 
-        cond_task, cond_plain = self._encode_prompts(ids_task, ids_plain,
-                                                     fittings, b, clip_skip)
+        cond_task, cond_plain = self._encode_prompts(
+            ids_task, ids_plain, fittings, b, clip_skip, prompt_embeds,
+            negative_prompt_embeds)
         cond_lat = self._vae_sample(masked_image, vae_noise)
         # half-pixel-centre nearest, as jax.image.resize(..., "nearest")
         keep8 = F.interpolate(keep.permute(0, 3, 1, 2), size=(h // 8, w // 8),
@@ -239,6 +271,11 @@ class BrushNetPipeline(LoraMixin):
                  latents: Optional[np.ndarray] = None,
                  output_type: str = "uint8", clip_skip: int = 0,
                  scheduler: str = "unipc",
+                 prompt_embeds: Optional[np.ndarray] = None,
+                 negative_prompt_embeds: Optional[np.ndarray] = None,
+                 callback: Optional[Callable] = None, callback_steps: int = 1,
+                 height: Optional[int] = None, width: Optional[int] = None,
+                 timesteps: Optional[Sequence[int]] = None,
                  cross_attention_kwargs: Optional[dict] = None) -> np.ndarray:
         """Inpaint ``image`` (H, W, 3) where ``mask`` (H, W) is 1.
 
@@ -249,13 +286,29 @@ class BrushNetPipeline(LoraMixin):
         sampler. Returns (B, H, W, 3) uint8, (B, H, W, 3) float32 in [-1, 1]
         or (B, H/8, W/8, 4) float32 latents, as numpy.
         ``cross_attention_kwargs={"scale": s}``: the loaded LoRA's scale for
-        this call alone (``LoraMixin``)."""
+        this call alone (``LoraMixin``).
+
+        ``prompt_embeds`` / ``negative_prompt_embeds``: (B|1, 77, D) or (77,
+        D) arrays in place of the branch's task-blended pair;
+        ``callback(i, latents)`` every ``callback_steps`` iterations
+        (``StepCallbackMixin``); ``height`` and ``width`` (together) resize
+        the image and mask first; ``timesteps``: a strictly descending list
+        of ints in [0, T), UniPC only, that replaces ``num_inference_steps``
+        and its spacing."""
         if cross_attention_kwargs:
             call_kw = {k: v for k, v in locals().items()
                        if k not in ("self", "cross_attention_kwargs")}
             return self._with_lora_scale(cross_attention_kwargs,
                                          lambda: self(**call_kw))
+        custom_ts = None
+        if timesteps is not None:
+            check_scheduler(scheduler, self.config.scheduler, 1)
+            custom_ts = resolve_timesteps(scheduler, self.config.scheduler,
+                                          timesteps)
+            num_inference_steps = len(custom_ts)
         multi = isinstance(prompt, (list, tuple))
+        if height is not None or width is not None:
+            image, mask = apply_target_hw(image, mask, height, width, multi)
         prompts = list(prompt) if multi else [prompt]
         negatives = as_list(negative_prompt, len(prompts))
         fittings = as_list(fitting_degree, len(prompts))
@@ -288,12 +341,13 @@ class BrushNetPipeline(LoraMixin):
             num_inference_steps, float(brushnet_conditioning_scale),
             control_guidance_start, control_guidance_end))
         _, sched = make_sampler(scheduler, self.config.scheduler,
-                                num_inference_steps)
+                                num_inference_steps, custom_timesteps=custom_ts)
         n_draws = sched.num_steps if takes_step_noise(mod) else 0
         noise0, vae_noise, *step_noise = draw_noise(
             self.device, seeds, (h // 8, w // 8, 4), 2 + n_draws)
 
         dev = self.device
+        self._set_step_callback(callback, callback_steps)
         telemetry.reset_stages()
         with telemetry.stage("generate"):
             out = self._generate(
@@ -308,7 +362,11 @@ class BrushNetPipeline(LoraMixin):
                 guess_mode=bool(guess_mode),
                 latents_in=(None if latents is None
                             else torch.as_tensor(latents, device=dev)),
-                clip_skip=int(clip_skip), scheduler=scheduler).cpu().numpy()
+                clip_skip=int(clip_skip), scheduler=scheduler,
+                timesteps=custom_ts,
+                prompt_embeds=embeds_rows(norm_embeds(prompt_embeds), b, dev),
+                negative_prompt_embeds=embeds_rows(
+                    norm_embeds(negative_prompt_embeds), b, dev)).cpu().numpy()
         telemetry.count("images", out.shape[0])
         telemetry.count("denoise_steps", num_inference_steps)
         return out

@@ -1,6 +1,9 @@
 """What the ppt-v1, ppt-v2 and ControlNet pipelines share: the int8 option,
 request batching, seeds and the branches' gating tables on the host,
-per-image noise, the sampler's step, the VAE sample and the decode.
+per-image noise, the sampler's step, the VAE sample and the decode; and
+the call surface they share with the reference's diffusers pipelines:
+``prompt_embeds`` (``norm_embeds``), ``callback`` / ``callback_steps``
+(``StepCallbackMixin``) and ``height`` / ``width`` (``apply_target_hw``).
 
 Randomness: each image has its own ``torch.Generator`` seeded with its
 seed, and ``draw_noise`` takes every draw of a call from it, in this
@@ -30,9 +33,17 @@ import numpy as np
 import torch
 
 from powerpaint_tpu_torch import schedulers
-from powerpaint_tpu_torch.core.validation import check_image_mask
-from powerpaint_tpu_torch.schedulers import ddim
-from powerpaint_tpu_torch.tasks.preprocess import to_numpy_image, to_numpy_mask
+from powerpaint_tpu_torch.core.validation import (
+    InputValidationError,
+    check_image_mask,
+)
+from powerpaint_tpu_torch.schedulers import ddim, unipc
+from powerpaint_tpu_torch.schedulers.common import custom_timesteps_array
+from powerpaint_tpu_torch.tasks.preprocess import (
+    resize_to,
+    to_numpy_image,
+    to_numpy_mask,
+)
 
 
 def int8_x_scale(int8: Optional[bool]) -> Optional[float]:
@@ -97,12 +108,94 @@ def cond_scale_table(num_steps: int, scale: float, start: float,
 
 
 def make_sampler(name: str, scheduler_config, num_steps: int,
-                 keep_steps: Optional[int] = None):
+                 keep_steps: Optional[int] = None,
+                 custom_timesteps: Optional[Sequence[int]] = None):
     """(module, schedule) of the registry sampler ``name``; ``keep_steps``
-    < ``num_steps`` keeps the last steps (strength < 1)."""
+    < ``num_steps`` keeps the last steps (strength < 1). ``custom_timesteps``
+    (UniPC only, ``resolve_timesteps``) replaces the spacing formula."""
     mod, make = schedulers.get(name)
+    if custom_timesteps is not None:
+        if mod is not unipc:
+            raise ValueError(f"custom timesteps on the {name!r} sampler")
+        return mod, unipc.make_unipc_schedule(
+            scheduler_config, len(custom_timesteps),
+            custom_timesteps=custom_timesteps)
     keep = keep_steps if keep_steps is not None and keep_steps < num_steps else None
     return mod, make(scheduler_config, num_steps, keep_steps=keep)
+
+
+def resolve_timesteps(scheduler: str, scheduler_config,
+                      timesteps) -> Tuple[int, ...]:
+    """A caller's ``timesteps`` list checked on the host (UniPC only, the
+    JAX package's rule and messages) as a tuple of ints."""
+    if scheduler.lower() != "unipc":
+        raise InputValidationError(
+            "explicit timesteps= lists are only supported with the "
+            "unipc scheduler on the v2 pipeline")
+    try:
+        return tuple(int(t) for t in
+                     custom_timesteps_array(scheduler_config, timesteps))
+    except ValueError as e:
+        raise InputValidationError(str(e)) from e
+
+
+def norm_embeds(e) -> Optional[np.ndarray]:
+    """A caller's ``prompt_embeds`` / ``negative_prompt_embeds`` as (B, 77,
+    D) float32 numpy (a (77, D) array is one row), or None."""
+    if e is None:
+        return None
+    e = np.asarray(e, np.float32)
+    return e[None] if e.ndim == 2 else e
+
+
+def embeds_rows(e: Optional[np.ndarray], b: int, device) -> Optional[torch.Tensor]:
+    """``norm_embeds``' rows on ``device``, one per image: a single row is
+    repeated over the ``b`` images, as the encoded pair is."""
+    if e is None:
+        return None
+    t = torch.as_tensor(e, dtype=torch.float32, device=device)
+    return t.repeat_interleave(b // t.shape[0], dim=0) if t.shape[0] != b else t
+
+
+def apply_target_hw(image, mask, height, width, multi: bool):
+    """The ``height`` / ``width`` call arguments: both or neither, and the
+    image (LANCZOS) and mask (NEAREST) resized to exactly (height, width)
+    (``tasks.preprocess.resize_to``); a batched call's stacked pairs each."""
+    if height is None or width is None:
+        raise InputValidationError("height and width must be provided together")
+    if multi and isinstance(image, (list, tuple)):
+        pairs = [resize_to(to_numpy_image(im), to_numpy_mask(m), int(height),
+                           int(width)) for im, m in zip(image, mask)]
+        return [p[0] for p in pairs], [p[1] for p in pairs]
+    return resize_to(to_numpy_image(image),
+                     None if mask is None else to_numpy_mask(mask),
+                     int(height), int(width))
+
+
+class StepCallbackMixin:
+    """The per-call step callback, the reference's ``callback`` /
+    ``callback_steps``: observation only. ``callback(i, latents)`` runs on
+    the host after the model evaluation of iteration i, for every i that
+    ``callback_steps`` divides, with a float32 numpy copy of the latents
+    entering that iteration's sampler step, (B, H/8, W/8, 4) as in the JAX
+    package; the copy synchronises with the device, so a call without a
+    callback launches and runs as before and a callback cannot change the
+    run. ``step_callback`` is the pipeline's default callback (the ppt-v1
+    and ControlNet pipelines take it as a constructor argument)."""
+
+    step_callback = None
+    _active_callback = None
+    _active_callback_steps = 1
+
+    def _set_step_callback(self, callback, callback_steps: int,
+                           default=None) -> None:
+        self._active_callback = callback or default
+        self._active_callback_steps = max(1, int(callback_steps))
+
+    def _run_step_callback(self, i: int, latents: torch.Tensor) -> None:
+        cb = self._active_callback
+        if cb is not None and int(i) % self._active_callback_steps == 0:
+            cb(int(i), latents.to("cpu", torch.float32, copy=True).numpy())
 
 
 def takes_step_noise(mod, eta: float = 0.0) -> bool:

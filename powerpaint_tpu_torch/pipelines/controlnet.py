@@ -19,6 +19,10 @@ onto the base UNet's skip connections and mid block (``models.unet``).
   zero residuals.
 - ``control_image=None`` is the plain v1 call (the reference's
   ``predict_woControl``).
+- ``prompt_embeds``, ``callback`` and ``height`` / ``width`` as on the v1
+  pipeline; ``height`` / ``width`` resize the control images with the
+  image (LANCZOS), so the conditioning embedding lands on the same latent
+  grid.
 - The sampler is any of the registry's (``scheduler=``, DDIM by
   default), as on the v1 pipeline; the branches see the sampler's scaled
   latents, as the UNet does.
@@ -30,7 +34,7 @@ test can inject the JAX package's threefry streams.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -43,13 +47,14 @@ from powerpaint_tpu_torch.core.validation import (
 )
 from powerpaint_tpu_torch import schedulers
 from powerpaint_tpu_torch.pipelines.common import (
+    apply_target_hw,
     as_list,
     cond_scale_table,
     per_iteration,
     table_row,
 )
 from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
-from powerpaint_tpu_torch.tasks.preprocess import to_numpy_image
+from powerpaint_tpu_torch.tasks.preprocess import resize_to, to_numpy_image
 
 
 def _per_branch(value, n: int, name: str) -> list:
@@ -75,12 +80,33 @@ class ControlNetPipeline(InpaintPipeline):
 
     def __init__(self, config: PowerPaintConfig, state: Dict[str, dict],
                  tokenizer, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda", int8: Optional[bool] = None):
+                 device="cuda", int8: Optional[bool] = None,
+                 step_callback: Optional[Callable] = None):
         if config.controlnet is None:
             raise ValueError("ControlNetPipeline needs a config with a "
                              "controlnet (ppt_v1_controlnet_config)")
         super().__init__(config, state, tokenizer, dtype=dtype, device=device,
-                         int8=int8)
+                         int8=int8, step_callback=step_callback)
+
+    @classmethod
+    def from_pipeline(cls, pipe: InpaintPipeline, controlnet,
+                      controlnet_config=None) -> "ControlNetPipeline":
+        """A ControlNet pipeline over a loaded ppt-v1 pipeline's models
+        (shared, not copied; its LoRA and textual-inversion state too) and
+        ``controlnet``: one loaded ``ControlNetModel`` or a list of them
+        (``io.checkpoint.load_controlnet``), whose config is
+        ``controlnet_config`` or the first branch's ``.config``."""
+        branches = list(controlnet) if isinstance(
+            controlnet, (list, tuple, torch.nn.ModuleList)) else [controlnet]
+        cn_cfg = controlnet_config or branches[0].config
+        out = cls.__new__(cls)
+        # the state, not instance-level overrides of methods (a profiler's
+        # wrappers), which stay with the pipeline they wrap
+        out.__dict__.update({k: v for k, v in pipe.__dict__.items()
+                             if not callable(getattr(type(pipe), k, None))})
+        out.config = pipe.config.replace(controlnet=cn_cfg)
+        out.controlnet = torch.nn.ModuleList(branches)
+        return out
 
     # ------------------------------------------------------------ branches
 
@@ -179,6 +205,10 @@ class ControlNetPipeline(InpaintPipeline):
                  num_images_per_prompt: int = 1, guess_mode: bool = False,
                  latents: Optional[np.ndarray] = None,
                  output_type: str = "uint8", clip_skip: int = 0,
+                 prompt_embeds: Optional[np.ndarray] = None,
+                 negative_prompt_embeds: Optional[np.ndarray] = None,
+                 callback: Optional[Callable] = None, callback_steps: int = 1,
+                 height: Optional[int] = None, width: Optional[int] = None,
                  cross_attention_kwargs: Optional[dict] = None) -> np.ndarray:
         """Inpaint ``image`` where ``mask`` is 1, conditioned on
         ``control_image`` ((H, W, 3) uint8 edges, depth, ..., or a list of
@@ -189,6 +219,9 @@ class ControlNetPipeline(InpaintPipeline):
         Batched form, as the v1 pipeline's: ``prompt`` a list of B prompts,
         and ``control_image`` a list of B entries, each one image or a
         per-branch list. Returns what the v1 pipeline returns.
+        ``prompt_embeds``, ``negative_prompt_embeds``, ``callback``,
+        ``callback_steps``, ``height`` and ``width`` as the v1 pipeline
+        takes them; ``height`` / ``width`` resize the control images too.
         ``cross_attention_kwargs={"scale": s}``: the loaded LoRA's scale for
         this call alone (``LoraMixin``)."""
         if cross_attention_kwargs:
@@ -206,9 +239,17 @@ class ControlNetPipeline(InpaintPipeline):
             guidance_scale=guidance_scale, strength=strength, eta=eta,
             seed=seed, num_images_per_prompt=num_images_per_prompt,
             latents=latents, output_type=output_type, clip_skip=clip_skip,
-            scheduler=scheduler)
+            scheduler=scheduler, prompt_embeds=prompt_embeds,
+            negative_prompt_embeds=negative_prompt_embeds, callback=callback,
+            callback_steps=callback_steps, height=height, width=width)
         if control_image is None:
             return super().__call__(image, mask, **v1_args)
+        multi = isinstance(prompt, (list, tuple))
+        if height is not None or width is not None:
+            image, mask = apply_target_hw(image, mask, height, width, multi)
+            control_image = (
+                [_resize_control(c, height, width) for c in control_image]
+                if multi else _resize_control(control_image, height, width))
 
         n = len(self.controlnet)
         scales = _per_branch(controlnet_conditioning_scale, n,
@@ -222,14 +263,25 @@ class ControlNetPipeline(InpaintPipeline):
                             num_images_per_prompt, output_type, clip_skip,
                             scheduler, control_guidance_start=min(starts),
                             control_guidance_end=max(ends))
-        control = self._controls(control_image,
-                                 isinstance(prompt, (list, tuple)), req.images)
+        control = self._controls(control_image, multi, req.images)
         table = per_iteration(
             mod, gating_table(req.strength_steps, scales, starts, ends))
+        self._set_step_callback(callback, callback_steps, self.step_callback)
         return self._run(req, num_inference_steps, output_type, eta, latents,
                          clip_skip,
                          control_u8=torch.as_tensor(control, device=self.device),
-                         scales=table, guess_mode=bool(guess_mode))
+                         scales=table, guess_mode=bool(guess_mode),
+                         **self._embeds(req, prompt_embeds,
+                                        negative_prompt_embeds))
+
+
+def _resize_control(c, height: int, width: int):
+    """One control image, or a per-branch list of them, resized to (height,
+    width) as the image is (``tasks.preprocess.resize_to``)."""
+    if isinstance(c, (list, tuple)):
+        return [resize_to(to_numpy_image(x), None, int(height), int(width))[0]
+                for x in c]
+    return resize_to(to_numpy_image(c), None, int(height), int(width))[0]
 
 
 def gating_table(steps: int, scales: List[float], starts: List[float],

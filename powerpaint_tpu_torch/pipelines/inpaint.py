@@ -7,6 +7,12 @@ denoise loop with classifier-free guidance folded into the batch (a
 Python loop where the JAX package has ``lax.scan``) over any registry
 sampler (``scheduler=``, DDIM by default), and VAE decode.
 
+The call surface of the reference's pipeline: ``prompt_embeds`` /
+``negative_prompt_embeds`` replace the blended pair (when both are given
+the text encoder does not run), ``callback`` / ``callback_steps``
+observe the loop (``pipelines.common.StepCallbackMixin``), and ``height``
+/ ``width`` resize the inputs first (``pipelines.common.apply_target_hw``).
+
 Randomness: per-image ``torch.Generator`` draws in the order
 ``pipelines.common`` documents (the initial latent noise, the two VAE
 sample noises, then the step noise of a stochastic sampler or of DDIM
@@ -34,11 +40,15 @@ from powerpaint_tpu_torch.core.validation import (
 from powerpaint_tpu_torch.io.lora import LoraMixin
 from powerpaint_tpu_torch.io.weights import load_models
 from powerpaint_tpu_torch.pipelines.common import (
+    StepCallbackMixin,
+    apply_target_hw,
     as_list,
     batch_inputs,
     draw_noise,
+    embeds_rows,
     int8_x_scale,
     make_sampler,
+    norm_embeds,
     resolve_seeds,
     sampler_step,
     takes_step_noise,
@@ -61,7 +71,7 @@ class Request(NamedTuple):
     scheduler: str  # the registry sampler
 
 
-class InpaintPipeline(LoraMixin):
+class InpaintPipeline(LoraMixin, StepCallbackMixin):
     """``InpaintPipeline(config, state, tokenizer)(image, mask, prompt)``.
 
     ``state`` holds one diffusers / transformers named state dict per family
@@ -70,13 +80,16 @@ class InpaintPipeline(LoraMixin):
     live on ``device`` (the card unless the caller asks for ``"cpu"``).
     ``int8=True`` runs the ResNet units the JAX package quantises as the
     static-scale int8 W8A8 kernel (``pipelines.common.int8_x_scale``;
-    ``None`` reads ``POWERPAINT_INT8`` here, once).
+    ``None`` reads ``POWERPAINT_INT8`` here, once). ``step_callback`` is the
+    callback of every call that passes none (``StepCallbackMixin``).
     """
 
     def __init__(self, config: PowerPaintConfig, state: Dict[str, dict],
                  tokenizer, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda", int8: Optional[bool] = None):
+                 device="cuda", int8: Optional[bool] = None,
+                 step_callback: Optional[Callable] = None):
         self.config = config
+        self.step_callback = step_callback
         self.tokenizer = tokenizer
         self.dtype = dtype
         self.device = torch.device(device)
@@ -96,9 +109,16 @@ class InpaintPipeline(LoraMixin):
                                prompts.negative_promptB])
 
     def _encode_prompts(self, ids: torch.Tensor, fittings: torch.Tensor,
-                        b: int, clip_skip: int) -> torch.Tensor:
+                        b: int, clip_skip: int,
+                        pos_in: Optional[torch.Tensor] = None,
+                        neg_in: Optional[torch.Tensor] = None) -> torch.Tensor:
         """ids (P, 4, 77) -> CFG context (2B, 77, D), [negatives; positives],
-        each the A/B blend ``A * t + (1 - t) * B`` by the fitting degree."""
+        each the A/B blend ``A * t + (1 - t) * B`` by the fitting degree
+        (float32: the fp32 fitting degrees promote it). ``pos_in`` /
+        ``neg_in`` (B, 77, D) float32 replace their half; with both the
+        text encoder does not run."""
+        if pos_in is not None and neg_in is not None:
+            return torch.cat([neg_in, pos_in], dim=0)
         p, _, s = ids.shape
         emb = self.text_encoder(ids.reshape(p * 4, s), clip_skip=clip_skip)
         emb = emb.reshape(p, 4, s, -1)
@@ -108,6 +128,8 @@ class InpaintPipeline(LoraMixin):
         if p != b:  # one prompt, several images
             pos = pos.repeat_interleave(b // p, dim=0)
             neg = neg.repeat_interleave(b // p, dim=0)
+        pos = pos if pos_in is None else pos_in.to(pos.dtype)
+        neg = neg if neg_in is None else neg_in.to(neg.dtype)
         return torch.cat([neg, pos], dim=0)
 
     def _vae_sample(self, images: torch.Tensor,
@@ -136,6 +158,7 @@ class InpaintPipeline(LoraMixin):
             kw = residuals(i, scaled, t, cond) if residuals is not None else {}
             eps = self.unet(lmi, t, cond, **kw).float()
             eps = eps[:b] + guidance * (eps[b:] - eps[:b])
+            self._run_step_callback(i, latents)
             latents, state = sampler_step(mod, sched, state, eps, i, latents,
                                           eta, step_noise)
         return latents
@@ -155,7 +178,10 @@ class InpaintPipeline(LoraMixin):
                   num_steps: int, strength_steps: int, output_type: str,
                   eta: float = 0.0, latents_in: Optional[torch.Tensor] = None,
                   clip_skip: int = 0, scheduler: str = "ddim",
-                  residuals: Optional[Callable] = None) -> torch.Tensor:
+                  residuals: Optional[Callable] = None,
+                  prompt_embeds: Optional[torch.Tensor] = None,
+                  negative_prompt_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
         """Everything after host-side validation, on ``self.device``.
 
         ids (P, 4, 77); fittings (P,); image_u8 (B, H, W, 3) uint8; mask_u8
@@ -163,7 +189,9 @@ class InpaintPipeline(LoraMixin):
         img_noise (B, H/8, W/8, 4) fp32; step_noise one (B, H/8, W/8, 4)
         tensor per sampler iteration when the sampler takes it
         (``pipelines.common.takes_step_noise``), else None; ``residuals``
-        as ``_denoise`` takes it."""
+        as ``_denoise`` takes it; ``prompt_embeds`` /
+        ``negative_prompt_embeds`` (B, 77, D) float32 or None, as
+        ``_encode_prompts`` takes them."""
         mod, sched = make_sampler(scheduler, self.config.scheduler, num_steps,
                                   strength_steps)
         b, h, w, _ = image_u8.shape
@@ -171,7 +199,8 @@ class InpaintPipeline(LoraMixin):
         mask = (mask_u8 >= 128).float()
         masked_image = init_image * (1.0 - mask)
 
-        cond = self._encode_prompts(ids, fittings, b, clip_skip)
+        cond = self._encode_prompts(ids, fittings, b, clip_skip,
+                                    prompt_embeds, negative_prompt_embeds)
         masked_lat = self._vae_sample(masked_image, vae_noise)
         # half-pixel-centre nearest, as jax.image.resize(..., "nearest")
         mask_lat = F.interpolate(mask.permute(0, 3, 1, 2), size=(h // 8, w // 8),
@@ -208,6 +237,10 @@ class InpaintPipeline(LoraMixin):
                  latents: Optional[np.ndarray] = None,
                  output_type: str = "uint8", clip_skip: int = 0,
                  scheduler: str = "ddim",
+                 prompt_embeds: Optional[np.ndarray] = None,
+                 negative_prompt_embeds: Optional[np.ndarray] = None,
+                 callback: Optional[Callable] = None, callback_steps: int = 1,
+                 height: Optional[int] = None, width: Optional[int] = None,
                  cross_attention_kwargs: Optional[dict] = None) -> np.ndarray:
         """Inpaint ``image`` (H, W, 3) where ``mask`` (H, W) is 1, sampled
         with the registry sampler ``scheduler`` (``eta`` is DDIM's).
@@ -218,19 +251,40 @@ class InpaintPipeline(LoraMixin):
         ``seed`` one value or one per request. Returns (B, H, W, 3) uint8,
         (B, H, W, 3) float32 in [-1, 1] or (B, H/8, W/8, 4) float32 latents,
         as numpy. ``cross_attention_kwargs={"scale": s}``: the loaded
-        LoRA's scale for this call alone (``LoraMixin``)."""
+        LoRA's scale for this call alone (``LoraMixin``).
+
+        ``prompt_embeds`` / ``negative_prompt_embeds``: (B|1, 77, D) or (77,
+        D) arrays in place of the blended positive / negative embeddings;
+        ``callback(i, latents)`` every ``callback_steps`` iterations
+        (``StepCallbackMixin``); ``height`` and ``width`` (together)
+        resize the image and mask to that size first."""
         if cross_attention_kwargs:
             call_kw = {k: v for k, v in locals().items()
                        if k not in ("self", "cross_attention_kwargs")}
             return self._with_lora_scale(cross_attention_kwargs,
                                          lambda: self(**call_kw))
+        if height is not None or width is not None:
+            image, mask = apply_target_hw(image, mask, height, width,
+                                          isinstance(prompt, (list, tuple)))
         req = self._request(image, mask, prompt, negative_prompt, task,
                             fitting_degree, num_inference_steps,
                             guidance_scale, strength, seed,
                             num_images_per_prompt, output_type, clip_skip,
                             scheduler)
+        self._set_step_callback(callback, callback_steps, self.step_callback)
         return self._run(req, num_inference_steps, output_type, eta, latents,
-                         clip_skip)
+                         clip_skip, **self._embeds(req, prompt_embeds,
+                                                   negative_prompt_embeds))
+
+    def _embeds(self, req: Request, prompt_embeds,
+                negative_prompt_embeds) -> dict:
+        """``_generate``'s embedding arguments for a caller's arrays."""
+        b = req.images.shape[0]
+        return dict(
+            prompt_embeds=embeds_rows(norm_embeds(prompt_embeds), b,
+                                      self.device),
+            negative_prompt_embeds=embeds_rows(
+                norm_embeds(negative_prompt_embeds), b, self.device))
 
     def _request(self, image, mask, prompt, negative_prompt, task: str,
                  fitting_degree, num_inference_steps: int, guidance_scale,

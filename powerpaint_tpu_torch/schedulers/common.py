@@ -64,25 +64,47 @@ def spaced_timesteps(cfg: SchedulerConfig, num_steps: int) -> np.ndarray:
     return np.clip(ts, 0, T - 1)
 
 
+def custom_timesteps_array(cfg: SchedulerConfig, custom) -> np.ndarray:
+    """Validate a caller's timestep list (the v2 pipeline's ``timesteps``
+    argument): strictly descending ints in [0, T)."""
+    ts = np.asarray(custom, dtype=np.int64)
+    if ts.ndim != 1 or len(ts) < 1:
+        raise ValueError("timesteps must be a non-empty 1-D sequence")
+    if (np.diff(ts) >= 0).any():
+        raise ValueError("timesteps must be strictly descending")
+    if ts[0] >= cfg.num_train_timesteps or ts[-1] < 0:
+        raise ValueError(
+            f"timesteps must lie in [0, {cfg.num_train_timesteps})")
+    return ts
+
+
 def kept_timesteps(cfg: SchedulerConfig, num_steps: int,
-                   keep_steps: Optional[int] = None) -> np.ndarray:
+                   keep_steps: Optional[int] = None,
+                   custom=None) -> np.ndarray:
     """Descending inference timesteps, truncated to the LAST
-    ``keep_steps`` for strength < 1."""
-    ts = spaced_timesteps(cfg, num_steps)
+    ``keep_steps`` for strength < 1. ``custom`` (a caller's list) takes the
+    place of the spacing formula."""
+    ts = (custom_timesteps_array(cfg, custom) if custom is not None
+          else spaced_timesteps(cfg, num_steps))
+    num_steps = len(ts)
     if keep_steps is not None and keep_steps < num_steps:
         ts = ts[num_steps - keep_steps:]
     return ts
 
 
 def make_schedule(cfg: SchedulerConfig, num_steps: int,
-                  keep_steps: Optional[int] = None) -> DiffusionSchedule:
+                  keep_steps: Optional[int] = None,
+                  custom=None) -> DiffusionSchedule:
     """``keep_steps`` < ``num_steps`` keeps the LAST ``keep_steps``
-    timesteps (strength < 1)."""
+    timesteps (strength < 1). With ``custom`` timesteps, the previous
+    timestep of each is the next entry of the list, and -1 after the last
+    (``alpha_at`` maps it to ``final_alpha_cumprod``)."""
     acp = alphas_cumprod(cfg)
-    ts = spaced_timesteps(cfg, num_steps)
-    if keep_steps is not None and keep_steps < num_steps:
-        ts = ts[num_steps - keep_steps:]
-    prev = ts - cfg.num_train_timesteps // num_steps
+    ts = kept_timesteps(cfg, num_steps, keep_steps, custom=custom)
+    if custom is not None:
+        prev = np.append(ts[1:], -1)
+    else:
+        prev = ts - cfg.num_train_timesteps // num_steps
     final = 1.0 if cfg.set_alpha_to_one else float(np.float32(acp[0]))
     return DiffusionSchedule(
         config=cfg,

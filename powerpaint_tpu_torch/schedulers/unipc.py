@@ -81,10 +81,14 @@ def _phi_terms(hh: float, solver_type: str):
 
 
 def make_unipc_schedule(cfg: SchedulerConfig, num_steps: int,
-                        keep_steps: Optional[int] = None) -> UniPCSchedule:
+                        keep_steps: Optional[int] = None,
+                        custom_timesteps=None) -> UniPCSchedule:
     """Every per-step coefficient, on the host in float64. ``keep_steps``
-    keeps the last steps (strength < 1), the warm-up re-primed there."""
-    base = make_schedule(cfg, num_steps, keep_steps)
+    keeps the last steps (strength < 1), the warm-up re-primed there.
+    ``custom_timesteps`` (descending ints, ``common.custom_timesteps_array``)
+    takes the place of the spacing formula: the tables are built from
+    consecutive entries, so any grid works."""
+    base = make_schedule(cfg, num_steps, keep_steps, custom=custom_timesteps)
     acp = alphas_cumprod(cfg)
     ts = base.timesteps
     S = len(ts)

@@ -6,10 +6,17 @@ reference app.py:546-556 flags).
 
 The options, their choices and defaults are the JAX package's, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
-the kernels). ``--checkpoint_dir`` loads a reference-layout checkpoint
-(``io.checkpoint``), and ``--lora`` / ``--textual_inversion`` apply to it;
-without one a random-weight stack runs: the full path executes, the image
-is noise. ``POWERPAINT_INT8=1`` in the environment
+the kernels) and ``--controlnet_dir``. ``--checkpoint_dir`` loads a
+reference-layout checkpoint (``io.checkpoint``), and ``--lora`` /
+``--textual_inversion`` apply to it; without one a random-weight stack
+runs: the full path executes, the image is noise. ``--control_type`` runs
+ppt-v1 + ControlNet (``pipelines.controlnet``) on the map
+``tasks.control.get_control_image`` makes of the processed image: the
+branch is ``--controlnet_dir``'s (a diffusers ControlNet directory,
+``io.checkpoint.load_controlnet``), or without a checkpoint the demo
+stack's random branch from seed 0; depth, hed and pose run their annotator
+with random weights from seed 0 unless one is registered (canny needs
+OpenCV). ``POWERPAINT_INT8=1`` in the environment
 runs the int8 W8A8 ResNet units, as in the JAX package. Options whose
 modules are not ported yet stop the command with the ROADMAP item that
 brings them; none is ignored.
@@ -70,10 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference defaults)")
     p.add_argument("--control_type", default=None,
                    choices=[None, "canny", "depth", "hed", "pose"],
-                   help="ControlNet conditioning (the command line's route "
-                        "is not ported yet: ROADMAP A12's remainder; the "
-                        "library takes it through PowerPaint("
-                        "controlnet_pipeline=...))")
+                   help="ControlNet conditioning (ppt-v1 only)")
+    p.add_argument("--controlnet_dir", default=None, metavar="DIR",
+                   help="diffusers ControlNet directory (config.json and "
+                        "diffusion_pytorch_model.safetensors) for "
+                        "--control_type")
     p.add_argument("--horizontal_expansion", type=float, default=1.0)
     p.add_argument("--vertical_expansion", type=float, default=1.0)
     p.add_argument("--short_side", type=int, default=640,
@@ -100,17 +108,32 @@ def unported(args, defaults) -> list:
     for flag, given, item in (
             ("--serve", args.serve, "A17"),
             ("--micro-batch", args.micro_batch != defaults.micro_batch, "A17"),
-            ("--aot-cache", args.aot_cache, "A17"),
-            ("--control_type", args.control_type, "A12")):
+            ("--aot-cache", args.aot_cache, "A17")):
         if given:
             out.append(f"{flag} is not ported yet (ROADMAP {item})")
+    return out
+
+
+def control_problems(args) -> list:
+    """What stops ``--control_type`` / ``--controlnet_dir`` as given."""
+    out = []
+    if args.controlnet_dir and not args.control_type:
+        out.append("--controlnet_dir needs --control_type")
+    if args.control_type and args.version != "ppt-v1":
+        out.append("--control_type needs --version ppt-v1 (the reference "
+                   "offers ControlNet on ppt-v1 only)")
+    if args.control_type and args.checkpoint_dir and not args.controlnet_dir:
+        out.append("--control_type with --checkpoint_dir needs "
+                   "--controlnet_dir")
     return out
 
 
 def build_pipeline(args):
     """The pipeline of ``--checkpoint_dir``, or the random-weight demo stack
     of ``args.version`` (full width or ``--tiny``, from seed 0), on
-    ``args.device``, with ``--lora`` and ``--textual_inversion`` applied."""
+    ``args.device``, with ``--lora`` and ``--textual_inversion`` applied;
+    with ``--control_type``, the ppt-v1 + ControlNet pipeline over it
+    (``--controlnet_dir``'s branch, or the demo stack's)."""
     import torch
 
     from powerpaint_tpu_torch.testing import tiny_v1_config, tiny_v2_config
@@ -124,9 +147,18 @@ def build_pipeline(args):
         if args.tiny:
             config = tiny_v1_config() if v1 else tiny_v2_config()
         load = load_ppt_v1 if v1 else load_ppt_v2
-        return apply_adapters(load(args.checkpoint_dir, config=config,
-                                   dtype=dtype, device=args.device), args)
-    return apply_adapters(random_pipeline(args, dtype), args)
+        pipe = load(args.checkpoint_dir, config=config, dtype=dtype,
+                    device=args.device)
+    else:
+        pipe = random_pipeline(args, dtype)
+    pipe = apply_adapters(pipe, args)
+    if args.controlnet_dir:
+        from powerpaint_tpu_torch.io.checkpoint import load_controlnet
+        from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+
+        pipe = ControlNetPipeline.from_pipeline(pipe, load_controlnet(
+            args.controlnet_dir, dtype=dtype, device=args.device))
+    return pipe
 
 
 def random_pipeline(args, dtype):
@@ -134,9 +166,17 @@ def random_pipeline(args, dtype):
     ``--tiny``, from seed 0, on ``args.device``."""
     import torch
 
-    from powerpaint_tpu_torch.core.config import ppt_v1_config, ppt_v2_config
+    from powerpaint_tpu_torch.core.config import (
+        ppt_v1_config,
+        ppt_v1_controlnet_config,
+        ppt_v2_config,
+    )
     from powerpaint_tpu_torch.io.weights import init_state
-    from powerpaint_tpu_torch.testing import tiny_v1_config, tiny_v2_config
+    from powerpaint_tpu_torch.testing import (
+        tiny_v1_config,
+        tiny_v1_controlnet_config,
+        tiny_v2_config,
+    )
     from powerpaint_tpu_torch.text.tokenizer import (
         HashTokenizer,
         TokenizerWrapper,
@@ -144,17 +184,27 @@ def random_pipeline(args, dtype):
     )
 
     v1 = args.version == "ppt-v1"
+    # the demo branch only where no ControlNet directory brings one
+    control = bool(args.control_type) and not args.controlnet_dir
     if args.tiny:
         cfg = tiny_v1_config() if v1 else tiny_v2_config()
+        if control:
+            cfg = tiny_v1_controlnet_config()
         vocab = 1024
     else:
         cfg = ppt_v1_config() if v1 else ppt_v2_config()
+        if control:
+            cfg = ppt_v1_controlnet_config()
         vocab = 49408
     device = torch.device(args.device)
     state = init_state(cfg, torch.Generator(device=device).manual_seed(0),
                        device=device, dtype=dtype)
     tok = TokenizerWrapper(HashTokenizer(vocab_size=vocab))
     add_task_tokens(tok)
+    if control:
+        from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+
+        return ControlNetPipeline(cfg, state, tok, dtype=dtype, device=device)
     if v1:
         from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
 
@@ -233,6 +283,13 @@ def run_one_shot(args) -> int:
     kwargs = {}
     if args.scheduler is not None:
         kwargs["scheduler"] = args.scheduler
+    note = ""
+    if args.control_type:
+        t0 = time.time()
+        kwargs["control_image"] = control_map(args, image)
+        note = f", control {args.control_type}"
+        print(f"control: {args.control_type} map ({image.shape[1]}x"
+              f"{image.shape[0]}) in {time.time() - t0:.1f}s")
 
     t0 = time.time()
     with torch_profile_trace(args.profile):
@@ -252,14 +309,49 @@ def run_one_shot(args) -> int:
     final = blend_result(out[0], image, mask)
     Image.fromarray(np.asarray(final)).save(args.output)
     print(f"wrote {args.output} ({final.shape[1]}x{final.shape[0]}) "
-          f"in {dt:.1f}s ({args.steps} steps)")
+          f"in {dt:.1f}s ({args.steps} steps{note})")
     return 0
+
+
+def control_map(args, image):
+    """``get_control_image`` of the processed image, at its size. depth,
+    hed and pose run their annotator network, with random weights from
+    seed 0 (the tiny DPT with ``--tiny``) where none is registered."""
+    import torch
+
+    from powerpaint_tpu_torch.tasks import control
+    from powerpaint_tpu_torch.tasks.preprocess import resize_to
+
+    kind = args.control_type
+    if kind in control._ANNOTATORS and kind not in control._REGISTRY:
+        from powerpaint_tpu_torch.io.weights import random_annotator_state
+        from powerpaint_tpu_torch.tasks.pose import OpenposeBodyPreprocessor
+
+        family, cls = {"depth": ("dpt", control.DPTDepthPreprocessor),
+                       "hed": ("hed", control.HEDPreprocessor),
+                       "pose": ("bodypose", OpenposeBodyPreprocessor)}[kind]
+        extra = {}
+        if family == "dpt":
+            from powerpaint_tpu_torch.core.config import dpt_hybrid_midas_config
+            from powerpaint_tpu_torch.testing import tiny_dpt_config
+
+            extra["config"] = (tiny_dpt_config() if args.tiny
+                               else dpt_hybrid_midas_config())
+        state = random_annotator_state(
+            family, torch.Generator(device=args.device).manual_seed(0),
+            device=args.device, **extra)
+        out = cls(state=state, device=args.device, **extra)(image)
+    else:
+        out = control.get_control_image(kind, image)
+    if out.shape[:2] != image.shape[:2]:  # depth's own 1024^2
+        out = resize_to(out, None, *image.shape[:2])[0]
+    return out
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    problems = unported(args, parser.parse_args([]))
+    problems = unported(args, parser.parse_args([])) + control_problems(args)
     if problems:
         parser.error("; ".join(problems))
     if args.scheduler is not None:

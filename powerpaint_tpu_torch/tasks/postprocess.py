@@ -3,6 +3,12 @@
 Ports the behavior of reference app.py:365-387: Gaussian-blur the mask and
 pixel-composite ``out = result*m + input*(1-m)``, plus the red-overlay mask
 visualization for galleries.
+
+``blend_result`` composites through the C++ native (``tasks/native.py``,
+built from ``native/image_ops.cpp``), as the JAX package does where its
+native is built; ``blend_result_plain`` is its numpy version, which runs
+only when asked for by name. ``gaussian_blur`` and ``red_overlay`` are
+numpy, as the JAX package's are.
 """
 
 from __future__ import annotations
@@ -35,9 +41,20 @@ def blend_result(
     result: np.ndarray, original: np.ndarray, mask: np.ndarray,
     blur_radius: float = 4.0,
 ) -> np.ndarray:
-    """out = result*m_blur + original*(1-m_blur) — app.py:371-381.
+    """out = result*m_blur + original*(1-m_blur) — app.py:371-381, through
+    the C++ native (rounded to the nearest uint8 level).
 
     result/original: (H, W, 3) uint8; mask: (H, W) in [0,1]."""
+    from powerpaint_tpu_torch.tasks import native
+
+    return native.blend_result(result, original, mask, blur_radius)
+
+
+def blend_result_plain(
+    result: np.ndarray, original: np.ndarray, mask: np.ndarray,
+    blur_radius: float = 4.0,
+) -> np.ndarray:
+    """``blend_result`` in numpy (truncated to uint8): the plain version."""
     m = gaussian_blur(mask, blur_radius)[..., None]
     out = result.astype(np.float32) * m + original.astype(np.float32) * (1 - m)
     return np.clip(out, 0, 255).astype(np.uint8)

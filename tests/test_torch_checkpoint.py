@@ -509,3 +509,123 @@ def test_controller_and_package_load_a_directory(tmp_path, v1_state):
     assert pp.pipeline.unet.conv_in.weight.device.type == "cpu"
     with pytest.raises(ValueError, match="version"):
         powerpaint_tpu_torch.load(str(root), "ppt-v3", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# a diffusers ControlNet directory
+# ---------------------------------------------------------------------------
+
+
+def controlnet_state(seed: int = 4):
+    """The tiny ControlNet branch's random weights with random biases and
+    norm affines (init_state's are 0 and 1), so a swapped or dropped
+    vector shows."""
+    from powerpaint_tpu_torch.testing import tiny_v1_controlnet_config
+
+    model = build_models(tiny_v1_controlnet_config())["controlnet"]
+    sd = random_state(model, torch.Generator().manual_seed(seed), device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    return {k: v + 0.1 * torch.randn(v.shape, generator=g) if v.ndim == 1 else v
+            for k, v in sd.items()}
+
+
+def write_controlnet(root, sd, cn_config, fmt="safetensors"):
+    """A diffusers ControlNet directory: ``config.json`` with the UNet's
+    keys flat beside the conditioning embedding's (diffusers'
+    ``ControlNetModel`` form), and the weights, fp16 in safetensors or fp32
+    in a ``.bin`` pickle."""
+    import dataclasses
+    import json
+
+    os.makedirs(root, exist_ok=True)
+    config = {"_class_name": "ControlNetModel", "_diffusers_version": "0.27.2",
+              **dataclasses.asdict(cn_config.base),
+              "in_channels": 4, "class_embed_type": None,
+              "conditioning_channels": cn_config.conditioning_channels,
+              "conditioning_embedding_out_channels":
+                  list(cn_config.conditioning_embedding_out_channels),
+              "controlnet_conditioning_channel_order": "rgb"}
+    (root / "config.json").write_text(json.dumps(config))
+    if fmt == "safetensors":
+        _save(root / "diffusion_pytorch_model.safetensors",
+              {k: v.half() for k, v in sd.items()})
+    else:
+        torch.save(sd, root / "diffusion_pytorch_model.bin")
+
+
+@pytest.mark.parametrize("fmt", ["safetensors", "bin"])
+def test_controlnet_directory_matches_jax(tmp_path, fmt):
+    """``load_controlnet``'s branch is bitwise ``params_from_jax`` of the
+    JAX package's ``convert_controlnet`` tree of the file's tensors (cast
+    to fp32 as ``_load`` casts them), its config the tiny branch's."""
+    from powerpaint_tpu_torch.io.convert import load_state_dict
+    from powerpaint_tpu_torch.testing import tiny_v1_controlnet_config
+
+    cn_cfg = tiny_v1_controlnet_config().controlnet
+    root = tmp_path / "controlnet"
+    write_controlnet(root, controlnet_state(), cn_cfg, fmt)
+    model = checkpoint.load_controlnet(str(root), dtype=torch.float32,
+                                       device="cpu")
+    assert model.config == cn_cfg.replace(
+        base=cn_cfg.base.replace(in_channels=4))
+    stored = load_state_dict(str(next(root.glob("diffusion_pytorch_model.*"))))
+    tree = jax_convert.convert_controlnet(
+        {k: v.float().numpy() for k, v in stored.items()})
+    want = params_from_jax(tree, "controlnet")
+    got = model.state_dict()
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        assert v.dtype == torch.float32, k
+        np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
+
+
+def test_controlnet_directory_missing_parts(tmp_path):
+    from powerpaint_tpu_torch.testing import tiny_v1_controlnet_config
+
+    root = tmp_path / "controlnet"
+    write_controlnet(root, controlnet_state(),
+                     tiny_v1_controlnet_config().controlnet)
+    (root / "config.json").unlink()
+    with pytest.raises(FileNotFoundError, match="missing config.json"):
+        checkpoint.load_controlnet(str(root), device="cpu")
+    (root / "diffusion_pytorch_model.safetensors").unlink()
+    with pytest.raises(FileNotFoundError,
+                       match=r"missing weights for: \['controlnet'\]"):
+        checkpoint.load_controlnet(str(root), device="cpu")
+
+
+def test_controller_builds_the_controlnet_pipeline(tmp_path, v1_state):
+    """``from_checkpoint(controlnet_dir=...)``: the ControlNet pipeline
+    shares the loaded ppt-v1 models, and its image is bitwise that of a
+    ControlNet pipeline built from the same weights in memory; ppt-v2 is
+    refused."""
+    from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+    from powerpaint_tpu_torch.testing import tiny_v1_controlnet_config
+
+    root, cn_root = tmp_path / "ppt-v1", tmp_path / "controlnet"
+    write_v1(root, v1_state)
+    cfg = tiny_v1_controlnet_config()
+    cn_sd = controlnet_state()
+    write_controlnet(cn_root, cn_sd, cfg.controlnet)
+    pp = controller.PowerPaint.from_checkpoint(
+        str(root), "ppt-v1", dtype=torch.float32, device="cpu",
+        config=tiny_v1_config(), controlnet_dir=str(cn_root))
+    cn = pp.controlnet_pipeline
+    assert isinstance(cn, ControlNetPipeline) and cn.unet is pp.pipeline.unet
+    state = {f: dict(v1_state[f]) for f in ("vae", "text_encoder")}
+    state["unet"] = {k: v.half().float() for k, v in v1_state["unet"].items()}
+    state["controlnet"] = {k: v.half().float() for k, v in cn_sd.items()}
+    want_pipe = ControlNetPipeline(cfg, state, pp.pipeline.tokenizer,
+                                   dtype=torch.float32, device="cpu")
+    rng = np.random.RandomState(2)
+    image = (rng.rand(64, 64, 3) * 255).astype(np.uint8)
+    mask = np.zeros((64, 64), np.float32)
+    mask[16:48, 16:48] = 1.0
+    edges = (np.indices((64, 64)).sum(0) % 9 == 0)[..., None].repeat(3, -1)
+    edges = edges.astype(np.uint8) * 255
+    kw = dict(prompt="a vase", num_inference_steps=2, seed=1)
+    np.testing.assert_array_equal(cn(image, mask, edges, **kw),
+                                  want_pipe(image, mask, edges, **kw))
+    with pytest.raises(ValueError, match="controlnet_dir needs version"):
+        controller.PowerPaint.from_checkpoint(
+            str(root), "ppt-v2", device="cpu", controlnet_dir=str(cn_root))

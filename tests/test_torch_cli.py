@@ -70,16 +70,6 @@ CASES = [dict(task="text-guided", prompt="a dog"),
               short_side=500)]
 
 
-@pytest.fixture
-def numpy_blend(monkeypatch):
-    """The JAX package blends in its C++ native where it is built (one
-    uint8 level of rounding apart); the port has only the numpy blend it
-    falls back to (the natives are ROADMAP A10's remainder)."""
-    from powerpaint_tpu.tasks import native
-
-    monkeypatch.setattr(native, "native_available", lambda: False)
-
-
 def _infer(module, pipeline, kw):
     image, mask = _request()
     res = module.PowerPaint(pipeline).infer(image, mask, num_inference_steps=3,
@@ -89,7 +79,7 @@ def _infer(module, pipeline, kw):
 
 @pytest.mark.parametrize("kw", CASES, ids=lambda kw: kw["task"] + (
     "+bucketing" if kw.get("resolution_bucketing") else ""))
-def test_controller_matches_jax(kw, numpy_blend):
+def test_controller_matches_jax(kw):
     got, (img, msk, args) = _infer(controller, StubPipeline(), kw)
     want, (jimg, jmsk, jargs) = _infer(jax_controller, StubPipeline(), kw)
     np.testing.assert_array_equal(img, jimg)
@@ -100,7 +90,7 @@ def test_controller_matches_jax(kw, numpy_blend):
     assert got.nsfw_flags == want.nsfw_flags == [False]
 
 
-def test_controller_safety_hook_matches_jax(numpy_blend):
+def test_controller_safety_hook_matches_jax():
     flag_all = lambda images: [True] * len(images)  # noqa: E731
     safety.register_safety_checker(flag_all)
     jax_safety.register_safety_checker(flag_all)
@@ -118,7 +108,7 @@ def test_controller_safety_hook_matches_jax(numpy_blend):
 
 @pytest.mark.parametrize("given", [False, True],
                          ids=["canny-from-cv2", "control_image"])
-def test_controller_control_route_matches_jax(given, numpy_blend):
+def test_controller_control_route_matches_jax(given):
     """``control_type`` routes to the ControlNet pipeline with the control
     image given, or canny of the preprocessed image; the v1 pipeline is
     not called."""
@@ -287,7 +277,7 @@ def _options(parser):
 
 def test_parser_matches_jax():
     port, jax_opts = _options(cli.build_parser()), _options(jax_cli.build_parser())
-    assert set(port) == set(jax_opts) | {"device"}
+    assert set(port) == set(jax_opts) | {"device", "controlnet_dir"}
     for dest, want in jax_opts.items():
         got = port[dest]
         for field in ("option_strings", "default", "choices", "type", "nargs",
@@ -299,13 +289,60 @@ def test_parser_matches_jax():
 
 @pytest.mark.parametrize("argv,item", [
     (["--serve"], "A17"),
-    (["--micro-batch", "8"], "A17"), (["--aot-cache", "c.aot"], "A17"),
-    (["--control_type", "canny"], "A12")])
+    (["--micro-batch", "8"], "A17"), (["--aot-cache", "c.aot"], "A17")])
 def test_unported_options_are_refused(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(argv + ["--image", "unused.png"])
     assert exc.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_control_type_runs_a_controlnet_one_shot(tmp_path, capsys):
+    """``--control_type canny --controlnet_dir DIR``: the tiny demo ppt-v1
+    stack with the directory's ControlNet branch on the CPU, the canny map
+    of the processed image (OpenCV here), the PNG and the output line with
+    the control stage; the pipeline it builds is the ControlNet pipeline
+    over the demo stack's models."""
+    from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+    from powerpaint_tpu_torch.testing import tiny_v1_controlnet_config
+    from test_torch_checkpoint import controlnet_state, write_controlnet
+
+    cn_dir = tmp_path / "controlnet"
+    write_controlnet(cn_dir, controlnet_state(),
+                     tiny_v1_controlnet_config().controlnet)
+    rng = np.random.RandomState(1)
+    Image.fromarray((rng.rand(80, 72, 3) * 255).astype(np.uint8)).save(
+        tmp_path / "in.png")
+    m = np.zeros((80, 72), np.uint8)
+    m[20:60, 16:50] = 255
+    Image.fromarray(m).save(tmp_path / "mask.png")
+    out = tmp_path / "out.png"
+    base = ["--tiny", "--device", "cpu", "--weight_dtype", "float32",
+            "--control_type", "canny", "--controlnet_dir", str(cn_dir)]
+    pipe = cli.build_pipeline(cli.build_parser().parse_args(base))
+    assert isinstance(pipe, ControlNetPipeline) and len(pipe.controlnet) == 1
+    argv = base + ["--image", str(tmp_path / "in.png"), "--mask",
+                   str(tmp_path / "mask.png"), "--output", str(out), "--steps",
+                   "2", "--short_side", "64", "--prompt", "a vase"]
+    assert cli.main(argv) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-2].startswith("control: canny map (64x64) in ")
+    assert lines[-1].startswith(f"wrote {out} (64x64) in ")
+    assert lines[-1].endswith("(2 steps, control canny)")
+    with Image.open(out) as im:
+        assert im.size == (64, 64) and im.mode == "RGB"
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--version", "ppt-v2", "--control_type", "hed"], "needs --version ppt-v1"),
+    (["--controlnet_dir", "cn"], "--controlnet_dir needs --control_type"),
+    (["--control_type", "depth", "--checkpoint_dir", "ckpt"],
+     "--checkpoint_dir needs --controlnet_dir")])
+def test_control_options_are_checked(argv, message, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv + ["--image", "unused.png"])
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
 
 
 def test_ported_scheduler_and_defaults_are_accepted():
@@ -354,7 +391,7 @@ def test_cli_scheduler_choices_are_the_registry():
     assert tuple(port.choices) == schedulers.SCHEDULERS
 
 
-def test_controller_forwards_scheduler_as_jax(numpy_blend):
+def test_controller_forwards_scheduler_as_jax():
     """``scheduler=`` is one of ``infer``'s pipeline keyword arguments, on
     the plain and on the ControlNet route, in both packages."""
     kw = dict(CASES[0], scheduler="euler")

@@ -151,11 +151,9 @@ def test_preprocess_matches(name, args):
     ("latents_image_to_uint8",
      lambda im, m: (im[None].astype(np.float32) / 100 - 1.2,)),
 ])
-def test_postprocess_matches(name, args, monkeypatch):
-    # the port has only the numpy path; the JAX package may take its C++ one
-    from powerpaint_tpu.tasks import native
-
-    monkeypatch.setattr(native, "native_available", lambda: False)
+def test_postprocess_matches(name, args):
+    # blend_result: each package's C++ native (the JAX package's where it is
+    # built; the port builds its own from native/image_ops.cpp)
     image, mask = _image_and_mask(seed=1)
     np.testing.assert_array_equal(getattr(postprocess, name)(*args(image, mask)),
                                   getattr(jax_post, name)(*args(image, mask)))

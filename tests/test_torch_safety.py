@@ -219,7 +219,8 @@ def test_infer_resizes_a_generated_control_map():
     """A preprocessor's map at its own size (depth's 1024^2 output against
     a 64^2 image) reaches the ControlNet pipeline at the image's size, as
     the reference resizes it; the map as it came would fail the pipeline's
-    check. A control image the caller passes is not resized."""
+    check. A control image the caller passes at neither the input nor the
+    processed size is refused, naming both (ROADMAP C1)."""
     image = (np.random.RandomState(4).rand(64, 64, 3) * 255).astype(np.uint8)
     mask = np.ones((64, 64), np.float32)
     big = (np.indices((128, 128)).sum(0) % 5 == 0)[..., None].repeat(3, -1)
@@ -238,7 +239,65 @@ def test_infer_resizes_a_generated_control_map():
     want = np.asarray(Image.fromarray(big).resize((64, 64), Image.LANCZOS))
     np.testing.assert_array_equal(cn.controls[0], want)
     cn = StubPipeline()
-    controller.PowerPaint(StubPipeline(), controlnet_pipeline=cn).infer(
-        image, mask, control_type="depth", control_image=big,
-        num_inference_steps=2)
-    np.testing.assert_array_equal(cn.controls[0], big)
+    with pytest.raises(InputValidationError,
+                       match=r"control image \(128, 128\) matches neither the "
+                             r"input image \(64, 64\) nor the processed image "
+                             r"\(64, 64\)"):
+        controller.PowerPaint(StubPipeline(), controlnet_pipeline=cn).infer(
+            image, mask, control_type="depth", control_image=big,
+            num_inference_steps=2)
+    assert cn.controls == []
+
+
+@pytest.mark.parametrize("task,kw", [
+    ("text-guided", dict(short_side=500, resolution_bucketing=True)),
+    ("text-guided", dict(short_side=640)),
+    ("image-outpainting", dict(horizontal_expansion_ratio=1.5,
+                               resolution_bucketing=True))],
+    ids=["resize+crop+bucket", "crop", "outpaint+bucket"])
+def test_infer_aligns_a_given_control_map(task, kw):
+    """ROADMAP C1: a caller's map at the input image's size goes through
+    the image's own resize, canvas, crop and bucket pad (the image itself
+    as the map comes out as the processed image, bitwise; a map of lines
+    as those steps make it); at the processed size it passes as it is; at
+    any other size the call is refused."""
+    from powerpaint_tpu.tasks import preprocess as jax_pre
+
+    rng = np.random.RandomState(5)
+    image = (rng.rand(700, 530, 3) * 255).astype(np.uint8)
+    mask = np.zeros((700, 530), np.float32)
+    mask[200:450, 100:300] = 1.0
+    lines = (np.indices((700, 530)).sum(0) % 11 == 0)[..., None].repeat(3, -1)
+    lines = lines.astype(np.uint8) * 255
+
+    def run(control):
+        cn, seen = StubPipeline(), []
+
+        def record(img, msk, **k):  # the image the pipeline is handed too
+            seen.append(img)
+            return cn(img, msk, **k)
+
+        controller.PowerPaint(StubPipeline(), controlnet_pipeline=record).infer(
+            image, mask, task=task, control_type="canny",
+            control_image=control, num_inference_steps=2, **kw)
+        return seen[0], cn.controls[0]
+
+    img, ctrl = run(image)
+    np.testing.assert_array_equal(ctrl, img)
+    _, ctrl = run(lines)
+    want = lines
+    target = 512 if task == "image-outpainting" else kw["short_side"]
+    if min(want.shape[:2]) > target:
+        want = jax_pre.resize_short_side(want, target)
+    if task == "image-outpainting":
+        want = jax_pre.outpaint_canvas(want, 1.5, 1.0)[0]
+    want = jax_pre.crop_to_multiple_of_8(want)
+    if kw.get("resolution_bucketing"):
+        want = jax_pre.pad_to_bucket(want, np.zeros(want.shape[:2]))[0]
+    assert ctrl.shape == img.shape
+    np.testing.assert_array_equal(ctrl, want)
+    processed = (rng.rand(*img.shape) * 255).astype(np.uint8)
+    _, ctrl = run(processed)
+    np.testing.assert_array_equal(ctrl, processed)
+    with pytest.raises(InputValidationError, match="matches neither"):
+        run(lines[:640, :480])
