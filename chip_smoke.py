@@ -136,10 +136,33 @@ Phases, in order; any failure exits non-zero:
    stack; ppt-v2's ``prompt_embeds`` (the task tower not launched) and the
    18-step custom ``timesteps=`` grid at 768 x 512 (18 evaluations), and
    ``timesteps=`` refused on DDIM. Launches exact per call.
+   7f. The VAE extras and the approximation modes
+   (``run_vae_extras_path``), full width, bf16: ppt-v1 with the
+   asymmetric VAE of ``cross-attention/asymmetric-autoencoder-kl-x-1-5``
+   (decoder widths 192-768, 4 resnets an up block, a 5-conv condition
+   tower whose features match the decoder's blend shapes, checked on the
+   card), 20 DDIM steps: two tasks and a bitwise repeat; its decode's
+   seconds and device ms beside the SD1.5 decoder's; on the card, an
+   all-hole mask decodes two images bitwise alike and a half mask does
+   not; the stack written in fp16 in the ppt-v1 layout and loaded (every
+   tensor and the image bitwise); one int8 call (the decoder split by
+   ``int8_site``). ``decode_tiled`` on the SD1.5 VAE: a 2048^2 canvas in
+   25 tiles of 64 with overlap 16 and in one pass (mid attention at S =
+   65536), a 768 x 512 canvas in 2 tiles (seconds, device ms, peak memory,
+   launches exact per decode). ppt-v1 at ``encoder_cache_interval`` 1-4
+   and ppt-v2 at ``branch_cache_interval`` 2 (launches exact: key steps
+   the whole model, other steps the UNet's mid and up blocks or the base
+   UNet alone; denoise device ms and PSNR against interval 1), FreeU on
+   ppt-v1 (the image changes, the launches do not), and ControlNet's
+   refusal of an encoder cache. Phase 2 checks flash attention at the
+   asymmetric decoders' head dims 768 and 1024 (batch invariance at 768),
+   and the convs and GroupNorm at its 6, 12 and 24 channels a group.
 8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, each also
    with one other sampler: euler_a at strength 0.6, LCM on an LCM UNet,
-   heun with a window; and ppt-v1 with int8) must give the same image
-   through the kernels as through the plain versions on the CPU.
+   heun with a window; ppt-v1 with int8; ppt-v1 with the asymmetric VAE,
+   encoder propagation and FreeU; ppt-v2 with the branch's cache) must
+   give the same image through the kernels as through the plain versions
+   on the CPU.
 9. The ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -281,6 +304,9 @@ ATTN_SHAPES = [
     # the cross-attention at the first, and the VAE's mid attention
     (2, 6144, 6144, 8, 40), (2, 1536, 1536, 8, 80), (2, 6144, 77, 8, 40),
     (1, 6144, 6144, 1, 512),
+    # the asymmetric VAE decoders' one head: x-1-5 (768) and x-2 (1024) at
+    # 512^2, and a ragged S
+    (1, 4096, 4096, 1, 768), (1, 4096, 4096, 1, 1024), (1, 1000, 1000, 1, 768),
 ]
 # (shape (B, S, C), eps, silu): ResNet norms at each UNet level, the widest
 # up-block concat, the transformer input norm, and the VAE's largest maps.
@@ -292,6 +318,9 @@ GN_SHAPES = [
     ((1, 4096, 512), 1e-6, False),
     # a 768 x 512 image: the UNet's first level, the VAE's largest map
     ((2, 6144, 320), 1e-5, True), ((1, 393216, 128), 1e-6, True),
+    # the asymmetric x-1-5 decoder: 6, 12 and 24 channels a group
+    ((1, 262144, 192), 1e-6, True), ((1, 262144, 384), 1e-6, True),
+    ((1, 65536, 768), 1e-6, True), ((1, 4096, 768), 1e-6, False),
 ]
 # (B, H, W, Cin, Cout, groups): ResNet units (conv3x3_gn_silu) of the UNet
 # and the BrushNet at a 512x512 image under CFG (the first level, the
@@ -307,11 +336,17 @@ CONV_SHAPES = {
         (2, 16, 16, 2560, 1280, 32), (2, 8, 8, 1280, 1280, 32),
         (1, 512, 512, 128, 128, 32), (1, 8, 8, 48, 40, 24),
         # H != W: a 768 x 512 image's first UNet level and deep level
-        (2, 96, 64, 320, 320, 32), (2, 12, 8, 1280, 1280, 32)],
+        (2, 96, 64, 320, 320, 32), (2, 12, 8, 1280, 1280, 32),
+        # the asymmetric x-1-5 decoder's units at 6, 12 and 24 channels a
+        # group
+        (1, 512, 512, 192, 192, 32), (1, 512, 512, 384, 192, 32),
+        (1, 256, 256, 768, 384, 32), (1, 64, 64, 768, 768, 32)],
     "conv3x3": [
         (2, 64, 64, 640, 640, 0), (2, 16, 16, 1280, 1280, 0),
         (1, 512, 512, 256, 256, 0), (2, 64, 64, 320, 320, 0),
-        (1, 8, 8, 48, 40, 0), (2, 96, 64, 640, 640, 0)],
+        (1, 8, 8, 48, 40, 0), (2, 96, 64, 640, 640, 0),
+        # the asymmetric decoder's upsampler convs
+        (1, 512, 512, 384, 384, 0), (1, 256, 256, 768, 768, 0)],
 }
 # (B, H, W, Cin, Cout, groups): the int8 form (with and without the
 # prologue) at ResNet units the JAX package quantises at a 512x512 image:
@@ -346,6 +381,24 @@ def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
     if dtype == torch.float32:
         return 1e-4
     return 2.0 ** -7 * float(ref.float().abs().max()) + 1e-2
+
+
+def sdpa_backend(q, k, v) -> str:
+    """Which backend ``scaled_dot_product_attention`` picks for these
+    (B, N, S, D) inputs, from the kernel names of one profiled call (its
+    flash backend stops at D = 256), with those names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    low = " ".join(names).lower()
+    kind = next((k for k, keys in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                                   ("efficient", ("fmha", "efficient")))
+                 if any(x in low for x in keys)), "math")
+    return f"{kind}: " + ", ".join(n[:60] for n in names[:3])
 
 
 def check_kernels(device) -> list:
@@ -403,6 +456,7 @@ def check_kernels(device) -> list:
                 library_ms=graph_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt)),
+                library_backend=sdpa_backend(qt, kt, vt),
                 bound=bound_ms(flops, nbytes)))
     log(phase="kernel checks", kernel="flash_attention",
         seconds=time.perf_counter() - t0)
@@ -840,6 +894,9 @@ def batch_invariance(device) -> None:
         x, wt.to(x.dtype).contiguous(memory_format=torch.channels_last))))
     cases.append(("flash_attention", (4096, 8, 40), lambda x: fa.flash_attention(
         x, x.flip(1).contiguous(), x.roll(1, 1).contiguous())))
+    cases.append(("flash_attention, asymmetric VAE head", (4096, 1, 768),
+                  lambda x: fa.flash_attention(x, x.flip(1).contiguous(),
+                                               x.roll(1, 1).contiguous()), (2, 1)))
     g320, b320 = 1 + 0.1 * randn(320), 0.1 * randn(320)
     cases.append(("group_norm", (4096, 320), lambda x: norms.group_norm(
         x, g320, b320, num_groups=32, eps=1e-6, silu=True)))
@@ -907,18 +964,20 @@ KERNELS = ("flash_attention", "group_norm", "group_norm_stats",
            "conv3x3_gn_silu", "conv3x3", "conv3x3_gn_silu_int8", "conv3x3_int8")
 
 
-def unet_launches(u, with_out_norm: bool = True) -> dict:
+def unet_launches(u, with_out_norm: bool = True, encoder: bool = True) -> dict:
     """Launches of one UNet (or BrushNet, which has no conv_norm_out)
     evaluation, CFG in the batch: every transformer runs 2 attentions, 3
     LayerNorms and its GroupNorm; every ResNet unit 2 fused GN+SiLU convs,
     each after its GroupNorm statistics launch; every upsampler one plain
-    conv."""
+    conv. ``encoder`` False: a step on cached encoder features, the mid
+    and up blocks alone."""
     n_levels = len(u.block_out_channels)
     n_tf = (sum(k.startswith("CrossAttn") for k in u.down_block_types)
-            * u.layers_per_block
+            * u.layers_per_block * int(encoder)
             + sum(k.startswith("CrossAttn") for k in u.up_block_types)
             * (u.layers_per_block + 1) + 1) * u.transformer_layers_per_block
-    n_res = n_levels * u.layers_per_block + 2 + n_levels * (u.layers_per_block + 1)
+    n_res = (n_levels * u.layers_per_block * int(encoder) + 2
+             + n_levels * (u.layers_per_block + 1))
     return {"flash_attention": 2 * n_tf, "layer_norm": 3 * n_tf,
             "group_norm": n_tf + int(with_out_norm),
             "group_norm_stats": 2 * n_res,
@@ -941,9 +1000,12 @@ def controlnet_launches(u) -> dict:
 
 def vae_launches(v, decoder: bool) -> dict:
     """One VAE encode or decode: its ResNet units, the mid attention and
-    its GroupNorm, the output GroupNorm, the decoder's upsamplers."""
-    levels = len(v.block_out_channels)
-    n_res = levels * (v.layers_per_block + int(decoder)) + 2
+    its GroupNorm, the output GroupNorm, the decoder's upsamplers. The
+    decoder has its own widths and depth (``up_channels``, ``up_layers``:
+    an asymmetric VAE's); its condition tower runs on cuDNN."""
+    levels = len(v.up_channels if decoder else v.block_out_channels)
+    per = v.up_layers + 1 if decoder else v.layers_per_block
+    n_res = levels * per + 2
     return {"flash_attention": 1, "layer_norm": 0, "group_norm": 2,
             "group_norm_stats": 2 * n_res, "conv3x3_gn_silu": 2 * n_res,
             "conv3x3": levels - 1 if decoder else 0}
@@ -953,12 +1015,15 @@ def _half(n: int) -> int:
     return -(-n // 2)  # the UNet's stride-2 conv with padding 1
 
 
-def unet_sites(u, h: int, w: int, encoder_only: bool = False) -> list:
+def unet_sites(u, h: int, w: int, encoder_only: bool = False,
+               encoder: bool = True) -> list:
     """(H, W, Cin, Cout) of every GroupNorm-fed conv (conv1 and conv2 of
     each ResNet unit) of one UNet or BrushNet evaluation on an h x w
     latent: the down levels, the mid block, and the up levels, whose units
     take the running feature concatenated with a skip. ``encoder_only``:
-    the down levels and the mid block (a ControlNet branch)."""
+    the down levels and the mid block (a ControlNet branch); ``encoder``
+    False: the mid block and the up levels (a step on cached encoder
+    features)."""
     ch, n, per = u.block_out_channels, len(u.block_out_channels), u.layers_per_block
     sizes = [(h, w)]
     for _ in range(n - 1):
@@ -976,6 +1041,8 @@ def unet_sites(u, h: int, w: int, encoder_only: bool = False) -> list:
             skips.append(ch[i])
         if i < n - 1:
             skips.append(ch[i])  # the downsampler's output
+    if not encoder:
+        sites.clear()
     unit(sizes[-1], ch[-1], ch[-1])
     unit(sizes[-1], ch[-1], ch[-1])
     if encoder_only:
@@ -990,8 +1057,11 @@ def unet_sites(u, h: int, w: int, encoder_only: bool = False) -> list:
 
 
 def vae_sites(v, h: int, w: int, decoder: bool) -> list:
-    """The same for one VAE encode (an h x w image) or decode (to one)."""
-    ch, n, per = v.block_out_channels, len(v.block_out_channels), v.layers_per_block
+    """The same for one VAE encode (an h x w image) or decode (to one), the
+    decoder at its own widths and depth."""
+    ch = v.up_channels if decoder else v.block_out_channels
+    per = v.up_layers if decoder else v.layers_per_block
+    n = len(ch)
     sizes = [(h >> i, w >> i) for i in range(n)]
     sites = []
 
@@ -1064,39 +1134,57 @@ def evaluations(cfg, scheduler: str, steps: int, strength: float = 1.0) -> int:
     return make_sampler(scheduler, cfg.scheduler, steps, kept)[1].num_steps
 
 
+def key_steps(n: int, interval: int) -> int:
+    """Evaluations of ``n`` that run the whole model at a cache
+    ``interval`` (iterations i with i % interval == 0; all of them at 1 or
+    less)."""
+    return n if interval <= 1 else len(range(0, n, interval))
+
+
 def expected_launches(cfg, steps: int, strength: float = 1.0,
                       int8_hw=None, scheduler: str = "ddim",
-                      text_encoder: bool = True) -> dict:
+                      text_encoder: bool = True,
+                      encoder_cache_interval: int = 1) -> dict:
     """Kernel launches one ppt-v1 ``__call__`` implies, from the config: one
-    UNet evaluation per sampler iteration over the kept steps, CLIP's 2
-    LayerNorms a layer and the final one (none when ``text_encoder`` is
-    False: both embeddings given), one or two VAE encodes (image latents
-    only at strength < 1) and one decode; with int8 on (``int8_hw``, the
-    image's side or its (H, W)), the ResNet units ``int8_site`` admits on
-    the int8 kernel."""
+    UNet evaluation per sampler iteration over the kept steps (with an
+    ``encoder_cache_interval`` above 1, the whole UNet on key steps and its
+    mid and up blocks on the others), CLIP's 2 LayerNorms a layer and the
+    final one (none when ``text_encoder`` is False: both embeddings given),
+    one or two VAE encodes (image latents only at strength < 1) and one
+    decode; with int8 on (``int8_hw``, the image's side or its (H, W)), the
+    ResNet units ``int8_site`` admits on the int8 kernel."""
     t = cfg.text_encoder
     kept = min(int(steps * strength), steps)
     n_enc = 2 if kept < steps else 1
     text = {"layer_norm": 2 * t.num_hidden_layers + 1}
     unet, enc, dec = _models(cfg, int8_hw, cfg.unet)
-    return _total((evaluations(cfg, scheduler, steps, strength), unet),
+    cached = unet_launches(cfg.unet, encoder=False)
+    if int8_hw is not None:
+        h, w = _hw(int8_hw)
+        cached = int8_split(cached, unet_sites(cfg.unet, h // 8, w // 8,
+                                               encoder=False))
+    n = evaluations(cfg, scheduler, steps, strength)
+    keys = key_steps(n, encoder_cache_interval)
+    return _total((keys, unet), (n - keys, cached),
                   (int(text_encoder), text), (n_enc, enc), (1, dec))
 
 
 def expected_launches_v2(cfg, steps: int, int8_hw=None,
                          scheduler: str = "unipc",
-                         task_tower: bool = True) -> dict:
-    """One ppt-v2 ``__call__``: per sampler iteration one BrushNet and one
-    base-UNet evaluation (guess mode and gated steps run the branch all
-    the same), the two text towers (the plain one alone when
+                         task_tower: bool = True,
+                         branch_cache_interval: int = 1) -> dict:
+    """One ppt-v2 ``__call__``: per sampler iteration one base-UNet
+    evaluation and one BrushNet evaluation (guess mode and gated steps run
+    the branch all the same; with a ``branch_cache_interval`` above 1, on
+    key steps only), the two text towers (the plain one alone when
     ``task_tower`` is False: both embeddings given), one VAE encode and
     one decode."""
     t = cfg.text_encoder
     text = {"layer_norm": 2 * t.num_hidden_layers + 1}
     unet, branch, enc, dec = _models(cfg, int8_hw, cfg.unet, cfg.brushnet.base)
     n = evaluations(cfg, scheduler, steps)
-    return _total((n, unet), (n, branch), (1 + int(task_tower), text),
-                  (1, enc), (1, dec))
+    return _total((n, unet), (key_steps(n, branch_cache_interval), branch),
+                  (1 + int(task_tower), text), (1, enc), (1, dec))
 
 
 def expected_launches_cn(cfg, steps: int, branches: int = 1,
@@ -2924,6 +3012,413 @@ def run_call_surface_path(device):
     return total
 
 
+# diffusers' cross-attention/asymmetric-autoencoder-kl-x-1-5 (its config):
+# the SD1.5 encoder, a decoder at 1.5x the widths with 3 resnets a level (4
+# an up block), and the condition tower that MaskConditionEncoder(in_ch=3,
+# out_ch=192, res_ch=768, stride=16) builds
+ASYM_X15 = dict(asymmetric=True, up_block_out_channels=(192, 384, 768, 768),
+                layers_per_up_block=3,
+                condition_layers=((3, 1, 192), (3, 1, 384), (4, 2, 768),
+                                  (4, 2, 768), (4, 2, 768)))
+CACHE_INTERVALS = (1, 2, 3, 4)
+FREEU = (1.5, 1.6, 0.9, 0.2)
+# decode_tiled's tile and overlap (its defaults), and the latents of a
+# 2048^2 outpainting canvas (25 tiles, also decoded in one pass) and of a
+# 768 x 512 one (2 tiles, H != W)
+TILE, OVERLAP = 64, 16
+TILED_CANVASES = (((256, 256), 25, True), ((96, 64), 2, False))
+
+
+def blend_shapes(v, h: int, w: int):
+    """(H, W, C) of the asymmetric decoder's samples where it may blend
+    (before each up block, and at full size after the last) and of its
+    condition features, for an h x w image (4x4 stride-2 convs with padding
+    1 halve even sides)."""
+    ch = v.up_channels[::-1]
+    n = len(ch)
+    samples = [(h >> (n - 1 - i), w >> (n - 1 - i), ch[max(i - 1, 0)])
+               for i in range(n)] + [(h, w, ch[-1])]
+    feats, fh, fw = [], h, w
+    for _, stride, c in v.condition_layers:
+        fh, fw = fh // stride, fw // stride
+        feats.append((fh, fw, c))
+    return samples, feats
+
+
+def device_ms(fn, families: dict = None) -> float:
+    """Device time in ms of the kernels ``fn()`` launches, under
+    ``torch.profiler`` (None where it records no device time); with a dict
+    ``families``, its split by kernel family (``by_family``) goes there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if families is not None:
+        families.update(by_family(kernels))
+    us = sum(t for _, t, _ in kernels)
+    return us / 1e3 if us else None
+
+
+def host_seconds(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def run_vae_extras_path(device):
+    """Phase 7f: the VAE extras and the approximation modes at full width,
+    bf16, random weights from seeds, 512^2, guidance 7.5. The asymmetric
+    ppt-v1 (``ASYM_X15``'s decoder and condition tower, the spec checked
+    against the decoder's blend shapes): 20 DDIM steps, two tasks and a
+    bitwise repeat; the decode's seconds and device ms beside the SD1.5
+    decoder's on the same latents; on the card, an all-hole mask makes two
+    images decode bitwise alike and a half mask does not; the stack
+    written in fp16 in the ppt-v1 layout and loaded by
+    ``powerpaint_tpu_torch.load`` (every tensor and the image bitwise); one
+    int8 call, its decoder split by ``int8_site``. ``decode_tiled`` on the
+    SD1.5 VAE: a 2048^2 canvas in 25 tiles and in one pass (mid attention
+    at S = 65536), seconds, device ms, peak memory and their mean
+    difference, and a 768 x 512 canvas in 2 tiles. Encoder propagation on
+    ppt-v1 at intervals 1-4 and the BrushNet branch's cache on ppt-v2 at
+    interval 2 (denoise device ms and PSNR against interval 1); FreeU on
+    ppt-v1 (the image differs, the launches do not). ControlNet refuses an
+    encoder cache. Launches exact per call and per decode."""
+    import gc
+    import os
+    import shutil
+
+    import powerpaint_tpu_torch
+    from powerpaint_tpu_torch.core.config import (
+        ppt_v1_config,
+        ppt_v1_controlnet_config,
+        ppt_v2_config,
+    )
+    from powerpaint_tpu_torch.io.weights import _load, init_state, random_state
+    from powerpaint_tpu_torch.models.controlnet import ControlNetModel
+    from powerpaint_tpu_torch.models.vae import AutoencoderKL, decode_tiled
+    from powerpaint_tpu_torch.ops.conv import int8_site
+    from powerpaint_tpu_torch.ops.freeu import FreeUConfig
+    from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
+    from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+
+    v1 = ppt_v1_config()
+    cfg = v1.replace(vae=v1.vae.replace(**ASYM_X15))
+    prompt = "a red bench in a park"
+    image, mask = inputs(HW, 0)
+    total = {k: 0 for k in KERNELS}
+
+    def path_done(label, one_call):
+        for k, n in _path_counts(label, one_call).items():
+            total[k] += n
+
+    samples, feats = blend_shapes(cfg.vae, HW, HW)
+    log(path="vae extras", blend_samples=samples, condition_features=feats)
+    check(all(f in samples for f in feats) and len(set(feats)) == len(feats),
+          f"asymmetric spec: features {feats} do not each match a sample {samples}")
+
+    # 1. the asymmetric ppt-v1 stack, its weights fp16 values (a checkpoint's)
+    t0 = time.perf_counter()
+    state = _fp16_state(cfg, device)
+    pipe = InpaintPipeline(cfg, state, _tokenizer(cfg), dtype=torch.bfloat16,
+                           device=device)
+    vae_params = sum(p.numel() for p in pipe.vae.parameters())
+    log(phase="setup", path="asymmetric ppt-v1", card=CARD[0],
+        params=sum(p.numel() for m in (pipe.unet, pipe.vae, pipe.text_encoder)
+                   for p in m.parameters()),
+        vae_params=vae_params,
+        decoder_params=sum(p.numel() for p in pipe.vae.decoder.parameters()),
+        condition_tower_params=sum(
+            p.numel() for p in pipe.vae.decoder.condition_encoder.parameters()),
+        seconds=time.perf_counter() - t0)
+    # the blend shapes on the card: the up blocks' and the output norm's
+    # inputs, and the tower's features
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(tuple(args[0].shape[1:])))
+        for m in (*pipe.vae.decoder.up_blocks, pipe.vae.decoder.conv_norm_out)]
+    with torch.no_grad():
+        z = torch.randn((1, HW // 8, HW // 8, 4), device=device,
+                        generator=torch.Generator(device=device).manual_seed(5))
+        img_t = torch.as_tensor(image[None], device=device).float() / 127.5 - 1.0
+        mask_t = torch.as_tensor((mask >= 0.5)[None, ..., None], device=device).float()
+        pipe.vae.decode_with_condition(z, img_t, mask_t)
+        got_feats = [tuple(f.shape[1:]) for f in
+                     pipe.vae.decoder.condition_encoder(img_t.bfloat16())]
+    for hk in hooks:
+        hk.remove()
+    check(seen == samples and got_feats == feats,
+          f"asymmetric decode on the card: samples {seen}, features {got_feats}")
+
+    def v1_expected(kw):
+        return expected_launches(
+            cfg, kw["num_inference_steps"],
+            encoder_cache_interval=kw.get("encoder_cache_interval", 1))
+
+    call = _caller(pipe, image, mask, v1_expected)
+    kw = dict(prompt=prompt, seed=1)
+    call("asym v1 warm-up", prompt="a cat", seed=99, num_inference_steps=2)
+    reset_counts()  # the path starts here
+    outs = {t: call(f"asym v1 {t}", task=t, **kw)
+            for t in ("text-guided", "object-removal")}
+    box, inner = {}, pipe._decode  # the repeat's latents, for the decode alone
+    pipe._decode = lambda lat, *a: (box.setdefault("lat", lat.clone()),
+                                    inner(lat, *a))[1]
+    again = call("asym v1 text-guided same seed", **kw)
+    pipe._decode = inner
+    check(np.array_equal(again, outs["text-guided"]),
+          "asymmetric v1: the same seed gave a different image")
+
+    # the decode alone, beside the SD1.5 decoder's on the same latents
+    with torch.device("meta"):
+        sd_vae = AutoencoderKL(v1.vae)
+    sd_vae = _load(sd_vae, random_state(sd_vae, torch.Generator(device=device)
+                                        .manual_seed(3), device, torch.bfloat16),
+                   device, torch.bfloat16, None)
+    with torch.no_grad():
+        zd = (box["lat"] / cfg.vae.scaling_factor).to(torch.bfloat16)
+        asym_dec = lambda: pipe.vae.decode_with_condition(zd, img_t, mask_t)  # noqa: E731
+        sd_dec = lambda: sd_vae.decode(zd)  # noqa: E731
+        asym_dec(), sd_dec()  # warm-up
+        fam_asym, fam_sd = {}, {}
+        row = dict(asym_seconds=host_seconds(asym_dec), sd_seconds=host_seconds(sd_dec),
+                   asym_device_ms=device_ms(asym_dec, fam_asym),
+                   sd_device_ms=device_ms(sd_dec, fam_sd),
+                   asym_device_ms_by_family=fam_asym, sd_device_ms_by_family=fam_sd)
+        if row["asym_device_ms"] and row["sd_device_ms"]:
+            row["device_ratio"] = row["asym_device_ms"] / row["sd_device_ms"]
+        log(decode="asymmetric x-1-5 vs SD1.5 at 512^2", card=CARD[0],
+            asym_vae_params=vae_params,
+            sd_vae_params=sum(p.numel() for p in sd_vae.parameters()), **row)
+        # the mask semantics on the card
+        img_b = torch.as_tensor(inputs(HW, 7)[0][None], device=device).float() / 127.5 - 1
+        hole = torch.ones_like(mask_t)
+        half = hole.clone()
+        half[:, :, : HW // 2] = 0.0
+        dec = pipe.vae.decode_with_condition
+        check(torch.equal(dec(zd, img_t, hole), dec(zd, img_b, hole)),
+              "asymmetric decode: an all-hole mask let the image through")
+        check(not torch.equal(dec(zd, img_t, half), dec(zd, img_b, half)),
+              "asymmetric decode: a half mask did not let the image through")
+    dec_launches = _total((1, vae_launches(cfg.vae, True)),
+                          (1, vae_launches(v1.vae, True)))
+    path_done("asymmetric ppt-v1", _total((1, v1_expected({"num_inference_steps": STEPS})),
+                                          (1, dec_launches)))
+
+    # 2. the stack written in fp16 in the ppt-v1 layout, loaded
+    work = os.path.join("smoke_out", "asymmetric")
+    shutil.rmtree(work, ignore_errors=True)
+    files = {os.path.join(work, *rel): sd for rel, sd in (
+        (("unet", "diffusion_pytorch_model.safetensors"), state["unet"]),
+        (("text_encoder", "model.safetensors"),
+         _with_position_ids(state["text_encoder"])),
+        (("vae", "diffusion_pytorch_model.safetensors"), state["vae"]))}
+    nbytes = sum(_write(path, sd) for path, sd in files.items())
+    del files
+    int8_pipe = InpaintPipeline(cfg, state, _tokenizer(cfg), dtype=torch.bfloat16,
+                                device=device, int8=True)
+    del state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = powerpaint_tpu_torch.load(work, "ppt-v1").pipeline
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(checkpoint="asymmetric ppt-v1", card=CARD[0], bytes=nbytes,
+        load_seconds=load_s, load_gb_per_s=nbytes / load_s / 1e9)
+    check(loaded.config.vae == cfg.vae,
+          f"asymmetric load: config {loaded.config.vae}, not {cfg.vae}")
+    for f in ("unet", "vae", "text_encoder"):
+        _same_weights(f"asymmetric load {f}", getattr(loaded, f), getattr(pipe, f))
+    lcall = _caller(loaded, image, mask, v1_expected)
+    reset_counts()
+    got = lcall("asym v1 loaded", **kw)
+    check(np.array_equal(got, outs["text-guided"]),
+          "asymmetric load: the image is not the in-memory pipeline's")
+    path_done("asymmetric ppt-v1 loaded", v1_expected({"num_inference_steps": STEPS}))
+    del loaded, lcall
+    gc.collect()  # the timing wrappers make the pipelines reference cycles
+    shutil.rmtree(work, ignore_errors=True)
+
+    # 3. int8: the decoder's units split by int8_site
+    sites = vae_sites(cfg.vae, HW, HW, True)
+    n_int8 = sum(int8_site(*s) for s in sites)
+    i8_expected = lambda kw: expected_launches(cfg, kw["num_inference_steps"],  # noqa: E731
+                                               int8_hw=HW)
+    icall = _caller(int8_pipe, image, mask, i8_expected)
+    icall("asym v1 int8 warm-up", prompt="a cat", seed=99, num_inference_steps=2)
+    reset_counts()
+    i8 = icall("asym v1 int8", **kw)
+    log(path="asymmetric ppt-v1 int8", card=CARD[0],
+        decoder_units=len(sites), decoder_int8_units=n_int8,
+        psnr_vs_bf16=psnr(i8, outs["text-guided"]), seconds_per_image=icall.seconds)
+    path_done("asymmetric ppt-v1 int8", i8_expected({"num_inference_steps": STEPS}))
+    del int8_pipe, icall
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. decode_tiled on the SD1.5 VAE
+    reset_counts()
+    for (h8, w8), tiles, one_pass in TILED_CANVASES:
+        zt = torch.randn((1, h8, w8, 4), device=device,
+                         generator=torch.Generator(device=device).manual_seed(11))
+        zt = zt.to(torch.bfloat16)
+        rows, imgs = {}, {}
+        for label, fn in (("tiled", lambda: decode_tiled(sd_vae, zt, tile=TILE,
+                                                         overlap=OVERLAP)),
+                          ("one pass", lambda: sd_vae.decode(zt))):
+            if label == "one pass" and not one_pass:
+                continue
+            with torch.no_grad():
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                before = read_counts()
+                secs = host_seconds(lambda: imgs.setdefault(label, fn()))
+                after = read_counts()
+                got_l = {k: after[k] - before[k] for k in after}
+                want_l = _total((tiles if label == "tiled" else 1,
+                                 vae_launches(v1.vae, True)))
+                check(got_l == want_l, f"decode_tiled {label} {h8}x{w8}: launches "
+                                       f"{got_l}, expected {want_l}")
+                peak = torch.cuda.max_memory_allocated()
+                ms = device_ms(fn)
+            img = imgs[label]
+            check(img.shape == (1, 8 * h8, 8 * w8, 3) and img.dtype == torch.bfloat16
+                  and bool(torch.isfinite(img).all()),
+                  f"decode_tiled {label}: {tuple(img.shape)} {img.dtype}")
+            rows[label] = dict(seconds=secs, device_ms=ms, launches=got_l,
+                               max_memory_allocated=peak,
+                               peak_above_resident_bytes=peak - resident)
+        diff = (float((imgs["tiled"].float() - imgs["one pass"].float()).abs().mean())
+                if "one pass" in imgs else None)
+        log(decode_tiled=[8 * h8, 8 * w8], card=CARD[0], tiles=tiles, tile=TILE,
+            overlap=OVERLAP, mean_abs_diff_tiled_vs_one_pass=diff, **rows)
+    path_done("decode_tiled", _total((1, vae_launches(v1.vae, True))))
+
+    # 5. encoder propagation on ppt-v1, FreeU
+    reset_counts()
+    cache = {}
+    for n in CACHE_INTERVALS:
+        box = {}
+        ms = denoise_device_ms(pipe, lambda: box.setdefault("img", call(
+            f"asym v1 encoder_cache_interval {n}", encoder_cache_interval=n, **kw)))
+        cache[n] = dict(image=box["img"], ms=ms)
+    check(np.array_equal(cache[1]["image"], outs["text-guided"]),
+          "encoder_cache_interval 1: not the exact loop's image")
+    for n in CACHE_INTERVALS[1:]:
+        check(not np.array_equal(cache[n]["image"], cache[1]["image"]),
+              f"encoder_cache_interval {n}: the image did not change")
+        log(encoder_cache_interval=n, card=CARD[0], denoise_device_ms=cache[n]["ms"],
+            denoise_device_ms_interval_1=cache[1]["ms"],
+            device_ratio=(cache[n]["ms"] / cache[1]["ms"]
+                          if cache[n]["ms"] and cache[1]["ms"] else None),
+            psnr_vs_interval_1=psnr(cache[n]["image"], cache[1]["image"]))
+    pipe.unet.freeu = FreeUConfig(*FREEU)
+    box = {}
+    ms = denoise_device_ms(pipe, lambda: box.setdefault("img", call(
+        "asym v1 freeu", **kw)))
+    pipe.unet.freeu = None
+    check(not np.array_equal(box["img"], cache[1]["image"]),
+          "freeu: the image did not change")
+    log(freeu=list(FREEU), card=CARD[0], denoise_device_ms=ms,
+        denoise_device_ms_off=cache[1]["ms"],
+        psnr_vs_off=psnr(box["img"], cache[1]["image"]))
+    path_done("encoder cache + freeu", v1_expected({"num_inference_steps": STEPS}))
+
+    # 6. ControlNet refuses an encoder cache
+    cn_cfg = ppt_v1_controlnet_config()
+    with torch.device("meta"):
+        branch = ControlNetModel(cn_cfg.controlnet)
+    branch = _load(branch, random_state(branch, torch.Generator(device=device).manual_seed(1),
+                                        device, torch.bfloat16),
+                   device, torch.bfloat16, None)
+    cn = ControlNetPipeline.from_pipeline(pipe, branch)
+    edges = edge_map(HW, 3)
+    try:
+        cn(image, mask, edges, prompt=prompt, num_inference_steps=2,
+           encoder_cache_interval=2)
+        refused = None
+    except TypeError as e:
+        refused = str(e)
+    check(refused is not None and "encoder_cache_interval" in refused,
+          f"controlnet + encoder cache: {refused!r}")
+    try:
+        with torch.no_grad():
+            pipe.unet(torch.zeros((2, 8, 8, 9), device=device), torch.tensor(1),
+                      torch.zeros((2, 77, 768), device=device),
+                      down_block_additional_residuals=[None] * 12,
+                      emit_encoder_cache=True)
+        unet_refused = None
+    except ValueError as e:
+        unet_refused = str(e)
+    check(unet_refused is not None and "encoder caching" in unet_refused,
+          f"unet + residuals + encoder cache: {unet_refused!r}")
+    log(path="controlnet + encoder cache", refused=refused, unet_refused=unet_refused)
+    del cn, branch, pipe, call, sd_vae
+    torch.cuda.empty_cache()
+
+    # 7. the BrushNet branch's cache on ppt-v2
+    v2 = ppt_v2_config()
+    state = init_state(v2, torch.Generator(device=device).manual_seed(0),
+                       device=device, dtype=torch.bfloat16)
+    pipe = BrushNetPipeline(v2, state, _tokenizer(v2), dtype=torch.bfloat16,
+                            device=device)
+    del state
+    v2_expected = lambda kw: expected_launches_v2(  # noqa: E731
+        v2, kw["num_inference_steps"],
+        branch_cache_interval=kw.get("branch_cache_interval", 1))
+    call = _caller(pipe, image, mask, v2_expected,
+                   models=(("brushnet", "denoise_brushnet"),
+                           ("unet", "denoise_base_unet")))
+    call("v2 warm-up", prompt="a cat", seed=99, num_inference_steps=2)
+    reset_counts()
+    v2_rows = {}
+    for n in (1, 2):
+        box = {}
+        ms = denoise_device_ms(pipe, lambda: box.setdefault("img", call(
+            f"v2 branch_cache_interval {n}", branch_cache_interval=n, **kw)))
+        v2_rows[n] = dict(image=box["img"], ms=ms)
+    check(not np.array_equal(v2_rows[2]["image"], v2_rows[1]["image"]),
+          "branch_cache_interval 2: the image did not change")
+    log(branch_cache_interval=2, card=CARD[0], denoise_device_ms=v2_rows[2]["ms"],
+        denoise_device_ms_interval_1=v2_rows[1]["ms"],
+        device_ratio=(v2_rows[2]["ms"] / v2_rows[1]["ms"]
+                      if v2_rows[2]["ms"] and v2_rows[1]["ms"] else None),
+        psnr_vs_interval_1=psnr(v2_rows[2]["image"], v2_rows[1]["image"]))
+    path_done("branch cache ppt-v2", v2_expected({"num_inference_steps": STEPS}))
+    del pipe, call
+    torch.cuda.empty_cache()
+    return total
+
+
+# device time by family, from the kernel names (first match wins); the
+# GroupNorm family holds the statistics launches of the fused conv and the
+# int8 units' quantisers too
+FAMILIES = (("flash_attention", ("flash_",)),
+            ("conv3x3 kernel", ("conv3x3_kernel", "conv3x3_bf16_kernel")),
+            ("conv3x3 int8 kernel", ("conv3x3_int8_kernel",)),
+            ("group_norm", ("gn_resident_kernel", "gn_partial_kernel",
+                            "gn_finish_kernel", "quantize_kernel")),
+            ("layer_norm", ("ln_kernel",)),
+            ("cudnn conv", ("fprop", "conv")),
+            ("matmul", ("gemm", "nvjet", "cutlass")))
+
+
+def by_family(kernels) -> dict:
+    """{family: device ms} of (name, device us, count) rows."""
+    out = {}
+    for name, t, _ in kernels:
+        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)),
+                   "other")
+        out[fam] = out.get(fam, 0.0) + t / 1e3
+    return out
+
 def profile_call(label: str, run_call) -> None:
     """One 20-step call under ``torch.profiler``: device time by kernel
     family and the top kernels, and the device's busy share of the call's
@@ -2950,23 +3445,7 @@ def profile_call(label: str, run_call) -> None:
         log(profile=label, result="not measured: the profiler recorded no device time")
         return
     kernels.sort(key=lambda k: -k[1])
-    # device time by family, from the kernel names (first match wins); the
-    # GroupNorm family holds the statistics launches of the fused conv and
-    # the int8 units' quantisers too
-    families = (("flash_attention", ("flash_",)),
-                ("conv3x3 kernel", ("conv3x3_kernel", "conv3x3_bf16_kernel")),
-                ("conv3x3 int8 kernel", ("conv3x3_int8_kernel",)),
-                ("group_norm", ("gn_resident_kernel", "gn_partial_kernel",
-                                "gn_finish_kernel", "quantize_kernel")),
-                ("layer_norm", ("ln_kernel",)),
-                ("cudnn conv", ("fprop", "conv")),
-                ("matmul", ("gemm", "nvjet", "cutlass")))
-    by_family = {}
-    for name, t, _ in kernels:
-        fam = next((f for f, keys in families if any(k in name for k in keys)),
-                   "other")
-        by_family[fam] = by_family.get(fam, 0.0) + t / 1e3
-    log(profile=label, steps=STEPS, device_ms_by_family=by_family,
+    log(profile=label, steps=STEPS, device_ms_by_family=by_family(kernels),
         wall_ms=wall_us / 1e3, unprofiled_wall_ms=plain_wall_us / 1e3,
         device_busy_ms=busy_us / 1e3, device_busy_share=busy_us / wall_us,
         device_busy_share_unprofiled=busy_us / plain_wall_us,
@@ -2976,10 +3455,12 @@ def profile_call(label: str, run_call) -> None:
 
 def tiny_reference(device) -> None:
     """The tiny ppt-v1, ppt-v2 and ppt-v1 + ControlNet configurations, fp32,
-    each at its default sampler and at one other, through the kernels on
-    the card and through the plain versions on the CPU, with the same
-    weights and the same noise (the step noise too): the uint8 images must
-    agree within the JAX package's end-to-end bound (max 3, mean 0.5).
+    each at its default sampler and at one other (and ppt-v1 with the
+    asymmetric VAE, encoder propagation and FreeU, ppt-v2 with the branch's
+    cache), through the kernels on the card and through the plain versions
+    on the CPU, with the same weights and the same noise (the step noise
+    too): the uint8 images must agree within the JAX package's end-to-end
+    bound (max 3, mean 0.5).
 
     ppt-v1 with int8 on (every ResNet unit is an int8 site at this size) is
     held site by site instead: static-scale quantisation turns an fp32 ulp
@@ -3003,7 +3484,9 @@ def tiny_reference(device) -> None:
         gating_table,
     )
     from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+    from powerpaint_tpu_torch.ops.freeu import FreeUConfig
     from powerpaint_tpu_torch.testing import (
+        tiny_asymmetric_vae,
         tiny_v1_config,
         tiny_v1_controlnet_config,
         tiny_v2_config,
@@ -3039,7 +3522,8 @@ def tiny_reference(device) -> None:
         return v1(pipe, dev, noise, control_u8=control, scales=table,
                   scheduler=scheduler)
 
-    def v2(pipe, dev, noise, steps=3, scheduler="unipc", step_noise=None):
+    def v2(pipe, dev, noise, steps=3, scheduler="unipc", step_noise=None,
+           **extra):
         task = "object-removal"
         ids_t, ids_u = pipe.encode_task(
             add_task(v2_prompt_suffix("a dog", task), "", task, "ppt-v2"))
@@ -3049,7 +3533,13 @@ def tiny_reference(device) -> None:
             torch.tensor([0.6], device=dev), torch.as_tensor(image[None], device=dev),
             torch.as_tensor(mask_u8, device=dev), torch.tensor([7.5], device=dev),
             cond_scale_table(steps, 1.0, 0.0, 1.0), *noise[:2], step_noise,
-            num_steps=steps, output_type="uint8", scheduler=scheduler)
+            num_steps=steps, output_type="uint8", scheduler=scheduler, **extra)
+
+    def v1_cached_freeu(pipe, dev, noise):
+        # the asymmetric decode, encoder propagation (key steps 0 and 2 of
+        # 4) and FreeU in one call
+        pipe.unet.freeu = FreeUConfig(*FREEU)
+        return v1(pipe, dev, noise, steps=4, kept=4, encoder_cache_interval=2)
 
     # one sampler per pipeline beside the defaults: euler_a at strength 0.6
     # (3 of 5 steps, sigma space, step noise), LCM on an LCM UNet (the
@@ -3070,7 +3560,12 @@ def tiny_reference(device) -> None:
             ("ppt-v1 + controlnet heun", tiny_v1_controlnet_config(),
              ControlNetPipeline,
              lambda p, d, n: cn(p, d, n, "heun", (0.1, 0.6)), False),
-            ("ppt-v1 int8", tiny_v1_config(), InpaintPipeline, v1, True)):
+            ("ppt-v1 int8", tiny_v1_config(), InpaintPipeline, v1, True),
+            ("ppt-v1 asymmetric, encoder cache 2, freeu",
+             tiny_v1_config().replace(vae=tiny_asymmetric_vae()), InpaintPipeline,
+             v1_cached_freeu, False),
+            ("ppt-v2 branch cache 2", tiny_v2_config(), BrushNetPipeline,
+             lambda p, d, n: v2(p, d, n, steps=4, branch_cache_interval=2), False)):
         state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu",
                            dtype=torch.float32)
         outs, sites = {}, []
@@ -3202,7 +3697,8 @@ def main() -> None:
              ("annotators + safety", run_annotator_path),
              ("samplers", run_sampler_path),
              ("checkpoints + lora", run_checkpoint_path),
-             ("call surface", run_call_surface_path))
+             ("call surface", run_call_surface_path),
+             ("vae extras", run_vae_extras_path))
     for label, run in paths:
         t0 = time.perf_counter()
         counts = run(device)
@@ -3230,6 +3726,11 @@ def main() -> None:
             **{k: head[k] for k in ("library_scope", "bf16_kernel_ms",
                                     "quantize_ms", "product_ms", "unfused_ms")
                if k in head}))
+        if name == "flash_attention":  # the head dims past the UNet's
+            kernels[-1]["head_dims"] = [
+                {k: r[k] for k in ("shape", "ms", "bound_ms", "bound_by", "plain_ms",
+                                   "library_ms", "library_backend")}
+                for r in timings[name] if r["shape"][-1] >= 512]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

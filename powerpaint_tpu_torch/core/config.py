@@ -189,7 +189,12 @@ class ControlNetConfig(_ConfigBase):
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig(_ConfigBase):
-    """AutoencoderKL (SD1.5)."""
+    """AutoencoderKL (SD1.5). ``asymmetric``: an AsymmetricAutoencoderKL,
+    whose decoder is mask-conditioned (``decode_with_condition``) and may
+    have its own widths (``up_block_out_channels``) and depth
+    (``layers_per_up_block``); ``condition_layers`` is the (kernel, stride,
+    out_ch) spec of its known-region condition tower, as
+    ``io.convert.infer_condition_layers`` reads it from a checkpoint."""
 
     in_channels: int = 3
     out_channels: int = 3
@@ -199,6 +204,19 @@ class VAEConfig(_ConfigBase):
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
     sample_size: int = 512
+    asymmetric: bool = False
+    up_block_out_channels: Optional[Tuple[int, ...]] = None
+    layers_per_up_block: Optional[int] = None
+    condition_layers: Optional[Tuple[Tuple[int, int, int], ...]] = None
+
+    @property
+    def up_channels(self) -> Tuple[int, ...]:
+        return self.up_block_out_channels or self.block_out_channels
+
+    @property
+    def up_layers(self) -> int:
+        return (self.layers_per_up_block if self.layers_per_up_block
+                is not None else self.layers_per_block)
 
 
 @dataclasses.dataclass(frozen=True)

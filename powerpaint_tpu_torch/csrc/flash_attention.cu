@@ -16,7 +16,9 @@
 // the tensor-core bound. The design:
 // - One block per (64 * NWG q rows, batch * head, z slice of DO output
 //   columns): NWG consumer warpgroups of 64 q rows each and one producer
-//   warpgroup. D <= 256 is one slice; D = 512 (the VAE) two slices of 256.
+//   warpgroup. D <= 256 is one slice; D = 512 (the VAE) two slices of 256,
+//   up to 768 three and up to 1024 four (the asymmetric VAE's decoders:
+//   one head over 768 or 1024 channels), each slice recomputing q k^T.
 // - Products on wgmma. s = q k^T: m64nBKk16 with q and k from shared memory
 //   (K-major, 128-byte swizzle), KSTEPS k16 steps over the shape's largest
 //   D padded to 16 (40 -> 48; the pad zero-filled by the copies), unrolled.
@@ -42,7 +44,11 @@
 // - Shared memory (bytes, 128-byte rows, QB = ceil(16 KSTEPS / 64)): q
 //   128 * 64 * QB per warpgroup, each stage BK * 128 * (QB + ceil(DO / 64)):
 //   113 KB at D = 40 (3 stages of 128 kv rows), 161 KB at D = 80, 145 KB at
-//   160, 161 KB at 512 (two stages of 32 rows).
+//   160, 161 KB at 512 (two stages of 32 rows), 225 KB at 768 (two stages of
+//   32 rows, 2 KB under the limit) and 209 KB at 1024, where q alone takes
+//   128 KB and the stages shrink to 16 kv rows (q k^T on m64n16k16) so that
+//   two still fit: the ring needs two, one for the tile whose p v runs and
+//   one for the tile whose scores are issued beside it.
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): 0.198 ms at
 // (2, 4096, 4096, 8, 40), 1.23x SDPA's 0.161 in the same run (the mma.sync
 // version took 0.494); 0.461 ms at the VAE's (1, 4096, 4096, 1, 512), 1.38x
@@ -279,6 +285,12 @@ template <>
 struct ScoreMma<64> {
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int s) {
     wgmma_ss_n64(d, a, b, s);
+  }
+};
+template <>
+struct ScoreMma<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b, int s) {
+    wgmma_ss_n16(d, a, b, s);
   }
 };
 template <>
@@ -610,8 +622,9 @@ bool aligned16(const void* p) {
 // The bf16 kernel's shape for head dim D (mirrored by
 // ops/flash_attention.py::bf16_config): output columns per z slice, kv rows
 // per stage, consumer warpgroups, stages. Every D up to 256 is one slice;
-// D up to 512 is two slices of 256 with one consumer warpgroup (the q tile
-// of 64 x 512 and two stages of k and v fill the shared memory).
+// past 256, slices of 256 with one consumer warpgroup (the q tile of 64 x D
+// and two stages of k and v fill the shared memory): 32 kv rows a stage up
+// to D = 768, 16 up to 1024.
 struct BfConfig {
   int DO, BK, NWG, STAGES, KSTEPS;
 };
@@ -622,7 +635,9 @@ BfConfig bf16_config(int D) {
   if (D <= 80) return {80, 128, 2, 2, 5};
   if (D <= 160) return {160, 64, 2, 2, 10};
   if (D <= 256) return {256, 64, 2, 2, 16};
-  return {256, 32, 1, 2, 32};
+  if (D <= 512) return {256, 32, 1, 2, 32};
+  if (D <= 768) return {256, 32, 1, 2, 48};
+  return {256, 16, 1, 2, 64};
 }
 
 size_t bf16_smem_bytes(const BfConfig& c) {
@@ -650,16 +665,19 @@ cudaError_t launch_bf16(const Args& a) {
   return cudaGetLastError();
 }
 
+constexpr int BF16_MAX_D = 1024;
+
 cudaError_t dispatch_bf16(const Args& a) {
-  if (a.D > 512) return cudaErrorInvalidValue;
-  const BfConfig c = bf16_config(a.D);
-  switch (c.DO) {
-    case 40: return launch_bf16<40, 128, 2, 3, 3>(a);
-    case 64: return launch_bf16<64, 128, 2, 3, 4>(a);
-    case 80: return launch_bf16<80, 128, 2, 2, 5>(a);
-    case 160: return launch_bf16<160, 64, 2, 2, 10>(a);
-    default:
-      return c.NWG == 2 ? launch_bf16<256, 64, 2, 2, 16>(a) : launch_bf16<256, 32, 1, 2, 32>(a);
+  if (a.D > BF16_MAX_D) return cudaErrorInvalidValue;
+  switch (bf16_config(a.D).KSTEPS) {
+    case 3: return launch_bf16<40, 128, 2, 3, 3>(a);
+    case 4: return launch_bf16<64, 128, 2, 3, 4>(a);
+    case 5: return launch_bf16<80, 128, 2, 2, 5>(a);
+    case 10: return launch_bf16<160, 64, 2, 2, 10>(a);
+    case 16: return launch_bf16<256, 64, 2, 2, 16>(a);
+    case 32: return launch_bf16<256, 32, 1, 2, 32>(a);
+    case 48: return launch_bf16<256, 32, 1, 2, 48>(a);
+    default: return launch_bf16<256, 16, 1, 2, 64>(a);
   }
 }
 
@@ -694,9 +712,9 @@ cudaError_t dispatch_f32(const Args& a) {
 
 // The bf16 kernel's shape for head dim D: out[0..5] = output columns per
 // slice, kv rows per stage, consumer warpgroups, stages, slices, shared
-// memory bytes. Returns 0, or cudaErrorInvalidValue past D = 512.
+// memory bytes. Returns 0, or cudaErrorInvalidValue past D = 1024.
 extern "C" int ppt_flash_attention_bf16_config(int D, long long* out) {
-  if (D <= 0 || D > 512) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D > BF16_MAX_D) return (int)cudaErrorInvalidValue;
   const BfConfig c = bf16_config(D);
   const long long v[6] = {c.DO, c.BK, c.NWG, c.STAGES, (D + c.DO - 1) / c.DO,
                           (long long)bf16_smem_bytes(c)};
@@ -705,7 +723,7 @@ extern "C" int ppt_flash_attention_bf16_config(int D, long long* out) {
 }
 
 // q, k, v: (B, Sq|Skv, N, D) and o: (B, Sq, N, D), all of one dtype (fp32
-// or bf16), D contiguous (bf16: D at most 512). strides: 12 element
+// or bf16), D contiguous (bf16: D at most 1024). strides: 12 element
 // strides, (batch, seq, head) for q, k, v, o in that order. Returns the CUDA
 // error code of the launch.
 extern "C" int ppt_flash_attention(const void* q, const void* k, const void* v,

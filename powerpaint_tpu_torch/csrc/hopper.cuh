@@ -299,6 +299,18 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
 // d[4 i + 1]) and 16 w + t / 4 + 8 (d[4 i + 2], d[4 i + 3]) at columns
 // 8 i + 2 (t % 4) and + 1.
 
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
     uint64_t db, int scale_d) {
   asm volatile(

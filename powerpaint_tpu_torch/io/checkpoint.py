@@ -27,10 +27,12 @@ builds the pipeline from them on ``device`` (the card unless the caller
 asks for ``"cpu"``), where ``io.weights.load_models`` casts them (linear
 and conv weights to ``dtype``, bf16 by default), stores conv weights
 channels-last and quantises the int8 units (``int8``, as the pipelines
-take it). What the JAX loaders accept and the port cannot compute yet is
-refused with ``NotImplementedError`` naming its ROADMAP item: an
-asymmetric VAE (A16), IP-Adapter weights or an image encoder (A14b), a
-native orbax directory (A19).
+take it). An asymmetric VAE (``AsymmetricAutoencoderKL``: a
+``decoder.condition_encoder``) sets the ppt-v1 config's VAE from its
+shapes. What the JAX loaders accept and the port cannot compute yet is
+refused with ``NotImplementedError`` naming its ROADMAP item: IP-Adapter
+weights or an image encoder (A14b), a native orbax directory (A19). ppt-v2
+refuses an asymmetric VAE, which only the v1 pipeline decodes.
 """
 
 from __future__ import annotations
@@ -105,11 +107,15 @@ def _refuse_native(root: str) -> None:
             "yet (ROADMAP A19)")
 
 
-def _refuse_asymmetric(vae_sd) -> None:
-    if C.infer_condition_layers(vae_sd):
-        raise NotImplementedError(
-            "an asymmetric VAE (AsymmetricAutoencoderKL, a "
-            "decoder.condition_encoder) is not ported yet (ROADMAP A16)")
+def _vae_config(config: PowerPaintConfig, vae_sd) -> PowerPaintConfig:
+    """The config with an asymmetric VAE's condition tower and decoder
+    shapes where ``vae_sd`` has a condition tower, else as it is."""
+    spec = C.infer_condition_layers(vae_sd)
+    if not spec:
+        return config
+    return config.replace(vae=config.vae.replace(
+        asymmetric=True, condition_layers=spec,
+        **C.infer_vae_decoder_config(vae_sd)))
 
 
 def load_ppt_v1(root: str, *, base_dir: Optional[str] = None,
@@ -123,7 +129,8 @@ def load_ppt_v1(root: str, *, base_dir: Optional[str] = None,
     ``root`` may also be an original-SD single file (``load_single_file``).
     A ``safety_checker/`` directory with weights under either is registered
     as the process's checker, unless one is registered already (ppt-v1
-    runs the checker by default)."""
+    runs the checker by default). An asymmetric ``vae/`` gives the
+    pipeline its conditional decode."""
     from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
 
     if os.path.isfile(root):
@@ -139,7 +146,7 @@ def load_ppt_v1(root: str, *, base_dir: Optional[str] = None,
     if missing:
         raise FileNotFoundError(
             f"checkpoint dir {root!r} missing weights for: {missing}")
-    _refuse_asymmetric(state["vae"])
+    config = _vae_config(config, state["vae"])
     state["text_encoder"] = C.convert_clip_text(state["text_encoder"])
     config = _sync_text_config(config, state["text_encoder"])
     tokenizer = _build_tokenizer(base_dir, config.text_encoder.vocab_size,
@@ -240,7 +247,11 @@ def load_ppt_v2(root: str, *, config: Optional[PowerPaintConfig] = None,
              "brushnet": C.load_state_dict(paths["brushnet"]),
              "text_encoder_brushnet": C.convert_clip_text(
                  C.load_state_dict(paths["brushnet text_encoder"]))}
-    _refuse_asymmetric(state["vae"])
+    if C.infer_condition_layers(state["vae"]):
+        raise NotImplementedError(
+            "an asymmetric VAE (AsymmetricAutoencoderKL, a "
+            "decoder.condition_encoder) decodes on ppt-v1 only; ppt-v2's "
+            "pipeline decodes with the plain VAE, as the JAX package's does")
     config = _sync_text_config(config, state["text_encoder_brushnet"])
     tokenizer = _build_tokenizer(base, config.text_encoder.vocab_size,
                                  config.text_encoder.num_external_tokens)

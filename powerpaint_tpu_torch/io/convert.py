@@ -12,7 +12,9 @@ dict load as they are. What this module does to them:
   rows), which is the port's ``TaskTokenEmbedding``; a plain tower's
   ``token_embedding.weight`` stays plain.
 - The VAE keeps ``quant_conv`` / ``post_quant_conv`` at its top level, as
-  diffusers stores them.
+  diffusers stores them; an asymmetric VAE's condition tower and decoder
+  shapes are read from its keys (``infer_condition_layers``,
+  ``infer_vae_decoder_config``).
 - Original-SD single files (``model.diffusion_model.*``,
   ``first_stage_model.*``, ``cond_stage_model.transformer.*``) are renamed
   to those names: ``ldm_unet_to_diffusers``, ``ldm_vae_to_diffusers``
@@ -92,6 +94,24 @@ def infer_condition_layers(sd) -> Tuple[Tuple[int, int, int], ...]:
         spec.append((k, 1 if k == 3 else 2, int(w.shape[0])))
         i += 1
     return tuple(spec)
+
+
+def infer_vae_decoder_config(sd) -> dict:
+    """The decoder's widths and depth from a VAE state dict's shapes
+    (``VAEConfig`` fields): an asymmetric VAE's decoder is wider and deeper
+    than its encoder."""
+    n_blocks = 0
+    while f"decoder.up_blocks.{n_blocks}.resnets.0.conv1.weight" in sd:
+        n_blocks += 1
+    chans, layers = [], 0
+    for i in range(n_blocks):
+        chans.append(int(sd[f"decoder.up_blocks.{i}.resnets.0.conv1.weight"].shape[0]))
+        k = 0
+        while f"decoder.up_blocks.{i}.resnets.{k}.conv1.weight" in sd:
+            k += 1
+        layers = max(layers, k - 1)
+    return {"up_block_out_channels": tuple(reversed(chans)),
+            "layers_per_up_block": layers}
 
 
 def infer_clip_vision_config(sd):

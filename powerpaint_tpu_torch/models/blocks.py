@@ -9,7 +9,8 @@ the JAX package: a down block adds one after each (resnet, attention) pair
 and one after the downsampler, each BEFORE the skip is recorded; an up
 block adds one after each pair and after the upsampler, and with ``emit``
 records each feature BEFORE its tap is added (the BrushNet branch's
-outputs)."""
+outputs). An up block given a ``FreeUConfig`` applies FreeU to the
+running feature and each skip before their concat (``ops.freeu``)."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from powerpaint_tpu_torch.models.resnet import (
     Upsample2D,
 )
 from powerpaint_tpu_torch.models.transformer import Transformer2DModel
+from powerpaint_tpu_torch.ops.freeu import FreeUConfig, apply_freeu
 
 
 def _attentions(cross_attention: bool, n: int, channels: int, num_heads: int,
@@ -103,15 +105,18 @@ class MidBlock(nn.Module):
 
 class UpBlock(nn.Module):
     """Each resnet takes the concat of the running feature and one skip,
-    popped from the end of ``skips``. Returns (x, emitted features)."""
+    popped from the end of ``skips``. Returns (x, emitted features).
+    ``resolution_idx``: the block's place among the up blocks (FreeU acts
+    on 0 and 1)."""
 
     def __init__(self, prev_channels: int, out_channels: int,
                  skip_in_channels: int, temb_channels: int, *, num_layers: int,
                  add_upsample: bool, cross_attention: bool, num_heads: int = 8,
                  context_dim: int = 768, transformer_layers: int = 1,
                  use_linear_projection: bool = False, eps: float = 1e-5,
-                 groups: int = 32):
+                 groups: int = 32, resolution_idx: int = 0):
         super().__init__()
+        self.resolution_idx = resolution_idx
         resnets = []
         for i in range(num_layers):
             skip = skip_in_channels if i == num_layers - 1 else out_channels
@@ -129,13 +134,14 @@ class UpBlock(nn.Module):
                 skips: Sequence[torch.Tensor], context: torch.Tensor,
                 output_size: Optional[tuple] = None,
                 add_samples: Optional[Sequence[torch.Tensor]] = None,
-                emit: bool = False,
+                emit: bool = False, freeu: Optional[FreeUConfig] = None,
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         taps = iter(add_samples) if add_samples is not None else None
         emitted = []
         skips = list(skips)
         for i, resnet in enumerate(self.resnets):
-            x = torch.cat([x, skips.pop()], dim=-1)
+            x, skip = apply_freeu(self.resolution_idx, x, skips.pop(), freeu)
+            x = torch.cat([x, skip], dim=-1)
             x = resnet(x, temb)
             if self.attentions is not None:
                 x = self.attentions[i](x, context)

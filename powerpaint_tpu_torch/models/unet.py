@@ -11,7 +11,14 @@ the mid block, then the up blocks' taps.
 
 The ControlNet branches' residuals (their sum) are added onto every
 recorded skip, conv_in's included, after the last down block, and the mid
-residual right after the mid block, before any BrushNet mid tap."""
+residual right after the mid block, before any BrushNet mid tap.
+
+Encoder propagation (Faster Diffusion, arXiv 2312.09608), as in the JAX
+package: a key step returns the encoder's features (the feature after the
+down blocks and every skip) with its output, and a step given them skips
+conv_in and the down blocks, recomputing only the mid and up blocks with
+its own timestep embedding. ``freeu`` (``ops.freeu.FreeUConfig``, settable
+as ``unet.freeu``, None for off) applies FreeU in the up blocks."""
 
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from powerpaint_tpu_torch.models.layers import (
     TimestepEmbedding,
     timestep_sinusoid,
 )
+from powerpaint_tpu_torch.ops.freeu import FreeUConfig
 
 
 def _down_tap_counts(cfg: UNetConfig) -> Tuple[int, ...]:
@@ -94,7 +102,7 @@ def add_blocks(model: nn.Module, cfg: UNetConfig,
             rev[max(i - 1, 0)], rev[i], rev[min(i + 1, len(ch) - 1)],
             temb_ch, num_layers=cfg.layers_per_block + 1,
             add_upsample=i < len(ch) - 1,
-            cross_attention=kind == CROSS_ATTN_UP, **attn))
+            cross_attention=kind == CROSS_ATTN_UP, resolution_idx=i, **attn))
 
 
 def embed_time(time_embedding: TimestepEmbedding, cfg: UNetConfig,
@@ -113,9 +121,10 @@ def embed_time(time_embedding: TimestepEmbedding, cfg: UNetConfig,
 
 
 class UNet2DConditionModel(nn.Module):
-    def __init__(self, config: UNetConfig):
+    def __init__(self, config: UNetConfig, freeu: Optional[FreeUConfig] = None):
         super().__init__()
         self.config = cfg = config
+        self.freeu = freeu
         ch = cfg.block_out_channels
         self.conv_in = Conv2D(cfg.in_channels, ch[0], cfg.conv_in_kernel,
                               padding=(cfg.conv_in_kernel - 1) // 2)
@@ -133,39 +142,39 @@ class UNet2DConditionModel(nn.Module):
                     Sequence[torch.Tensor]] = None,
                 mid_block_additional_residual: Optional[torch.Tensor] = None,
                 timestep_cond: Optional[torch.Tensor] = None,
-                ) -> torch.Tensor:
+                emit_encoder_cache: bool = False,
+                encoder_cache: Optional[tuple] = None):
         """sample (B, H, W, C_in), timesteps () or (B,), encoder_hidden_states
         (B, 77, D) -> (B, H, W, C_out) in the compute dtype. The BrushNet
         taps, when given: 1 + sum(_down_tap_counts) down, one mid,
         sum(_up_tap_counts) up. The ControlNet residuals, when given: one
         per skip (``controlnet_residual_channels``) and one mid.
         ``timestep_cond`` (B, time_cond_proj_dim): the guidance embedding
-        of an LCM UNet (``layers.guidance_scale_embedding``)."""
+        of an LCM UNet (``layers.guidance_scale_embedding``).
+
+        ``emit_encoder_cache``: return (output, (x, skips)), the encoder's
+        features; ``encoder_cache``: such features of an earlier step, in
+        place of conv_in and the down blocks (``sample`` is then unread).
+        Neither goes with BrushNet taps or ControlNet residuals, which the
+        skipped encoder would have to take in."""
         cfg = self.config
+        if (emit_encoder_cache or encoder_cache is not None) and (
+                down_block_add_samples is not None
+                or down_block_additional_residuals is not None):
+            raise ValueError("encoder caching cannot skip injected down features")
         dtype = self.conv_in.weight.dtype
         temb = embed_time(self.time_embedding, cfg, timesteps, sample.shape[0],
                           sample.device, dtype, timestep_cond)
         context = encoder_hidden_states.to(dtype)
 
-        x = self.conv_in(sample.to(dtype))
-        skips = [x]
-        down_taps = None
-        if down_block_add_samples is not None:
-            down_taps = list(down_block_add_samples)
-            x = x + down_taps.pop(0)
-        for block, n in zip(self.down_blocks, _down_tap_counts(cfg)):
-            taps = None
-            if down_taps is not None:
-                taps, down_taps = down_taps[:n], down_taps[n:]
-            x, block_skips = block(x, temb, context, taps)
-            skips.extend(block_skips)
-        if down_block_additional_residuals is not None:
-            if len(down_block_additional_residuals) != len(skips):
-                raise ValueError(
-                    f"{len(down_block_additional_residuals)} ControlNet "
-                    f"residuals for {len(skips)} skip connections")
-            skips = [s + r for s, r in zip(skips,
-                                           down_block_additional_residuals)]
+        if encoder_cache is not None:
+            x = encoder_cache[0].to(dtype)
+            skips = [s.to(dtype) for s in encoder_cache[1]]
+        else:
+            x, skips = self._encode(sample.to(dtype), temb, context,
+                                    down_block_add_samples,
+                                    down_block_additional_residuals)
+        cache = (x, tuple(skips)) if emit_encoder_cache else None
 
         x = self.mid_block(x, temb, context)
         if mid_block_additional_residual is not None:
@@ -182,6 +191,34 @@ class UNet2DConditionModel(nn.Module):
             taps = None
             if up_taps is not None:
                 taps, up_taps = up_taps[:n], up_taps[n:]
-            x, _ = block(x, temb, block_skips, context, output_size, taps)
+            x, _ = block(x, temb, block_skips, context, output_size, taps,
+                         freeu=self.freeu)
 
-        return self.conv_out(self.conv_norm_out(x, silu=True))
+        out = self.conv_out(self.conv_norm_out(x, silu=True))
+        return (out, cache) if emit_encoder_cache else out
+
+    def _encode(self, x: torch.Tensor, temb: torch.Tensor,
+                context: torch.Tensor, down_block_add_samples,
+                down_block_additional_residuals):
+        """conv_in and the down blocks (with the BrushNet taps and the
+        ControlNet residuals) -> (x, skips)."""
+        x = self.conv_in(x)
+        skips = [x]
+        down_taps = None
+        if down_block_add_samples is not None:
+            down_taps = list(down_block_add_samples)
+            x = x + down_taps.pop(0)
+        for block, n in zip(self.down_blocks, _down_tap_counts(self.config)):
+            taps = None
+            if down_taps is not None:
+                taps, down_taps = down_taps[:n], down_taps[n:]
+            x, block_skips = block(x, temb, context, taps)
+            skips.extend(block_skips)
+        if down_block_additional_residuals is not None:
+            if len(down_block_additional_residuals) != len(skips):
+                raise ValueError(
+                    f"{len(down_block_additional_residuals)} ControlNet "
+                    f"residuals for {len(skips)} skip connections")
+            skips = [s + r for s, r in zip(skips,
+                                           down_block_additional_residuals)]
+        return x, skips

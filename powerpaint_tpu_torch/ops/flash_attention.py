@@ -21,6 +21,7 @@ import torch
 from powerpaint_tpu_torch.ops import _build
 
 _LOG2E = math.log2(math.e)
+BF16_MAX_D = 1024  # the bf16 kernel's widest head (csrc/flash_attention.cu)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -42,11 +43,13 @@ def bf16_config(d: int) -> dict:
     together): output columns per z slice (``do``), kv rows per stage
     (``bk``), consumer warpgroups of 64 q rows (``nwg``), ring stages,
     slices, and the dynamic shared memory in bytes."""
-    if not 0 < d <= 512:
-        raise ValueError(f"the bf16 kernel takes head dims 1..512, got {d}")
+    if not 0 < d <= BF16_MAX_D:
+        raise ValueError(f"the bf16 kernel takes head dims 1..{BF16_MAX_D}, "
+                         f"got {d}")
     for top, cfg in ((40, (40, 128, 2, 3)), (64, (64, 128, 2, 3)),
                      (80, (80, 128, 2, 2)), (160, (160, 64, 2, 2)),
-                     (256, (256, 64, 2, 2)), (512, (256, 32, 1, 2))):
+                     (256, (256, 64, 2, 2)), (512, (256, 32, 1, 2)),
+                     (768, (256, 32, 1, 2)), (1024, (256, 16, 1, 2))):
         if d <= top:
             break
     do, bk, nwg, stages = cfg
@@ -105,9 +108,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k and v must lie on one CUDA device")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention needs the head dim contiguous")
-    if q.dtype == torch.bfloat16 and q.shape[-1] > 512:
-        raise ValueError(f"the bf16 kernel takes head dims up to 512, got "
-                         f"{q.shape[-1]}")
+    if q.dtype == torch.bfloat16 and q.shape[-1] > BF16_MAX_D:
+        raise ValueError(f"the bf16 kernel takes head dims up to {BF16_MAX_D}, "
+                         f"got {q.shape[-1]}")
     d = q.shape[-1]
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
     out = _launch(q, k, v, scale)

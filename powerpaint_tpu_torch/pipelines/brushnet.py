@@ -18,6 +18,9 @@ The port of ``powerpaint_tpu/pipelines/brushnet.py`` on PyTorch:
 - ``control_guidance_start`` / ``_end`` gate the branch per step through a
   host table of conditioning scales (on heun's iterations, its step's
   row);
+- ``branch_cache_interval`` n > 1: the branch runs on every n-th
+  iteration only and the others reuse its 28 taps (the encoder-propagation
+  argument applied to the whole branch, as in the JAX package);
 - an LCM-distilled UNet (``time_cond_proj_dim`` set) gets the guidance
   embedding of w - 1 as ``timestep_cond`` at every evaluation, one row per
   image of the CFG batch.
@@ -176,18 +179,22 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
                  cond_task: torch.Tensor, cond_plain: torch.Tensor,
                  guidance: torch.Tensor, scales: np.ndarray, guess_mode: bool,
                  step_noise=None,
-                 timestep_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 timestep_cond: Optional[torch.Tensor] = None,
+                 branch_cache_interval: int = 1) -> torch.Tensor:
         """The sampler ``mod``'s loop: each iteration the branch's taps,
         then the base UNet on the scaled latents for the unconditional and
-        the conditional half in one batch."""
+        the conditional half in one batch. With ``branch_cache_interval``
+        n > 1 the branch runs at iterations i with i % n == 0 and the
+        others take the taps it gave there."""
         b = latents.shape[0]
         state = mod.init_state(sched, latents.shape, latents.device)
         for i in range(sched.num_steps):
             scaled = mod.scale_model_input(sched, latents, i)
             t = torch.tensor(int(sched.timesteps[i]), device=latents.device)
-            down, mid, up = self._branch(scaled, t, cond_task, cond5,
-                                         float(table_row(scales, i)),
-                                         guess_mode)
+            if branch_cache_interval <= 1 or i % branch_cache_interval == 0:
+                taps = self._branch(scaled, t, cond_task, cond5,
+                                    float(table_row(scales, i)), guess_mode)
+            down, mid, up = taps
             eps = self.unet(scaled.repeat(2, 1, 1, 1), t, cond_plain,
                             down_block_add_samples=down,
                             mid_block_add_sample=mid, up_block_add_samples=up,
@@ -215,8 +222,8 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
                   clip_skip: int = 0, scheduler: str = "unipc",
                   timesteps: Optional[Sequence[int]] = None,
                   prompt_embeds: Optional[torch.Tensor] = None,
-                  negative_prompt_embeds: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  negative_prompt_embeds: Optional[torch.Tensor] = None,
+                  branch_cache_interval: int = 1) -> torch.Tensor:
         """Everything after host-side validation, on ``self.device``.
 
         ids_task (P, 4, 77); ids_plain (P, 2, 77); fittings (P,); image_u8
@@ -227,7 +234,8 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
         stochastic sampler, else None; ``timesteps`` UniPC's grid in place of
         the spacing formula (``num_steps`` its length); ``prompt_embeds`` /
         ``negative_prompt_embeds`` (B, 77, D) float32 or None, as
-        ``_encode_prompts`` takes them."""
+        ``_encode_prompts`` takes them; ``branch_cache_interval`` as
+        ``_denoise`` takes it."""
         mod, sched = make_sampler(scheduler, self.config.scheduler, num_steps,
                                   custom_timesteps=timesteps)
         b, h, w, _ = image_u8.shape
@@ -256,7 +264,8 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
         latents = self._denoise(mod, sched, latents, cond5, cond_task,
                                 cond_plain,
                                 guidance.float().reshape(-1, 1, 1, 1), scales,
-                                guess_mode, step_noise, timestep_cond)
+                                guess_mode, step_noise, timestep_cond,
+                                branch_cache_interval)
         if output_type == "latent":
             return latents
         return to_output(self._decode(latents), output_type)
@@ -268,6 +277,7 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
                  control_guidance_start: float = 0.0,
                  control_guidance_end: float = 1.0, seed=0,
                  num_images_per_prompt: int = 1, guess_mode: bool = False,
+                 branch_cache_interval: int = 1,
                  latents: Optional[np.ndarray] = None,
                  output_type: str = "uint8", clip_skip: int = 0,
                  scheduler: str = "unipc",
@@ -294,7 +304,9 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
         (``StepCallbackMixin``); ``height`` and ``width`` (together) resize
         the image and mask first; ``timesteps``: a strictly descending list
         of ints in [0, T), UniPC only, that replaces ``num_inference_steps``
-        and its spacing."""
+        and its spacing; ``branch_cache_interval`` n > 1: the BrushNet
+        branch runs every n-th iteration and its taps serve the ones
+        between (1 or less: every iteration)."""
         if cross_attention_kwargs:
             call_kw = {k: v for k, v in locals().items()
                        if k not in ("self", "cross_attention_kwargs")}
@@ -364,6 +376,7 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
                             else torch.as_tensor(latents, device=dev)),
                 clip_skip=int(clip_skip), scheduler=scheduler,
                 timesteps=custom_ts,
+                branch_cache_interval=int(branch_cache_interval),
                 prompt_embeds=embeds_rows(norm_embeds(prompt_embeds), b, dev),
                 negative_prompt_embeds=embeds_rows(
                     norm_embeds(negative_prompt_embeds), b, dev)).cpu().numpy()

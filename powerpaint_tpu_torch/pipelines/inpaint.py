@@ -5,7 +5,13 @@ text encode (prompt A / B and the two negatives as four rows of one CLIP
 forward), the A/B fitting-degree blend, VAE encode of the masked image, a
 denoise loop with classifier-free guidance folded into the batch (a
 Python loop where the JAX package has ``lax.scan``) over any registry
-sampler (``scheduler=``, DDIM by default), and VAE decode.
+sampler (``scheduler=``, DDIM by default), and VAE decode (with the
+request's image and hole mask on an asymmetric VAE).
+
+``encoder_cache_interval`` n > 1 turns on encoder propagation: every n-th
+iteration is a key step that runs the whole UNet and keeps its encoder's
+features, the others run only its mid and up blocks on them
+(``models.unet``).
 
 The call surface of the reference's pipeline: ``prompt_embeds`` /
 ``negative_prompt_embeds`` replace the blended pair (when both are given
@@ -141,31 +147,45 @@ class InpaintPipeline(LoraMixin, StepCallbackMixin):
                  mask_lat: torch.Tensor, masked_lat: torch.Tensor,
                  cond: torch.Tensor, guidance: torch.Tensor, eta: float,
                  step_noise: Optional[Sequence[torch.Tensor]],
-                 residuals: Optional[Callable] = None) -> torch.Tensor:
+                 residuals: Optional[Callable] = None,
+                 encoder_cache_interval: int = 1) -> torch.Tensor:
         """The sampler ``mod``'s loop, one UNet evaluation an iteration; the
         UNet sees [the sampler's scaled latents, mask, masked-image latents]
         for the unconditional and the conditional half in one batch.
         ``residuals(i, scaled_latents, t, cond)``, when given, returns the
         keyword arguments (the ControlNet residuals) of iteration i's UNet
-        call."""
+        call. With ``encoder_cache_interval`` n > 1, iteration i is a key
+        step when i % n == 0; the others reuse its encoder features."""
         b = latents.shape[0]
         extra = torch.cat([mask_lat, masked_lat], dim=-1).repeat(2, 1, 1, 1)
         state = mod.init_state(sched, latents.shape, latents.device)
+        cache = None
         for i in range(sched.num_steps):
             scaled = mod.scale_model_input(sched, latents, i)
             lmi = torch.cat([scaled.repeat(2, 1, 1, 1), extra], dim=-1)
             t = torch.tensor(int(sched.timesteps[i]), device=latents.device)
             kw = residuals(i, scaled, t, cond) if residuals is not None else {}
-            eps = self.unet(lmi, t, cond, **kw).float()
+            if encoder_cache_interval <= 1:
+                eps = self.unet(lmi, t, cond, **kw)
+            elif i % encoder_cache_interval == 0:
+                eps, cache = self.unet(lmi, t, cond, emit_encoder_cache=True, **kw)
+            else:
+                eps = self.unet(lmi, t, cond, encoder_cache=cache, **kw)
+            eps = eps.float()
             eps = eps[:b] + guidance * (eps[b:] - eps[:b])
             self._run_step_callback(i, latents)
             latents, state = sampler_step(mod, sched, state, eps, i, latents,
                                           eta, step_noise)
         return latents
 
-    def _decode(self, latents: torch.Tensor) -> torch.Tensor:
+    def _decode(self, latents: torch.Tensor, image: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Latents -> image; an asymmetric VAE decodes with ``image`` (B, H,
+        W, 3) in [-1, 1] and the hole ``mask`` (B, H, W, 1)."""
         z = (latents / self.config.vae.scaling_factor).to(self.dtype)
-        return self.vae.decode(z)
+        if image is None:
+            return self.vae.decode(z)
+        return self.vae.decode_with_condition(z, image, mask)
 
     # ------------------------------------------------------------ generate
 
@@ -180,8 +200,8 @@ class InpaintPipeline(LoraMixin, StepCallbackMixin):
                   clip_skip: int = 0, scheduler: str = "ddim",
                   residuals: Optional[Callable] = None,
                   prompt_embeds: Optional[torch.Tensor] = None,
-                  negative_prompt_embeds: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  negative_prompt_embeds: Optional[torch.Tensor] = None,
+                  encoder_cache_interval: int = 1) -> torch.Tensor:
         """Everything after host-side validation, on ``self.device``.
 
         ids (P, 4, 77); fittings (P,); image_u8 (B, H, W, 3) uint8; mask_u8
@@ -191,7 +211,10 @@ class InpaintPipeline(LoraMixin, StepCallbackMixin):
         (``pipelines.common.takes_step_noise``), else None; ``residuals``
         as ``_denoise`` takes it; ``prompt_embeds`` /
         ``negative_prompt_embeds`` (B, 77, D) float32 or None, as
-        ``_encode_prompts`` takes them."""
+        ``_encode_prompts`` takes them. An asymmetric VAE decodes with the
+        image and the hole mask, except where the ControlNet branches ran
+        (``residuals``): that path decodes plainly, as the JAX package's
+        ``ControlNetPipeline`` does."""
         mod, sched = make_sampler(scheduler, self.config.scheduler, num_steps,
                                   strength_steps)
         b, h, w, _ = image_u8.shape
@@ -217,9 +240,11 @@ class InpaintPipeline(LoraMixin, StepCallbackMixin):
 
         latents = self._denoise(mod, sched, latents, mask_lat, masked_lat, cond,
                                 guidance.float().reshape(-1, 1, 1, 1), eta,
-                                step_noise, residuals)
+                                step_noise, residuals, encoder_cache_interval)
         if output_type == "latent":
             return latents
+        if self.config.vae.asymmetric and residuals is None:
+            return to_output(self._decode(latents, init_image, mask), output_type)
         return to_output(self._decode(latents), output_type)
 
     def _draw_noise(self, seeds: Sequence[int], shape,
@@ -235,8 +260,8 @@ class InpaintPipeline(LoraMixin, StepCallbackMixin):
                  strength: float = 1.0, eta: float = 0.0, seed=0,
                  num_images_per_prompt: int = 1,
                  latents: Optional[np.ndarray] = None,
-                 output_type: str = "uint8", clip_skip: int = 0,
-                 scheduler: str = "ddim",
+                 output_type: str = "uint8", encoder_cache_interval: int = 1,
+                 clip_skip: int = 0, scheduler: str = "ddim",
                  prompt_embeds: Optional[np.ndarray] = None,
                  negative_prompt_embeds: Optional[np.ndarray] = None,
                  callback: Optional[Callable] = None, callback_steps: int = 1,
@@ -257,7 +282,10 @@ class InpaintPipeline(LoraMixin, StepCallbackMixin):
         D) arrays in place of the blended positive / negative embeddings;
         ``callback(i, latents)`` every ``callback_steps`` iterations
         (``StepCallbackMixin``); ``height`` and ``width`` (together)
-        resize the image and mask to that size first."""
+        resize the image and mask to that size first.
+        ``encoder_cache_interval`` n > 1: encoder propagation, a whole UNet
+        evaluation every n-th iteration and the mid and up blocks on its
+        encoder features in between (1 or less: every evaluation whole)."""
         if cross_attention_kwargs:
             call_kw = {k: v for k, v in locals().items()
                        if k not in ("self", "cross_attention_kwargs")}
@@ -273,8 +301,8 @@ class InpaintPipeline(LoraMixin, StepCallbackMixin):
                             scheduler)
         self._set_step_callback(callback, callback_steps, self.step_callback)
         return self._run(req, num_inference_steps, output_type, eta, latents,
-                         clip_skip, **self._embeds(req, prompt_embeds,
-                                                   negative_prompt_embeds))
+                         clip_skip, encoder_cache_interval=int(encoder_cache_interval),
+                         **self._embeds(req, prompt_embeds, negative_prompt_embeds))
 
     def _embeds(self, req: Request, prompt_embeds,
                 negative_prompt_embeds) -> dict:

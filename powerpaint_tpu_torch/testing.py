@@ -1,8 +1,9 @@
 """Tiny model configs for CPU-runnable tests (same widths as the JAX
 package's ``testing.tiny_v1_config``, ``testing.tiny_v2_config`` and
 ``testing.tiny_v1_controlnet_config``; the tiny DPT of its
-``tests/test_dpt_oracle.py`` and the tiny CLIP tower of its
-``tests/test_clip_vision_safety.py``)."""
+``tests/test_dpt_oracle.py``, the tiny CLIP tower of its
+``tests/test_clip_vision_safety.py`` and the tiny asymmetric VAE of its
+``tests/test_asymmetric_vae.py``)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,25 @@ def tiny_unet(in_channels: int = 9) -> UNetConfig:
 def tiny_vae() -> VAEConfig:
     return VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
                      norm_num_groups=8)
+
+
+# the condition tower of the JAX package's tests/test_asymmetric_vae.py: one
+# feature at each of the tiny decoder's sample shapes (H, W, C) on a 32^2
+# (or any 8k x 8k) image
+COND_SPEC = ((3, 1, 16), (4, 2, 32), (4, 2, 32), (4, 2, 32))
+
+
+def tiny_asymmetric_vae() -> VAEConfig:
+    return tiny_vae().replace(asymmetric=True, condition_layers=COND_SPEC)
+
+
+def tiny_wide_asymmetric_vae() -> VAEConfig:
+    """A decoder wider (24, 24, 48, 48) and deeper (3 resnets an up block)
+    than its encoder, and a tower to match."""
+    return tiny_vae().replace(
+        asymmetric=True, up_block_out_channels=(24, 24, 48, 48),
+        layers_per_up_block=2,
+        condition_layers=((3, 1, 24), (4, 2, 48), (4, 2, 48), (4, 2, 48)))
 
 
 def tiny_text(num_external: int = 30) -> CLIPTextConfig:

@@ -40,6 +40,7 @@ from powerpaint_tpu_torch.models.clip_text import CLIPTextModel
 from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
 from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
 from powerpaint_tpu_torch.testing import (
+    tiny_asymmetric_vae,
     tiny_clip_vision_config,
     tiny_v1_config,
     tiny_v2_config,
@@ -448,14 +449,27 @@ def test_single_file_missing_components_are_named_as_jax(tmp_path, v1_state):
     assert ours == theirs and "['text_encoder', 'vae']" in ours
 
 
-def test_asymmetric_vae_is_refused(tmp_path, v1_state):
+def test_asymmetric_vae_is_refused(tmp_path, v1_state, v2_state):
+    """ppt-v2 refuses an asymmetric VAE (only the v1 pipeline decodes with
+    one, as in the JAX package); ppt-v1 loads it into its conditional
+    decode (held to the JAX loader in ``test_torch_vae_extras.py``)."""
+    asym = init_state(tiny_v1_config().replace(vae=tiny_asymmetric_vae()),
+                      torch.Generator().manual_seed(5), device="cpu")["vae"]
+    root = tmp_path / "ppt-v2"
+    write_v2(root, v2_state, flat=True)
+    _save(root / "vae" / "diffusion_pytorch_model.safetensors", asym)
+    with pytest.raises(NotImplementedError, match="ppt-v1 only"):
+        checkpoint.load_ppt_v2(str(root), config=tiny_v2_config(), device="cpu")
     root = tmp_path / "ppt-v1"
     write_v1(root, v1_state)
-    vae = dict(v1_state["vae"])
-    vae["decoder.condition_encoder.layers.0.weight"] = torch.zeros(16, 3, 3, 3)
-    _save(root / "vae" / "diffusion_pytorch_model.safetensors", vae)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        checkpoint.load_ppt_v1(str(root), config=tiny_v1_config(), device="cpu")
+    _save(root / "vae" / "diffusion_pytorch_model.safetensors", asym)
+    pipe = checkpoint.load_ppt_v1(str(root), config=tiny_v1_config(),
+                                  dtype=torch.float32, device="cpu")
+    want = tiny_asymmetric_vae()
+    got = pipe.config.vae
+    assert got.asymmetric and got.condition_layers == want.condition_layers
+    assert (got.up_channels, got.up_layers) == (want.up_channels, want.up_layers)
+    assert _image(pipe).shape == (1, 64, 64, 3)
 
 
 @pytest.mark.parametrize("extra", ["ip_adapter.safetensors",

@@ -3,7 +3,8 @@ the CUDA sources' choices (``ops.flash_attention.bf16_config``,
 ``ops.conv.bf16_plan``, ``ops.conv.int8_plan``, ``ops.norms.gn_plan``,
 ``ops.norms.ln_plan``; a card test in ``test_torch_kernels_cuda.py`` holds
 each mirror to its source): every shape the main paths launch fits the
-card, the VAE's D = 512 takes at most two slices, the convs' K splits cover
+card, the VAE's D = 512 takes at most two slices and the asymmetric
+decoder's D = 768 / 1024 three and four, the convs' K splits cover
 K and do not depend on the batch, GroupNorm's form covers the map in shared
 memory that fits, one launch at every UNet and BrushNet map at 512^2, and
 LayerNorm's lanes cover each element of a row once, within the register
@@ -19,22 +20,34 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may take on an H100
 
 
 def test_flash_config_covers_every_head_dim():
-    for d in range(1, 513):
+    for d in range(1, 1025):
         c = bf16_config(d)
         assert c["smem"] <= SMEM_LIMIT, d
         assert c["do"] % 8 == 0 and c["bk"] % 16 == 0 and c["stages"] >= 2, d
-        assert c["slices"] == (1 if d <= 256 else 2), d
+        assert c["slices"] == (1 if d <= 256 else -(-d // 256)), d
         assert c["do"] * c["slices"] >= d, d
-    for d in (0, 513, 1024):
+    for d in (0, 1025, 2048):
         with pytest.raises(ValueError):
             bf16_config(d)
 
 
 @pytest.mark.parametrize("d,want", [(40, (40, 128, 2)), (80, (80, 128, 2)),
-                                    (160, (160, 64, 2)), (512, (256, 32, 1))])
+                                    (160, (160, 64, 2)), (512, (256, 32, 1)),
+                                    (513, (256, 32, 1)), (768, (256, 32, 1)),
+                                    (1024, (256, 16, 1))])
 def test_flash_config_main_path_head_dims(d, want):
     c = bf16_config(d)
     assert (c["do"], c["bk"], c["nwg"]) == want
+
+
+@pytest.mark.parametrize("d,slices,smem", [(513, 3, 230432), (768, 3, 230432),
+                                           (769, 4, 214048), (1024, 4, 214048)])
+def test_flash_config_past_512_fits_two_stages(d, slices, smem):
+    """Past D = 512 the q tile of 64 x D grows: 32 kv rows a stage fit to
+    768 (2 KB under the limit), 16 to 1024 (32 would need 295,968 bytes)."""
+    c = bf16_config(d)
+    assert (c["slices"], c["smem"], c["stages"]) == (slices, smem, 2)
+    assert c["smem"] <= SMEM_LIMIT
 
 
 # (H, W, Cin, Cout): the UNet's, BrushNet's and VAE's conv shapes at 512^2,

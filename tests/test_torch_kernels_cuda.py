@@ -321,22 +321,23 @@ def test_flash_attention_config_matches_its_source(dev):
     fn = _build.load("flash_attention").ppt_flash_attention_bf16_config
     fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * 6)()
-    for d in range(1, 513):
+    for d in range(1, 1025):
         assert fn(d, out) == 0
         c = fa.bf16_config(d)
         assert list(out) == [c[k] for k in ("do", "bk", "nwg", "stages", "slices",
                                             "smem")], d
-    assert fn(513, out) != 0
+    assert fn(1025, out) != 0
 
 
-@pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 512, 768, 1024])
 @pytest.mark.parametrize("sq,skv", [(300, 77), (77, 300), (129, 129)])
 @pytest.mark.parametrize("layout", ["contiguous", "strided heads"])
 def test_flash_attention_bf16_head_dims(dev, d, sq, skv, layout):
-    """Every head dim the main paths launch (and 64), ragged Sq and Skv off
-    every tile, heads read through their strides; a two-image batch is
-    bitwise each image alone, and two runs are bitwise equal."""
-    n = 1 if d == 512 else 3
+    """Every head dim the main paths launch (and 64; 768 and 1024 are the
+    asymmetric VAE decoders' one head), ragged Sq and Skv off every tile,
+    heads read through their strides; a two-image batch is bitwise each
+    image alone, and two runs are bitwise equal."""
+    n = 1 if d >= 512 else 3
 
     def make(s, seed):
         if layout == "contiguous":
@@ -376,11 +377,14 @@ def test_conv3x3_plan_matches_its_source(dev):
 # (B, H, W, Cin, Cout, groups): Cout off every N tile (200 on a 256 tile, 40
 # on 64), W below 8 and off the 8-pixel tile, H = 1, a block whose two
 # tiles are two images (8 x 8 x batch 2), split K (deep levels), the VAE's
-# wide maps cut small.
+# wide maps cut small; the asymmetric decoder's widths, 6, 12 and 24
+# channels a group (a group off the 8-channel chunks).
 WGMMA_CONV_SHAPES = [(2, 9, 13, 64, 200, 32), (2, 8, 5, 96, 40, 32),
                      (2, 1, 19, 128, 64, 32), (2, 8, 8, 320, 320, 32),
                      (2, 8, 8, 1280, 1280, 32), (2, 16, 16, 640, 640, 32),
-                     (1, 24, 40, 128, 256, 32), (3, 6, 6, 64, 160, 16)]
+                     (1, 24, 40, 128, 256, 32), (3, 6, 6, 64, 160, 16),
+                     (1, 24, 16, 192, 192, 32), (1, 16, 16, 384, 192, 32),
+                     (1, 16, 16, 768, 384, 32)]
 
 
 @pytest.mark.parametrize("shape", WGMMA_CONV_SHAPES, ids=str)
@@ -467,10 +471,13 @@ def test_conv3x3_int8_main_path_shapes(dev, dtype, fused):
 # (B, S, C, groups): the UNet's and BrushNet's maps at 512^2 (resident), the
 # VAE's largest (streamed), and ragged ones: groups of 2 channels with rows
 # off the 16-byte vector (element copies), a row count below the cluster,
-# one row.
+# one row; the asymmetric decoder's widths (6, 12, 24 and 32 channels a
+# group; its largest maps stream).
 GN_CASES = [(2, 4096, 320, 32), (2, 4096, 960, 32), (2, 1024, 640, 32), (2, 256, 1280, 32),
             (2, 64, 2560, 32), (1, 262144, 128, 32), (1, 65536, 256, 32), (1, 4096, 512, 32),
-            (1, 35, 20, 10), (3, 7, 48, 24), (2, 1, 64, 32)]
+            (1, 35, 20, 10), (3, 7, 48, 24), (2, 1, 64, 32),
+            (1, 4096, 192, 32), (1, 4096, 768, 32), (1, 4096, 1024, 32),
+            (1, 262144, 192, 32), (1, 262144, 384, 32), (1, 65536, 768, 32)]
 
 
 @pytest.mark.parametrize("case", GN_CASES, ids=str)
