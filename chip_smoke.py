@@ -157,10 +157,34 @@ Phases, in order; any failure exits non-zero:
    refusal of an encoder cache. Phase 2 checks flash attention at the
    asymmetric decoders' head dims 768 and 1024 (batch invariance at 768),
    and the convs and GroupNorm at its 6, 12 and 24 channels a group.
+   7g. The adapters (``run_adapter_path``), full published width, bf16,
+   random fp16-valued weights from seeds, 512^2, 20 UniPC steps, guidance
+   7.5: IP-Adapter on phase 7d's ppt-v2 stack with the OpenCLIP ViT-H/14
+   image tower (1280 wide, 32 layers of 16 heads, MLP 5120, ``gelu``,
+   projection 1024, 224 px) and two ip-adapter_sd15 adapters (a 1024 -> 4 x
+   768 projection and LayerNorm, 16 ``to_k_ip`` / ``to_v_ip`` pairs): no
+   adapter, an image twice (bitwise), embeddings (the image changes),
+   scale 0 (bitwise the no-adapter image), two adapters with the second at
+   0 (bitwise the first alone), a two-request batch; launches exact (16
+   more flash attentions and one more LayerNorm per evaluation for each
+   adapter, the tower's 66 LayerNorms per encoded image); seconds per
+   image, the encode's seconds, the denoise loop's device ms by family with
+   and without an adapter. The T2I-Adapter (SD1.5 full adapter, cuDNN
+   convs) on a 512^2 map to its 64^2 ... 8^2 features, and one CFG
+   evaluation of the v2 base UNet with them (shapes, zero features bitwise
+   no adapter, launches exact, device ms). The stack written in fp16 as a
+   v2 directory with ``ip_adapter.safetensors`` and ``image_encoder/``
+   (``config.json``: 16 heads, ``gelu``), loaded by
+   ``powerpaint_tpu_torch.load`` (every tensor bitwise the in-memory
+   stack's, the tower's config from its file) and one call bitwise the
+   in-memory image. Phase 2 checks flash attention at the four S_kv = 4
+   shapes (timed beside SDPA; batch invariance) and LayerNorm at the
+   tower's (B, 257, 1280) rows and the projection's (4, 4, 768).
 8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, each also
    with one other sampler: euler_a at strength 0.6, LCM on an LCM UNet,
    heun with a window; ppt-v1 with int8; ppt-v1 with the asymmetric VAE,
-   encoder propagation and FreeU; ppt-v2 with the branch's cache) must
+   encoder propagation and FreeU; ppt-v2 with the branch's cache; ppt-v2
+   with two IP-Adapters given an image each) must
    give the same image through the kernels as through the plain versions
    on the CPU.
 9. The ``{"kernels": [...]}`` line, then the last line
@@ -308,6 +332,11 @@ ATTN_SHAPES = [
     # 512^2, and a ragged S
     (1, 4096, 4096, 1, 768), (1, 4096, 4096, 1, 1024), (1, 1000, 1000, 1, 768),
 ]
+# the IP-Adapter's image attention: the UNet's queries at its four levels
+# over ip-adapter_sd15's 4 image tokens, under CFG
+IP_ATTN_SHAPES = [(2, 4096, 4, 8, 40), (2, 1024, 4, 8, 80),
+                  (2, 256, 4, 8, 160), (2, 64, 4, 8, 160)]
+ATTN_SHAPES += IP_ATTN_SHAPES
 # (shape (B, S, C), eps, silu): ResNet norms at each UNet level, the widest
 # up-block concat, the transformer input norm, and the VAE's largest maps.
 GN_SHAPES = [
@@ -362,6 +391,12 @@ LN_SHAPES = [
     ((2, 4096, 320), 1e-5), ((2, 1024, 640), 1e-5), ((2, 256, 1280), 1e-5),
     ((2, 64, 1280), 1e-5), ((4, 77, 768), 1e-5), ((2, 6144, 320), 1e-5),
 ]
+# the IP-Adapter's rows: the ViT-H/14 tower's 257 tokens of 1280 (one
+# image, and two), the projection's 4 tokens of 768 under CFG (2 images x
+# 2 adapters)
+IP_LN_SHAPES = [((1, 257, 1280), 1e-5), ((2, 257, 1280), 1e-5),
+                ((4, 4, 768), 1e-5)]
+LN_SHAPES += IP_LN_SHAPES
 # The safety checker's LayerNorm rows, fp32 (ViT-L/14: 257 tokens of 1024,
 # then the class token alone).
 SAFETY_LN_SHAPES = [(1, 257, 1024), (1, 1024)]
@@ -908,6 +943,12 @@ def batch_invariance(device) -> None:
     cases.append(("flash_attention, text context", (4096, 8, 40),
                   lambda x: fa.flash_attention(x, x[:, :77].contiguous(),
                                                x[:, 77:154].contiguous())))
+    cases.append(("flash_attention, image tokens", (4096, 8, 40),
+                  lambda x: fa.flash_attention(x, x[:, :4].contiguous(),
+                                               x[:, 4:8].contiguous())))
+    g1280, b1280 = 1 + 0.1 * randn(1280), 0.1 * randn(1280)
+    cases.append(("layer_norm, ViT-H tower", (257, 1280), lambda x: norms.layer_norm(
+        x, g1280, b1280), (2, 1)))
     lw = randn(1280, 320) / 18
     cases.append(("cuBLAS linear", (4096, 320), lambda x: F.linear(x, lw.to(x.dtype))))
     cases.append(("cuBLAS linear, timestep embedding", (320,),
@@ -3397,6 +3438,305 @@ def run_vae_extras_path(device):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 7g: the adapters
+# ---------------------------------------------------------------------------
+
+def ip_adapter_state(unet_cfg, dim: int, seed: int, device) -> dict:
+    """A synthetic ip-adapter_sd15 checkpoint in the flat safetensors
+    layout, fp16 values from a seed: the projection (4 tokens of the
+    cross-attention width), lecun-scaled, live norm affines, and one
+    ``to_k_ip`` / ``to_v_ip`` pair per attn2 (ids 1, 3, 5, ...)."""
+    from powerpaint_tpu_torch.io.convert import ip_adapter_attn2_paths
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        x = torch.randn(shape, generator=g, device=device) * scale + shift
+        return x.half()
+
+    d, ch = unet_cfg.cross_attention_dim, unet_cfg.block_out_channels
+    sd = {"image_proj.proj.weight": rnd(4 * d, dim, scale=dim ** -0.5),
+          "image_proj.proj.bias": rnd(4 * d, scale=0.02),
+          "image_proj.norm.weight": rnd(d, scale=0.1, shift=1.0),
+          "image_proj.norm.bias": rnd(d, scale=0.1)}
+    for idx, path in enumerate(ip_adapter_attn2_paths(unet_cfg)):
+        kind, i = path.split(".")[:2]
+        width = (ch[int(i)] if kind == "down_blocks" else
+                 ch[::-1][int(i)] if kind == "up_blocks" else ch[-1])
+        for name in ("to_k_ip", "to_v_ip"):
+            sd[f"ip_adapter.{2 * idx + 1}.{name}.weight"] = rnd(
+                width, d, scale=d ** -0.5)
+    return sd
+
+
+def expected_launches_ip(cfg, steps: int, adapters: int = 0,
+                         images: int = 0) -> dict:
+    """One ppt-v2 call with ``adapters`` IP-Adapters, ``images`` of whose
+    embeddings the image tower encodes: ``expected_launches_v2``, and per
+    base-UNet evaluation 16 image attentions (one per attn2) and one
+    projection LayerNorm for each adapter; per encoded image the tower's
+    LayerNorms (two a layer, the pre and the post one)."""
+    from powerpaint_tpu_torch.io.convert import ip_adapter_attn2_paths
+
+    out = expected_launches_v2(cfg, steps)
+    n = evaluations(cfg, "unipc", steps)
+    out["flash_attention"] += n * adapters * len(ip_adapter_attn2_paths(cfg.unet))
+    layers = cfg.image_encoder.num_hidden_layers if images else 0
+    out["layer_norm"] += n * adapters + images * (2 * layers + 2)
+    return out
+
+
+def _ip_counts(kw) -> tuple:
+    """(adapters, encoded images) of a call's IP-Adapter arguments."""
+    given = kw.get("ip_adapter_image")
+    given = kw.get("ip_adapter_image_embeds") if given is None else given
+    if given is None:
+        return 0, 0
+    n = len(given) if isinstance(given, (list, tuple)) else 1
+    return n, n if kw.get("ip_adapter_image") is not None else 0
+
+
+def run_adapter_path(device):
+    """Phase 7g: the adapter models at full published width, bf16, random
+    fp16-valued weights from seeds, 512^2, 20 UniPC steps, guidance 7.5.
+    IP-Adapter on ppt-v2 (phase 7d's v2 stack, the ViT-H/14 tower, two
+    ip-adapter_sd15 adapters): no adapter, an image twice (bitwise),
+    embeddings (the image changes), scale 0 (bitwise the no-adapter image),
+    two adapters with the second at 0 (bitwise the first alone), a
+    two-request batch; seconds per image, the image encode's seconds, and
+    the denoise loop's device ms by family with and without an adapter.
+    The T2I-Adapter (SD1.5 full adapter) on a 512^2 map, then one CFG
+    evaluation of the v2 base UNet with its four features (zero features
+    bitwise no adapter; device ms). The stack written in fp16 as a v2
+    directory with ``ip_adapter.safetensors`` and ``image_encoder/``,
+    loaded (every tensor bitwise, the tower's config from its file) and one
+    call bitwise the in-memory image. Launches exact per call."""
+    import json as _json
+    import os
+    import shutil
+
+    import powerpaint_tpu_torch
+    from powerpaint_tpu_torch.core.config import (
+        ppt_v2_config,
+        vit_h14_image_encoder_config,
+    )
+    from powerpaint_tpu_torch.io import convert
+    from powerpaint_tpu_torch.io.weights import build_annotator, random_state
+    from powerpaint_tpu_torch.models.adapter import T2IAdapter
+    from powerpaint_tpu_torch.models.layers import cast_compute
+    from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
+
+    t0 = time.perf_counter()
+    v2_cfg = ppt_v2_config()
+    tower_cfg = vit_h14_image_encoder_config()
+    cfg = v2_cfg.replace(
+        unet=v2_cfg.unet.replace(ip_adapter_dim=tower_cfg.projection_dim,
+                                 ip_adapter_tokens=(4, 4)),
+        image_encoder=tower_cfg)
+    state = _fp16_state(v2_cfg, device)
+    base_unet = state["unet"]
+    ip_files = [ip_adapter_state(cfg.unet, tower_cfg.projection_dim, seed, device)
+                for seed in (1, 2)]
+    unet = base_unet
+    for a, ip_sd in enumerate(ip_files):
+        unet = convert.merge_ip_adapter(
+            unet, convert.convert_ip_adapter(ip_sd, cfg.unet, a))
+    tower = {k: v.half() for k, v in random_state(
+        build_annotator("clip_vision", tower_cfg),
+        torch.Generator(device=device).manual_seed(3), device).items()}
+    pipe = BrushNetPipeline(cfg, dict(state, unet=unet, image_encoder=tower),
+                            _tokenizer(cfg), dtype=torch.bfloat16, device=device)
+    del unet
+    log(phase="setup", path="adapters",
+        tower_params=sum(p.numel() for p in pipe.image_encoder.parameters()),
+        ip_params_per_adapter=sum(v.numel() for v in ip_files[0].values()),
+        seconds=time.perf_counter() - t0)
+
+    image, mask = inputs(HW, 0)
+    ref_image, _ = inputs((480, 640), 7)  # the IP reference image, resized
+    prompt = "a red bench in a park"
+    call = _caller(pipe, image, mask, lambda kw: expected_launches_ip(
+        cfg, kw["num_inference_steps"], *_ip_counts(kw)),
+        models=(("image_encoder", "ip_image_encode"),))
+    call("adapters warm-up", prompt="a cat", seed=99, ip_adapter_image=ref_image)
+    g = torch.Generator(device=device).manual_seed(4)
+    e0, e1 = (torch.randn(tower_cfg.projection_dim, generator=g, device=device)
+              for _ in range(2))
+
+    reset_counts()  # the path starts here
+    base = call("adapters no adapter", prompt=prompt, seed=1)
+    base_s = call.seconds
+    with_image = call("adapters ip image", prompt=prompt, seed=1,
+                      ip_adapter_image=ref_image)
+    image_s = call.seconds
+    again = call("adapters ip image repeat", prompt=prompt, seed=1,
+                 ip_adapter_image=ref_image)
+    check(np.array_equal(again, with_image),
+          "adapters: the same image and seed gave another image")
+    one = call("adapters ip embeds", prompt=prompt, seed=1,
+               ip_adapter_image_embeds=e0)
+    d = np.abs(one.astype(np.int32) - base.astype(np.int32))
+    log(call="adapters ip embeds", vs_no_adapter_max_uint8_diff=int(d.max()),
+        vs_no_adapter_mean_uint8_diff=float(d.mean()))
+    check(d.max() > 0, "adapters: the image embeddings did not change the image")
+    zero = call("adapters ip scale 0", prompt=prompt, seed=1,
+                ip_adapter_image_embeds=e0, ip_adapter_scale=0.0)
+    d = np.abs(zero.astype(np.int32) - base.astype(np.int32))
+    log(call="adapters ip scale 0", vs_no_adapter_max_uint8_diff=int(d.max()),
+        bitwise=bool(d.max() == 0))
+    check(d.max() == 0, "adapters: scale 0 is not the no-adapter image")
+    stack = call("adapters two, second scale 0", prompt=prompt, seed=1,
+                 ip_adapter_image_embeds=[e0, e1], ip_adapter_scale=[1.0, 0.0])
+    check(np.array_equal(stack, one),
+          "adapters: a stack with its second scale 0 is not the first alone")
+    batch = call("adapters batch of two", prompt=[prompt, "a dog"], seed=[1, 5],
+                 ip_adapter_image_embeds=e0)
+    check(batch.shape == (2, HW, HW, 3), f"adapters batch output {batch.shape}")
+    d = np.abs(batch[0].astype(np.int32) - one[0].astype(np.int32))
+    log(path="adapters", batch_vs_standalone_max_uint8_diff=int(d.max()),
+        batch_vs_standalone_mean_uint8_diff=float(d.mean()))
+    encode_s = host_seconds(lambda: pipe._encode_one_ip_image(ref_image))
+    families = {}, {}
+    kw = dict(prompt=prompt, seed=1, num_inference_steps=STEPS,
+              guidance_scale=GUIDANCE)
+    no_ms = device_ms(lambda: pipe(image, mask, **kw), families[0])
+    ip_ms = device_ms(lambda: pipe(image, mask, ip_adapter_image_embeds=e0, **kw),
+                      families[1])
+    log(path="adapters", card=CARD[0], no_adapter_seconds_per_image=base_s,
+        ip_image_seconds_per_image=image_s, image_encode_seconds=encode_s,
+        no_adapter_device_ms=no_ms, one_adapter_device_ms=ip_ms,
+        adapter_device_ms_per_evaluation=(
+            (ip_ms - no_ms) / evaluations(cfg, "unipc", STEPS)
+            if no_ms and ip_ms else "not measured"),
+        no_adapter_device_ms_by_family=families[0],
+        one_adapter_device_ms_by_family=families[1])
+    ip_launches = _path_counts("adapters ip", expected_launches_ip(cfg, STEPS, 2, 1))
+
+    # ---- the T2I-Adapter and the UNet's intrablock features
+    reset_counts()  # the T2I evaluation starts here
+    with torch.device("meta"):  # the SD1.5 full adapter: the UNet's widths
+        adapter = T2IAdapter(cfg.unet.block_out_channels)
+    sd = random_state(adapter, torch.Generator(device=device).manual_seed(5),
+                      device)
+    adapter.load_state_dict(convert.convert_t2i_adapter(sd), assign=True)
+    adapter = cast_compute(adapter.to(device), torch.bfloat16).to(
+        memory_format=torch.channels_last).eval()
+    gen = torch.Generator(device=device).manual_seed(6)
+    cond = torch.rand(1, HW, HW, 3, generator=gen, device=device)
+    sample = torch.randn(2, HW // 8, HW // 8, 4, generator=gen, device=device)
+    context = torch.randn(2, 77, cfg.unet.cross_attention_dim, generator=gen,
+                          device=device)
+    t = torch.tensor(501, device=device)
+    with torch.no_grad():
+        feats = [f.repeat(2, 1, 1, 1) for f in adapter(cond)]  # the CFG pair
+        check([tuple(f.shape) for f in feats] == [
+            (2, HW // 8 >> i, HW // 8 >> i, c)
+            for i, c in enumerate(cfg.unet.block_out_channels)],
+            f"t2i features {[tuple(f.shape) for f in feats]}")
+        before = read_counts()
+        fed = pipe.unet(sample, t, context,
+                        down_intrablock_additional_residuals=feats)
+        after = read_counts()
+        plain = pipe.unet(sample, t, context)
+        zero = pipe.unet(sample, t, context,
+                         down_intrablock_additional_residuals=[
+                             torch.zeros_like(f) for f in feats])
+        torch.cuda.synchronize()
+    got = {k: after[k] - before[k] for k in after}
+    want = _total((1, unet_launches(cfg.unet)))
+    check(got == want, f"t2i evaluation: launches {got}, expected {want}")
+    check(bool(torch.isfinite(fed).all()), "t2i evaluation: non-finite output")
+    check(torch.equal(zero, plain), "t2i: zero features changed the output")
+    d = float((fed.float() - plain.float()).abs().max())
+    check(d > 0, "t2i: the features did not change the output")
+    with torch.no_grad():
+        # the adapter's few cuDNN launches: a CUDA graph of 20 calls (one
+        # profiled call's device time varied 3x between runs)
+        adapter_ms = graph_ms(lambda: adapter(cond))
+        adapter_stream_ms = cuda_ms(lambda: adapter(cond))
+        eval_ms = device_ms(lambda: pipe.unet(
+            sample, t, context, down_intrablock_additional_residuals=feats))
+        plain_ms = device_ms(lambda: pipe.unet(sample, t, context))
+    log(path="adapters t2i", card=CARD[0],
+        adapter_params=sum(p.numel() for p in adapter.parameters()),
+        adapter_device_ms=adapter_ms, adapter_stream_ms=adapter_stream_ms,
+        evaluation_device_ms=eval_ms, plain_evaluation_device_ms=plain_ms,
+        launches=got, vs_no_features_max_abs_diff=d)
+    t2i_launches = _path_counts("adapters t2i", want)
+    del adapter, feats, fed, plain, zero
+
+    # ---- the stack written as a v2 directory with the adapter's files
+    work = os.path.join("smoke_out", "adapters")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "ppt-v2")
+    base_dir = os.path.join(root, "realisticVisionV60B1_v51VAE")
+    bn_dir = os.path.join(root, "PowerPaint_Brushnet")
+    enc_dir = os.path.join(root, "image_encoder")
+    n_pos = (tower_cfg.image_size // tower_cfg.patch_size) ** 2 + 1
+    files = {
+        os.path.join(base_dir, "unet", "diffusion_pytorch_model.safetensors"):
+            base_unet,
+        os.path.join(base_dir, "vae", "diffusion_pytorch_model.safetensors"):
+            state["vae"],
+        os.path.join(base_dir, "text_encoder", "model.safetensors"):
+            _with_position_ids(state["text_encoder"]),
+        os.path.join(bn_dir, "diffusion_pytorch_model.safetensors"):
+            state["brushnet"],
+        os.path.join(bn_dir, "pytorch_model.bin"):
+            _with_position_ids(state["text_encoder_brushnet"]),
+        os.path.join(root, "ip_adapter.safetensors"): ip_files[0],
+        os.path.join(enc_dir, "model.safetensors"): {
+            **tower, "vision_model.embeddings.position_ids":
+                torch.arange(n_pos)[None]}}
+    t0 = time.perf_counter()
+    nbytes = sum(_write(path, sd) for path, sd in files.items())
+    with open(os.path.join(enc_dir, "config.json"), "w", encoding="utf-8") as f:
+        _json.dump(tower_cfg.to_dict(), f)  # the published config.json's keys
+    write_s = time.perf_counter() - t0
+    del state, base_unet, tower, files
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = powerpaint_tpu_torch.load(root, "ppt-v2").pipeline
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(checkpoint="adapters ppt-v2", card=CARD[0], bytes=nbytes,
+        write_seconds=write_s, load_seconds=load_s,
+        load_gb_per_s=nbytes / load_s / 1e9,
+        image_encoder=loaded.config.image_encoder.to_dict(),
+        ip_adapter=[loaded.config.unet.ip_adapter_dim,
+                    loaded.config.unet.ip_adapter_tokens])
+    check(loaded.config.image_encoder == tower_cfg,
+          f"adapters load: tower config {loaded.config.image_encoder}")
+    check((loaded.config.unet.ip_adapter_dim, loaded.config.unet.ip_adapter_tokens)
+          == (tower_cfg.projection_dim, 4),
+          "adapters load: not one adapter of the tower's width -> 4 tokens")
+    for f in ("vae", "text_encoder", "brushnet", "text_encoder_brushnet",
+              "image_encoder"):
+        _same_weights(f"adapters load {f}", getattr(loaded, f), getattr(pipe, f))
+    mine, ref = loaded.unet.state_dict(), pipe.unet.state_dict()
+    bad = [k for k in mine if k not in ref or not torch.equal(mine[k], ref[k])]
+    check(not bad, f"adapters load unet: {len(bad)} tensors differ, e.g. {bad[:3]}")
+    check(len(ref) - len(mine) == 4 + 32,
+          f"adapters load unet: {len(ref) - len(mine)} tensors short of the stack")
+    del pipe, call
+    torch.cuda.empty_cache()
+    call = _caller(loaded, image, mask, lambda kw: expected_launches_ip(
+        cfg, kw["num_inference_steps"], *_ip_counts(kw)))
+    reset_counts()  # the loaded stack's call starts here
+    got = call("adapters loaded ip image", prompt=prompt, seed=1,
+               ip_adapter_image=ref_image)
+    check(np.array_equal(got, with_image),
+          "adapters load: the image is not the in-memory stack's")
+    load_launches = _path_counts("adapters loaded", expected_launches_ip(
+        cfg, STEPS, 1, 1))
+    del loaded, call
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    return {k: ip_launches[k] + t2i_launches[k] + load_launches[k]
+            for k in ip_launches}
+
+
 # device time by family, from the kernel names (first match wins); the
 # GroupNorm family holds the statistics launches of the fused conv and the
 # int8 units' quantisers too
@@ -3457,7 +3797,8 @@ def tiny_reference(device) -> None:
     """The tiny ppt-v1, ppt-v2 and ppt-v1 + ControlNet configurations, fp32,
     each at its default sampler and at one other (and ppt-v1 with the
     asymmetric VAE, encoder propagation and FreeU, ppt-v2 with the branch's
-    cache), through the kernels on the card and through the plain versions
+    cache, ppt-v2 with two IP-Adapters on the tiny image tower), through
+    the kernels on the card and through the plain versions
     on the CPU, with the same weights and the same noise (the step noise
     too): the uint8 images must agree within the JAX package's end-to-end
     bound (max 3, mean 0.5).
@@ -3487,6 +3828,7 @@ def tiny_reference(device) -> None:
     from powerpaint_tpu_torch.ops.freeu import FreeUConfig
     from powerpaint_tpu_torch.testing import (
         tiny_asymmetric_vae,
+        tiny_clip_vision_config,
         tiny_v1_config,
         tiny_v1_controlnet_config,
         tiny_v2_config,
@@ -3546,6 +3888,13 @@ def tiny_reference(device) -> None:
     # guidance embedding, step noise), heun with a window (39 -> 5 rows)
     tiny_lcm = tiny_v2_config().replace(
         unet=tiny_v2_config().unet.replace(time_cond_proj_dim=8))
+    # two IP-Adapters on the tiny tower, each given its own image
+    tower = tiny_clip_vision_config()
+    tiny_ip = tiny_v2_config().replace(
+        unet=tiny_v2_config().unet.replace(
+            ip_adapter_dim=tower.projection_dim, ip_adapter_tokens=(4, 4)),
+        image_encoder=tower)
+    ip_images = [image, np.ascontiguousarray(image[::-1])]
     for label, cfg, cls, gen, int8 in (
             ("ppt-v1", tiny_v1_config(), InpaintPipeline, v1, False),
             ("ppt-v2", tiny_v2_config(), BrushNetPipeline, v2, False),
@@ -3565,7 +3914,10 @@ def tiny_reference(device) -> None:
              tiny_v1_config().replace(vae=tiny_asymmetric_vae()), InpaintPipeline,
              v1_cached_freeu, False),
             ("ppt-v2 branch cache 2", tiny_v2_config(), BrushNetPipeline,
-             lambda p, d, n: v2(p, d, n, steps=4, branch_cache_interval=2), False)):
+             lambda p, d, n: v2(p, d, n, steps=4, branch_cache_interval=2), False),
+            ("ppt-v2 two ip-adapters", tiny_ip, BrushNetPipeline,
+             lambda p, d, n: v2(p, d, n, ip_embeds=p._ip_pairs(ip_images, None, 1),
+                                ip_scale=[0.7, 1.3]), False)):
         state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu",
                            dtype=torch.float32)
         outs, sites = {}, []
@@ -3698,7 +4050,8 @@ def main() -> None:
              ("samplers", run_sampler_path),
              ("checkpoints + lora", run_checkpoint_path),
              ("call surface", run_call_surface_path),
-             ("vae extras", run_vae_extras_path))
+             ("vae extras", run_vae_extras_path),
+             ("adapters", run_adapter_path))
     for label, run in paths:
         t0 = time.perf_counter()
         counts = run(device)
@@ -3726,11 +4079,19 @@ def main() -> None:
             **{k: head[k] for k in ("library_scope", "bf16_kernel_ms",
                                     "quantize_ms", "product_ms", "unfused_ms")
                if k in head}))
+        keys = ("shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
         if name == "flash_attention":  # the head dims past the UNet's
             kernels[-1]["head_dims"] = [
-                {k: r[k] for k in ("shape", "ms", "bound_ms", "bound_by", "plain_ms",
-                                   "library_ms", "library_backend")}
+                {k: r[k] for k in keys + ("library_backend",)}
                 for r in timings[name] if r["shape"][-1] >= 512]
+            kernels[-1]["image_tokens"] = [  # the IP-Adapter's S_kv = 4
+                {k: r[k] for k in keys + ("library_backend",)}
+                for r in timings[name] if r["shape"][2] == 4]
+        if name == "layer_norm":  # the ViT-H tower's and the projection's
+            ip_rows = [list(shape) for shape, _ in IP_LN_SHAPES]
+            kernels[-1]["ip_rows"] = [{k: r[k] for k in keys}
+                                      for r in timings[name]
+                                      if r["shape"] in ip_rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -116,7 +116,8 @@ class PowerPaint:
     ) -> InferenceResult:
         """``pipeline_kwargs`` pass through to the routed pipeline
         (scheduler= for all three, strength= / eta= for v1, guess_mode= /
-        brushnet_conditioning_scale= for v2, per-branch lists and
+        brushnet_conditioning_scale= / ip_adapter_image= /
+        ip_adapter_image_embeds= / ip_adapter_scale= for v2, per-branch lists and
         control_guidance_start= / _end= for the ControlNet pipeline).
 
         ``resolution_bucketing`` pads inputs to 64-pixel size buckets (edge

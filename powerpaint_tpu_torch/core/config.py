@@ -5,17 +5,17 @@ The port's own copy of the ppt-v1, ppt-v2 and ppt-v1 + ControlNet parts of
 frozen dataclasses that are the single source of truth for block topology,
 with the same field names and defaults, so a config serialized by either
 package loads in the other (unknown keys are ignored by ``from_dict``).
-Beside them, the annotator and safety-checker networks' shapes:
-``CLIPVisionConfig`` and ``DPTConfig`` (the JAX package keeps the latter in
-``models/dpt.py``), with ``dpt_config_from_hf_dict`` reading a DPT
-checkpoint's ``config.json``.
+Beside them, the annotator, safety-checker and IP-Adapter image-encoder
+networks' shapes: ``CLIPVisionConfig`` and ``DPTConfig`` (the JAX package
+keeps the latter in ``models/dpt.py``), with ``dpt_config_from_hf_dict``
+reading a DPT checkpoint's ``config.json``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 
 def _freeze(obj):
@@ -90,12 +90,27 @@ class UNetConfig(_ConfigBase):
     # LCM-distilled UNets condition the time embedding on the guidance
     # scale: the width of that embedding (None: no ``cond_proj``)
     time_cond_proj_dim: Optional[int] = None
+    # IP-Adapter: the CLIP image embedding's width (1024 for the SD1.5
+    # adapters' OpenCLIP ViT-H tower; 0: no adapter), and the context
+    # tokens its projection makes (4 for ip-adapter_sd15): an int for one
+    # adapter, or one per adapter of a stack
+    ip_adapter_dim: int = 0
+    ip_adapter_tokens: Union[int, Tuple[int, ...]] = 4
 
     @property
     def num_heads(self) -> int:
         # diffusers quirk: for SD1.5 UNets `attention_head_dim` holds the
         # number of heads
         return self.attention_head_dim
+
+    @property
+    def ip_adapters(self) -> Tuple[int, ...]:
+        """Context tokens of each IP-Adapter the UNet carries (empty when
+        ``ip_adapter_dim`` is 0)."""
+        if not self.ip_adapter_dim:
+            return ()
+        t = self.ip_adapter_tokens
+        return tuple(t) if isinstance(t, (tuple, list)) else (t,)
 
     # ---- the BrushNet tap schedule, in consumption order ------------------
 
@@ -262,7 +277,8 @@ class PowerPaintConfig(_ConfigBase):
     """Top-level stack description: ppt-v1, or ppt-v2 when ``brushnet`` is
     set (then ``text_encoder`` describes the task-token tower of the BrushNet
     branch; the base UNet's plain tower is the same with no task rows), or
-    ppt-v1 with ControlNet branches when ``controlnet`` is set."""
+    ppt-v1 with ControlNet branches when ``controlnet`` is set.
+    ``image_encoder``: the CLIP image tower of an IP-Adapter (ppt-v2)."""
 
     version: str = "ppt-v1"
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
@@ -273,6 +289,7 @@ class PowerPaintConfig(_ConfigBase):
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     brushnet: Optional[BrushNetConfig] = None
     controlnet: Optional[ControlNetConfig] = None
+    image_encoder: Optional[CLIPVisionConfig] = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "PowerPaintConfig":
@@ -284,6 +301,7 @@ class PowerPaintConfig(_ConfigBase):
             ("scheduler", SchedulerConfig),
             ("brushnet", BrushNetConfig),
             ("controlnet", ControlNetConfig),
+            ("image_encoder", CLIPVisionConfig),
         ):
             if isinstance(d.get(k), dict):
                 d[k] = sub.from_dict(d[k])
@@ -355,6 +373,16 @@ def safety_checker_config() -> CLIPVisionConfig:
     """The CompVis safety checker's tower: CLIP ViT-L/14 at 224, projection
     768 (the checker adds 17 concept and 3 special-care rows)."""
     return CLIPVisionConfig()
+
+
+def vit_h14_image_encoder_config() -> CLIPVisionConfig:
+    """The SD1.5 IP-Adapter's image encoder, OpenCLIP ViT-H/14 at 224, as
+    its published ``image_encoder/config.json`` gives it: width 1280, 32
+    layers of 16 heads (head dim 80), MLP 5120, exact (erf) ``gelu``,
+    projection 1024."""
+    return CLIPVisionConfig(hidden_size=1280, intermediate_size=5120,
+                            num_hidden_layers=32, num_attention_heads=16,
+                            projection_dim=1024, hidden_act="gelu")
 
 
 def dpt_hybrid_midas_config() -> DPTConfig:

@@ -15,6 +15,9 @@ ppt-v2 (``checkpoints/ppt-v2``)::
     realisticVisionV60B1_v51VAE/{unet,vae,text_encoder,tokenizer}/
     PowerPaint_Brushnet/diffusion_pytorch_model.safetensors   (BrushNet)
     PowerPaint_Brushnet/pytorch_model.bin          (the task text encoder)
+    ip_adapter*.safetensors | ip-adapter*.bin      optional: an IP-Adapter
+    image_encoder/{config.json, *.safetensors}     optional: its CLIP tower
+                                                   (here or under the base)
 
 (or the base's four directories at the root: the flat layout), an
 original-SD single file (``load_single_file``), and a diffusers ControlNet
@@ -29,10 +32,14 @@ and conv weights to ``dtype``, bf16 by default), stores conv weights
 channels-last and quantises the int8 units (``int8``, as the pipelines
 take it). An asymmetric VAE (``AsymmetricAutoencoderKL``: a
 ``decoder.condition_encoder``) sets the ppt-v1 config's VAE from its
-shapes. What the JAX loaders accept and the port cannot compute yet is
-refused with ``NotImplementedError`` naming its ROADMAP item: IP-Adapter
-weights or an image encoder (A14b), a native orbax directory (A19). ppt-v2
-refuses an asymmetric VAE, which only the v1 pipeline decodes.
+shapes. An IP-Adapter file sets ``config.unet.ip_adapter_dim`` and
+``ip_adapter_tokens`` from its projection's shape and joins the base
+UNet's state (``io.convert.convert_ip_adapter``); an ``image_encoder/``
+sets ``config.image_encoder`` from its ``config.json`` and shapes
+(``io.convert.infer_clip_vision_config``). What the JAX loaders accept and
+the port cannot compute yet is refused with ``NotImplementedError`` naming
+its ROADMAP item: a native orbax directory (A19). ppt-v2 refuses an
+asymmetric VAE, which only the v1 pipeline decodes.
 """
 
 from __future__ import annotations
@@ -230,16 +237,6 @@ def load_ppt_v2(root: str, *, config: Optional[PowerPaintConfig] = None,
     if missing:
         raise FileNotFoundError(
             f"checkpoint dir {root!r} missing weights for: {missing}")
-    adapters = [p for p in (
-        _find_weights(*(os.path.join(root, f"{stem}*.{ext}")
-                        for stem in ("ip_adapter", "ip-adapter")
-                        for ext in ("safetensors", "bin"))),
-        _dir_weights_path(os.path.join(root, "image_encoder")),
-        _dir_weights_path(os.path.join(base, "image_encoder"))) if p]
-    if adapters:
-        raise NotImplementedError(
-            f"IP-Adapter weights or an image encoder ({adapters[0]!r}) are "
-            "not ported yet (ROADMAP A14b)")
     state = {"unet": C.load_state_dict(paths["base unet"]),
              "vae": C.load_state_dict(paths["vae"]),
              "text_encoder": C.convert_clip_text(
@@ -253,10 +250,51 @@ def load_ppt_v2(root: str, *, config: Optional[PowerPaintConfig] = None,
             "decoder.condition_encoder) decodes on ppt-v1 only; ppt-v2's "
             "pipeline decodes with the plain VAE, as the JAX package's does")
     config = _sync_text_config(config, state["text_encoder_brushnet"])
+    config = _load_ip_adapter(root, base, config, state)
     tokenizer = _build_tokenizer(base, config.text_encoder.vocab_size,
                                  config.text_encoder.num_external_tokens)
     return BrushNetPipeline(config, state, tokenizer, dtype=dtype,
                             device=device, int8=int8)
+
+
+def _load_ip_adapter(root: str, base: str, config: PowerPaintConfig,
+                     state: dict) -> PowerPaintConfig:
+    """The v2 directory's optional IP-Adapter, as the JAX loader finds it:
+    the first ``ip_adapter*`` / ``ip-adapter*`` ``.safetensors`` / ``.bin``
+    at the root (its projection's shape gives ``ip_adapter_dim`` and the
+    tokens), merged into ``state["unet"]``; and ``image_encoder/`` at the
+    root, else under the base, as ``state["image_encoder"]`` with its
+    config from its ``config.json`` where it has one. Returns the config
+    that describes them."""
+    ip_path = _find_weights(*(os.path.join(root, f"{stem}*.{ext}")
+                              for stem in ("ip_adapter", "ip-adapter")
+                              for ext in ("safetensors", "bin")))
+    if ip_path:
+        ip_sd = C.load_state_dict(ip_path)
+        dim, rows = C.ip_adapter_shape(ip_sd)
+        tokens, rest = divmod(rows, config.unet.cross_attention_dim)
+        if rest or not tokens:
+            raise ValueError(
+                f"{ip_path!r}: a projection of {rows} rows is no whole number "
+                f"of {config.unet.cross_attention_dim}-wide tokens")
+        config = config.replace(unet=config.unet.replace(
+            ip_adapter_dim=dim, ip_adapter_tokens=tokens))
+        state["unet"] = C.merge_ip_adapter(
+            state["unet"], C.convert_ip_adapter(ip_sd, config.unet))
+    for d in (os.path.join(root, "image_encoder"),
+              os.path.join(base, "image_encoder")):
+        path = _dir_weights_path(d)
+        if path is None:
+            continue
+        sd = C.convert_clip_vision(C.load_state_dict(path))
+        config_json = None
+        if os.path.isfile(os.path.join(d, "config.json")):
+            with open(os.path.join(d, "config.json"), encoding="utf-8") as f:
+                config_json = json.load(f)
+        state["image_encoder"] = sd
+        return config.replace(
+            image_encoder=C.infer_clip_vision_config(sd, config_json))
+    return config
 
 
 def load_safety_checker(d: str, *, device="cuda"):

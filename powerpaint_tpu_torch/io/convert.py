@@ -15,6 +15,13 @@ dict load as they are. What this module does to them:
   diffusers stores them; an asymmetric VAE's condition tower and decoder
   shapes are read from its keys (``infer_condition_layers``,
   ``infer_vae_decoder_config``).
+- IP-Adapter files (``convert_ip_adapter``: the nested ``.bin`` layout
+  and the flat ``.safetensors`` one) become UNet state-dict entries
+  (``encoder_hid_proj.<a>``, each attn2's ``to_k_ip.<a>`` /
+  ``to_v_ip.<a>``) that ``merge_ip_adapter`` adds to a UNet's; a
+  T2I-Adapter state dict loads as it is (``convert_t2i_adapter``);
+  ``brushnet_params_from_unet`` initialises a BrushNet branch from a
+  UNet's weights.
 - Original-SD single files (``model.diffusion_model.*``,
   ``first_stage_model.*``, ``cond_stage_model.transformer.*``) are renamed
   to those names: ``ldm_unet_to_diffusers``, ``ldm_vae_to_diffusers``
@@ -27,11 +34,17 @@ casts them once, on the device (``io.weights.load_models``).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from powerpaint_tpu_torch.core.config import CLIPVisionConfig
+from powerpaint_tpu_torch.core.config import (
+    CROSS_ATTN_DOWN,
+    CROSS_ATTN_UP,
+    MID_CROSS_ATTN,
+    CLIPVisionConfig,
+    UNetConfig,
+)
 from powerpaint_tpu_torch.io import safetensors
 
 _EMB = "text_model.embeddings.token_embedding."
@@ -114,10 +127,22 @@ def infer_vae_decoder_config(sd) -> dict:
             "layers_per_up_block": layers}
 
 
-def infer_clip_vision_config(sd):
+def convert_clip_vision(sd) -> Dict[str, torch.Tensor]:
+    """A transformers ``CLIPVisionModelWithProjection`` state dict in the
+    port's names: the ``position_ids`` buffer dropped."""
+    return {k: v for k, v in sd.items() if not k.endswith("position_ids")}
+
+
+def infer_clip_vision_config(sd, config_json: Optional[dict] = None):
     """A ``CLIPVisionConfig`` from a CLIP vision (or safety checker) state
-    dict's shapes: width, depth, patch and image size, projection; heads
-    at 64 channels each, as the JAX package infers them."""
+    dict's shapes: width, depth, patch and image size, projection. The
+    heads, ``hidden_act`` and the LayerNorm eps come from the directory's
+    ``config.json`` (``config_json``, its dict; transformers'
+    ``CLIPVisionConfig`` defaults where it leaves one out); without one,
+    heads at 64 channels each and ``quick_gelu``, as the JAX package
+    infers them. That rule holds for ViT-L/14 (1024 wide, 16 heads) and
+    not for the SD1.5 IP-Adapter's OpenCLIP ViT-H/14 (1280 wide, 16 heads
+    of 80, exact ``gelu``), so the port reads the file where it can."""
 
     def get(*names):
         for n in names:
@@ -139,11 +164,154 @@ def infer_clip_vision_config(sd):
     fc1 = get(prefix + "encoder.layers.0.mlp.fc1.weight",
               prefix + "encoder.layers.0.fc1.weight")
     proj = sd.get("visual_projection.weight")
-    return CLIPVisionConfig(
+    cfg = CLIPVisionConfig(
         hidden_size=hidden, intermediate_size=int(fc1.shape[0]),
         num_hidden_layers=layers, num_attention_heads=max(1, hidden // 64),
         image_size=grid * patch, patch_size=patch,
         projection_dim=int(proj.shape[0]) if proj is not None else hidden)
+    if config_json is None:
+        return cfg
+    stated = config_json.get("hidden_size", hidden)
+    if stated != hidden:
+        raise ValueError(f"config.json gives hidden_size {stated}, the "
+                         f"weights {hidden}")
+    heads = int(config_json.get("num_attention_heads", 12))
+    if hidden % heads:
+        raise ValueError(f"{heads} heads do not divide width {hidden}")
+    return cfg.replace(num_attention_heads=heads,
+                       hidden_act=config_json.get("hidden_act", "quick_gelu"),
+                       layer_norm_eps=float(config_json.get("layer_norm_eps",
+                                                            1e-5)))
+
+
+# ---------------------------------------------------------------------------
+# IP-Adapter, T2I-Adapter, BrushNet from a UNet
+# ---------------------------------------------------------------------------
+
+
+def ip_adapter_attn2_paths(unet_cfg: UNetConfig) -> List[str]:
+    """Module paths of every cross-attention (attn2) of the UNet in the
+    order of diffusers' ``attn_processors``: down blocks, up blocks, then
+    the mid block (the reference UNet registers ``down_blocks`` and
+    ``up_blocks`` before ``mid_block``), so an IP-Adapter checkpoint's ids
+    1, 3, 5, ... map to them in turn, as in the JAX package."""
+    k_range = range(unet_cfg.transformer_layers_per_block)
+    paths = []
+    for i, kind in enumerate(unet_cfg.down_block_types):
+        if kind == CROSS_ATTN_DOWN:
+            paths += [f"down_blocks.{i}.attentions.{j}.transformer_blocks.{k}.attn2"
+                      for j in range(unet_cfg.layers_per_block) for k in k_range]
+    for i, kind in enumerate(unet_cfg.up_block_types):
+        if kind == CROSS_ATTN_UP:
+            paths += [f"up_blocks.{i}.attentions.{j}.transformer_blocks.{k}.attn2"
+                      for j in range(unet_cfg.layers_per_block + 1)
+                      for k in k_range]
+    if unet_cfg.mid_block_type == MID_CROSS_ATTN:
+        paths += [f"mid_block.attentions.0.transformer_blocks.{k}.attn2"
+                  for k in k_range]
+    return paths
+
+
+def convert_ip_adapter(sd, unet_cfg: UNetConfig, adapter_index: int = 0) -> dict:
+    """An IP-Adapter checkpoint -> the UNet state-dict entries of adapter
+    ``adapter_index``: ``encoder_hid_proj.<a>.image_embeds`` /
+    ``.norm`` and each attn2's ``to_k_ip.<a>`` / ``to_v_ip.<a>`` (torch
+    layouts, as stored). Both layouts: the nested ``{"image_proj": {...},
+    "ip_adapter": {"1.to_k_ip.weight": ...}}`` of ``ip-adapter_sd15.bin``
+    and the flat ``image_proj.proj.weight`` / ``ip_adapter.1.to_k_ip.weight``
+    keys. Add them to a UNet's with ``merge_ip_adapter``; a stack takes one
+    file per adapter, with indices 0, 1, ..."""
+    flat = {}
+    for k, v in sd.items():
+        if isinstance(v, dict):
+            flat.update({f"{k}.{k2}": v2 for k2, v2 in v.items()})
+        else:
+            flat[k] = v
+
+    def get(*names):
+        for n in names:
+            if n in flat:
+                return flat[n]
+        raise KeyError(f"ip-adapter checkpoint missing any of {names}")
+
+    a = adapter_index
+    proj = f"encoder_hid_proj.{a}."
+    out = {proj + "image_embeds.weight": get("image_proj.proj.weight",
+                                             "image_proj.image_embeds.weight"),
+           proj + "image_embeds.bias": get("image_proj.proj.bias",
+                                           "image_proj.image_embeds.bias"),
+           proj + "norm.weight": get("image_proj.norm.weight"),
+           proj + "norm.bias": get("image_proj.norm.bias")}
+    for idx, path in enumerate(ip_adapter_attn2_paths(unet_cfg)):
+        kid = 2 * idx + 1
+        for name in ("to_k_ip", "to_v_ip"):
+            out[f"{path}.{name}.{a}.weight"] = get(
+                f"ip_adapter.{kid}.{name}.weight",
+                f"ip_adapter.{kid}.{name}.{a}.weight")
+    return out
+
+
+def merge_ip_adapter(unet_sd: dict, ip_sd: dict) -> dict:
+    """A new UNet state dict: ``unet_sd`` with ``convert_ip_adapter``'s
+    entries added (the analog of diffusers ``load_ip_adapter``)."""
+    return {**unet_sd, **ip_sd}
+
+
+def ip_adapter_shape(sd) -> Tuple[int, int]:
+    """(image embedding width, projection rows) of an IP-Adapter
+    checkpoint in either layout: ``ip_adapter_dim``, and the tokens times
+    the cross-attention width."""
+    w = None
+    for k, v in sd.items():
+        if k.endswith("image_proj.proj.weight") or k == "proj.weight":
+            w = v
+        elif k == "image_proj" and isinstance(v, dict):
+            w = v.get("proj.weight", w)
+    if w is None:
+        raise KeyError("ip-adapter checkpoint has no image_proj.proj.weight")
+    return int(w.shape[1]), int(w.shape[0])
+
+
+def convert_t2i_adapter(sd) -> dict:
+    """A diffusers ``T2IAdapter`` (full adapter) state dict: the port's
+    ``models.adapter.T2IAdapter`` has its names (``adapter.conv_in``,
+    ``adapter.body.<i>.in_conv``, ``adapter.body.<i>.resnets.<j>.block1``
+    / ``block2``), so it loads as it is."""
+    return dict(sd)
+
+
+_FROM_UNET = ("down_blocks", "up_blocks", "mid_block", "time_embedding")
+
+
+def _unet_scope(key: str) -> str:
+    """A state-dict key's top-level module: ``down_blocks.<i>`` /
+    ``up_blocks.<i>``, else its first name."""
+    parts = key.split(".")
+    return ".".join(parts[:2]) if parts[0] in ("down_blocks", "up_blocks") \
+        else parts[0]
+
+
+def brushnet_params_from_unet(unet_sd: dict, template: dict) -> dict:
+    """A BrushNet state dict initialised from a UNet's (the reference's
+    ``BrushNetModel.from_unet``, as the JAX package computes it):
+    ``conv_in_condition``'s input channels are [UNet conv_in | UNet
+    conv_in | 0] and its bias the UNet's; the time embedding and every
+    down, mid and up block the template shares with the UNet are the
+    UNet's, whole; the rest (the zero convs) is ``template``'s, a BrushNet
+    state dict of the right shapes (e.g. ``io.weights.random_state``)."""
+    scopes = {_unet_scope(k) for k in template}
+    taken = {s for s in map(_unet_scope, unet_sd)
+             if s in scopes and s.split(".")[0] in _FROM_UNET}
+    out = {k: v for k, v in template.items() if _unet_scope(k) not in taken}
+    out.update({k: v for k, v in unet_sd.items() if _unet_scope(k) in taken})
+    uw = torch.as_tensor(unet_sd["conv_in.weight"])  # (C, n_in, 3, 3)
+    cw = torch.zeros_like(torch.as_tensor(template["conv_in_condition.weight"]))
+    n = uw.shape[1]
+    cw[:, :n] = uw
+    cw[:, n:2 * n] = uw
+    out["conv_in_condition.weight"] = cw
+    out["conv_in_condition.bias"] = unet_sd["conv_in.bias"]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,15 @@
   ControlNet branch, ``controlnet_down_blocks_<i>`` as
   ``controlnet_down_blocks.<i>`` and the conditioning embedding's
   ``blocks_<k>`` as ``controlnet_cond_embedding.blocks.<k>`` (elsewhere
-  ``blocks_<k>`` is a transformer's ``transformer_blocks.<k>``).
+  ``blocks_<k>`` is a transformer's ``transformer_blocks.<k>``); for an
+  IP-Adapter UNet, adapter a's ``encoder_hid_proj`` / ``to_k_ip`` /
+  ``to_v_ip`` (a = 0) or ``..._<a>`` as ``encoder_hid_proj.<a>`` /
+  ``to_k_ip.<a>`` / ``to_v_ip.<a>``; for the T2I-Adapter, ``body_<i>`` as
+  ``body.<i>``.
+
+ppt-v2 with an IP-Adapter image tower (``config.image_encoder``) has the
+family ``image_encoder`` too (transformers ``CLIPVisionModelWithProjection``
+names), built, drawn and loaded after the others.
 
 Multi-ControlNet: ``state["controlnet"]`` (and the JAX tree of the family)
 may be one branch or a list of them; ``load_models`` then gives a
@@ -90,6 +98,9 @@ def build_models(config: PowerPaintConfig,
             config.text_encoder.replace(num_external_tokens=0))
         models["brushnet"] = BrushNetModel(config.brushnet)
         models["text_encoder_brushnet"] = CLIPTextModel(config.text_encoder)
+        if config.image_encoder is not None:
+            models["image_encoder"] = CLIPVisionModelWithProjection(
+                config.image_encoder)
         return models
 
 
@@ -170,7 +181,11 @@ _LISTS = {"down_blocks": "down_blocks", "up_blocks": "up_blocks",
           "blocks": "transformer_blocks", "layers": "layers",
           "brushnet_down_blocks": "brushnet_down_blocks",
           "brushnet_up_blocks": "brushnet_up_blocks",
-          "controlnet_down_blocks": "controlnet_down_blocks"}
+          "controlnet_down_blocks": "controlnet_down_blocks",
+          "to_k_ip": "to_k_ip", "to_v_ip": "to_v_ip",
+          "encoder_hid_proj": "encoder_hid_proj", "body": "body"}
+# the first IP-Adapter's scopes carry no index in the JAX tree
+_FIRST_ADAPTER = ("to_k_ip", "to_v_ip", "encoder_hid_proj")
 _LIST_RE = re.compile(r"^([a-z_]+)_(\d+)$")
 
 
@@ -192,6 +207,8 @@ def _torch_key(path: Tuple[str, ...]) -> str:
             parts += [_LISTS[m.group(1)], m.group(2)]
         elif p == "to_out":
             parts += ["to_out", "0"]
+        elif p in _FIRST_ADAPTER:
+            parts += [p, "0"]
         elif i > 0 and path[i - 1] == "ff" and p in ("proj_in", "proj_out"):
             parts += ["net", "0", "proj"] if p == "proj_in" else ["net", "2"]
         elif p in ("kernel", "scale") and i == len(path) - 1:
@@ -381,7 +398,8 @@ def _annotator(tree: dict) -> Dict[str, np.ndarray]:
 def params_from_jax(tree, family: str, config=None, tokenizer=None):
     """JAX-package parameter tree of one family (``unet``, ``vae``,
     ``text_encoder``, ``brushnet``, ``text_encoder_brushnet``,
-    ``controlnet``, or one of ``ANNOTATOR_FAMILIES``) -> state dict of
+    ``controlnet``, ``image_encoder``, ``t2i_adapter``, or one of
+    ``ANNOTATOR_FAMILIES``) -> state dict of
     numpy arrays with the port's (and diffusers / transformers / the
     published checkpoints') names and layouts. A ``controlnet`` tuple or
     list of trees (Multi-ControlNet) gives a list of state dicts. ``dpt``
@@ -395,18 +413,19 @@ def params_from_jax(tree, family: str, config=None, tokenizer=None):
         return _annotator(tree)
     if family == "safety_checker":
         return _safety(tree, "vision_model.vision_model.")
-    if family == "clip_vision":
+    if family in ("clip_vision", "image_encoder"):
         return _safety(tree, "vision_model.")
     if family == "controlnet" and isinstance(tree, (list, tuple)):
         return [_unet_or_vae(t) for t in tree]
-    if family in ("unet", "brushnet", "controlnet"):
+    if family in ("unet", "brushnet", "controlnet", "t2i_adapter"):
         return _unet_or_vae(tree)
     if family == "vae":
         return _vae(tree)
     if family in ("text_encoder", "text_encoder_brushnet"):
         return _clip(tree, tokenizer)
+    known = V2_FAMILIES + ("controlnet", "image_encoder", "t2i_adapter")
     raise ValueError(f"unknown family {family!r}; one of "
-                     f"{V2_FAMILIES + ('controlnet',) + ANNOTATOR_FAMILIES}")
+                     f"{known + ANNOTATOR_FAMILIES}")
 
 
 def _quantize_resnets(model: nn.Module):

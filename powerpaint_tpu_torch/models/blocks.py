@@ -10,7 +10,13 @@ and one after the downsampler, each BEFORE the skip is recorded; an up
 block adds one after each pair and after the upsampler, and with ``emit``
 records each feature BEFORE its tap is added (the BrushNet branch's
 outputs). An up block given a ``FreeUConfig`` applies FreeU to the
-running feature and each skip before their concat (``ops.freeu``)."""
+running feature and each skip before their concat (``ops.freeu``).
+
+Every block with attentions passes an IP-Adapter image context and its
+scales to its transformers (``models.transformer``). A cross-attention
+down block adds a T2I-Adapter intrablock feature (``extra_residual``)
+after its LAST (resnet, attention) pair, before that pair's BrushNet tap
+and before its skip is recorded, as the JAX package's does."""
 
 from __future__ import annotations
 
@@ -24,19 +30,24 @@ from powerpaint_tpu_torch.models.resnet import (
     ResnetBlock2D,
     Upsample2D,
 )
-from powerpaint_tpu_torch.models.transformer import Transformer2DModel
+from powerpaint_tpu_torch.models.transformer import (
+    ImageContext,
+    Scales,
+    Transformer2DModel,
+)
 from powerpaint_tpu_torch.ops.freeu import FreeUConfig, apply_freeu
 
 
 def _attentions(cross_attention: bool, n: int, channels: int, num_heads: int,
                 context_dim: int, transformer_layers: int,
-                use_linear_projection: bool) -> Optional[nn.ModuleList]:
+                use_linear_projection: bool,
+                ip_adapters: int) -> Optional[nn.ModuleList]:
     if not cross_attention:
         return None
     return nn.ModuleList([
         Transformer2DModel(channels, num_heads, channels // num_heads,
                            context_dim, transformer_layers,
-                           use_linear_projection)
+                           use_linear_projection, ip_adapters)
         for _ in range(n)
     ])
 
@@ -47,7 +58,7 @@ class DownBlock(nn.Module):
                  cross_attention: bool, num_heads: int = 8,
                  context_dim: int = 768, transformer_layers: int = 1,
                  use_linear_projection: bool = False, eps: float = 1e-5,
-                 groups: int = 32):
+                 groups: int = 32, ip_adapters: int = 0):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels,
@@ -56,20 +67,25 @@ class DownBlock(nn.Module):
         ])
         self.attentions = _attentions(
             cross_attention, num_layers, out_channels, num_heads, context_dim,
-            transformer_layers, use_linear_projection)
+            transformer_layers, use_linear_projection, ip_adapters)
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels)])
                              if add_downsample else None)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
                 context: torch.Tensor,
                 add_samples: Optional[Sequence[torch.Tensor]] = None,
+                ip_context: ImageContext = None, ip_scale: Scales = 1.0,
+                extra_residual: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         taps = iter(add_samples) if add_samples is not None else None
         skips = []
+        last = len(self.resnets) - 1
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb)
             if self.attentions is not None:
-                x = self.attentions[i](x, context)
+                x = self.attentions[i](x, context, ip_context, ip_scale)
+            if extra_residual is not None and i == last:
+                x = x + extra_residual
             if taps is not None:
                 x = x + next(taps)
             skips.append(x)
@@ -87,7 +103,7 @@ class MidBlock(nn.Module):
     def __init__(self, channels: int, temb_channels: int, *, num_heads: int,
                  context_dim: int, transformer_layers: int = 1,
                  use_linear_projection: bool = False, eps: float = 1e-5,
-                 groups: int = 32):
+                 groups: int = 32, ip_adapters: int = 0):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(channels, channels, temb_channels, eps, groups)
@@ -95,11 +111,12 @@ class MidBlock(nn.Module):
         ])
         self.attentions = _attentions(True, 1, channels, num_heads,
                                       context_dim, transformer_layers,
-                                      use_linear_projection)
+                                      use_linear_projection, ip_adapters)
 
-    def forward(self, x, temb, context):
+    def forward(self, x, temb, context, ip_context: ImageContext = None,
+                ip_scale: Scales = 1.0):
         x = self.resnets[0](x, temb)
-        x = self.attentions[0](x, context)
+        x = self.attentions[0](x, context, ip_context, ip_scale)
         return self.resnets[1](x, temb)
 
 
@@ -114,7 +131,8 @@ class UpBlock(nn.Module):
                  add_upsample: bool, cross_attention: bool, num_heads: int = 8,
                  context_dim: int = 768, transformer_layers: int = 1,
                  use_linear_projection: bool = False, eps: float = 1e-5,
-                 groups: int = 32, resolution_idx: int = 0):
+                 groups: int = 32, resolution_idx: int = 0,
+                 ip_adapters: int = 0):
         super().__init__()
         self.resolution_idx = resolution_idx
         resnets = []
@@ -126,7 +144,7 @@ class UpBlock(nn.Module):
         self.resnets = nn.ModuleList(resnets)
         self.attentions = _attentions(
             cross_attention, num_layers, out_channels, num_heads, context_dim,
-            transformer_layers, use_linear_projection)
+            transformer_layers, use_linear_projection, ip_adapters)
         self.upsamplers = (nn.ModuleList([Upsample2D(out_channels)])
                            if add_upsample else None)
 
@@ -135,6 +153,7 @@ class UpBlock(nn.Module):
                 output_size: Optional[tuple] = None,
                 add_samples: Optional[Sequence[torch.Tensor]] = None,
                 emit: bool = False, freeu: Optional[FreeUConfig] = None,
+                ip_context: ImageContext = None, ip_scale: Scales = 1.0,
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         taps = iter(add_samples) if add_samples is not None else None
         emitted = []
@@ -144,7 +163,7 @@ class UpBlock(nn.Module):
             x = torch.cat([x, skip], dim=-1)
             x = resnet(x, temb)
             if self.attentions is not None:
-                x = self.attentions[i](x, context)
+                x = self.attentions[i](x, context, ip_context, ip_scale)
             if emit:
                 emitted.append(x)
             if taps is not None:

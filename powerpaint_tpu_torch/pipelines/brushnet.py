@@ -23,7 +23,14 @@ The port of ``powerpaint_tpu/pipelines/brushnet.py`` on PyTorch:
   argument applied to the whole branch, as in the JAX package);
 - an LCM-distilled UNet (``time_cond_proj_dim`` set) gets the guidance
   embedding of w - 1 as ``timestep_cond`` at every evaluation, one row per
-  image of the CFG batch.
+  image of the CFG batch;
+- IP-Adapter (the reference's ``ip_adapter_image`` /
+  ``ip_adapter_image_embeds``, pipeline_PowerPaint_Brushnet_CA.py:629-707):
+  an image is resized bicubic to the image tower's input, CLIP-normalised
+  and encoded (``image_encoder``, one image per call of the tower); each
+  adapter's embedding, tiled to the batch, becomes the CFG pair [zeros |
+  embeds] that the base UNet alone takes on every evaluation, with
+  ``ip_adapter_scale`` (a float or one per adapter).
 
 The call surface of the reference's pipeline: ``prompt_embeds`` /
 ``negative_prompt_embeds`` replace the branch's task-blended pair (the
@@ -51,6 +58,7 @@ import torch.nn.functional as F
 from powerpaint_tpu_torch.core.config import PowerPaintConfig
 from powerpaint_tpu_torch.core.metrics import GLOBAL as telemetry
 from powerpaint_tpu_torch.core.validation import (
+    InputValidationError,
     check_call_args,
     check_clip_skip,
     check_output_type,
@@ -79,6 +87,7 @@ from powerpaint_tpu_torch.pipelines.common import (
     vae_sample,
 )
 from powerpaint_tpu_torch.models.layers import guidance_scale_embedding
+from powerpaint_tpu_torch.tasks.preprocess import to_numpy_image
 from powerpaint_tpu_torch.text.prompts import TaskPrompts, add_task, v2_prompt_suffix
 
 
@@ -87,7 +96,10 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
 
     ``state`` holds one diffusers / transformers named state dict per family
     (``unet``, ``vae``, ``brushnet``, ``text_encoder`` (plain) and
-    ``text_encoder_brushnet`` (task tokens)), tensors or numpy arrays.
+    ``text_encoder_brushnet`` (task tokens), and ``image_encoder`` when
+    ``config.image_encoder`` is set), tensors or numpy arrays. An
+    IP-Adapter's weights are in ``unet`` (``io.convert.convert_ip_adapter``)
+    when ``config.unet.ip_adapter_dim`` is set.
     Linear and conv weights run in ``dtype``; norm parameters stay fp32. The
     models live on ``device`` (the card unless the caller asks for
     ``"cpu"``).
@@ -114,6 +126,7 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
         self.brushnet = models["brushnet"]
         self.text_encoder = models["text_encoder"]
         self.text_encoder_brushnet = models["text_encoder_brushnet"]
+        self.image_encoder = models.get("image_encoder")
 
     # ------------------------------------------------------------ stages
 
@@ -180,12 +193,14 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
                  guidance: torch.Tensor, scales: np.ndarray, guess_mode: bool,
                  step_noise=None,
                  timestep_cond: Optional[torch.Tensor] = None,
-                 branch_cache_interval: int = 1) -> torch.Tensor:
+                 branch_cache_interval: int = 1, ip_embeds=None,
+                 ip_scale=1.0) -> torch.Tensor:
         """The sampler ``mod``'s loop: each iteration the branch's taps,
         then the base UNet on the scaled latents for the unconditional and
-        the conditional half in one batch. With ``branch_cache_interval``
-        n > 1 the branch runs at iterations i with i % n == 0 and the
-        others take the taps it gave there."""
+        the conditional half in one batch (with the IP-Adapter pairs
+        ``ip_embeds`` and ``ip_scale``, as the UNet takes them). With
+        ``branch_cache_interval`` n > 1 the branch runs at iterations i
+        with i % n == 0 and the others take the taps it gave there."""
         b = latents.shape[0]
         state = mod.init_state(sched, latents.shape, latents.device)
         for i in range(sched.num_steps):
@@ -198,7 +213,8 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
             eps = self.unet(scaled.repeat(2, 1, 1, 1), t, cond_plain,
                             down_block_add_samples=down,
                             mid_block_add_sample=mid, up_block_add_samples=up,
-                            timestep_cond=timestep_cond).float()
+                            timestep_cond=timestep_cond,
+                            image_embeds=ip_embeds, ip_scale=ip_scale).float()
             eps = eps[:b] + guidance * (eps[b:] - eps[:b])
             self._run_step_callback(i, latents)
             latents, state = sampler_step(mod, sched, state, eps, i, latents,
@@ -223,7 +239,8 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
                   timesteps: Optional[Sequence[int]] = None,
                   prompt_embeds: Optional[torch.Tensor] = None,
                   negative_prompt_embeds: Optional[torch.Tensor] = None,
-                  branch_cache_interval: int = 1) -> torch.Tensor:
+                  branch_cache_interval: int = 1, ip_embeds=None,
+                  ip_scale=1.0) -> torch.Tensor:
         """Everything after host-side validation, on ``self.device``.
 
         ids_task (P, 4, 77); ids_plain (P, 2, 77); fittings (P,); image_u8
@@ -234,8 +251,9 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
         stochastic sampler, else None; ``timesteps`` UniPC's grid in place of
         the spacing formula (``num_steps`` its length); ``prompt_embeds`` /
         ``negative_prompt_embeds`` (B, 77, D) float32 or None, as
-        ``_encode_prompts`` takes them; ``branch_cache_interval`` as
-        ``_denoise`` takes it."""
+        ``_encode_prompts`` takes them; ``branch_cache_interval``,
+        ``ip_embeds`` (a (2B, ip_adapter_dim) CFG pair, or a list of them,
+        one per adapter) and ``ip_scale`` as ``_denoise`` takes them."""
         mod, sched = make_sampler(scheduler, self.config.scheduler, num_steps,
                                   custom_timesteps=timesteps)
         b, h, w, _ = image_u8.shape
@@ -265,10 +283,70 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
                                 cond_plain,
                                 guidance.float().reshape(-1, 1, 1, 1), scales,
                                 guess_mode, step_noise, timestep_cond,
-                                branch_cache_interval)
+                                branch_cache_interval, ip_embeds, ip_scale)
         if output_type == "latent":
             return latents
         return to_output(self._decode(latents), output_type)
+
+    @torch.no_grad()
+    def _encode_one_ip_image(self, image) -> torch.Tensor:
+        """One IP-Adapter reference image (PIL or array) -> its projected
+        CLIP embedding (1, projection_dim) float32 on the device: a PIL
+        bicubic resize to the tower's input, CLIP normalisation (the safety
+        checker's constants), the tower."""
+        from PIL import Image
+
+        from powerpaint_tpu_torch.core.safety import CLIP_MEAN, CLIP_STD
+
+        s = self.config.image_encoder.image_size
+        pix = np.asarray(Image.fromarray(to_numpy_image(image)).resize(
+            (s, s), Image.BICUBIC), dtype=np.float32)
+        pix = (pix / 255.0 - CLIP_MEAN) / CLIP_STD
+        return self.image_encoder(torch.as_tensor(pix[None],
+                                                  device=self.device)).float()
+
+    def _ip_pairs(self, image, embeds, b: int):
+        """The UNet's ``image_embeds``: one CFG pair (2B, D) [zeros |
+        embeds] per adapter, from the call's ``ip_adapter_image`` or
+        ``ip_adapter_image_embeds`` (one value or a list, one per adapter;
+        an embedding (D,), (1, D) or (B, D)), in the form given, or None."""
+        if image is not None and embeds is not None:
+            raise InputValidationError(
+                "provide either ip_adapter_image or "
+                "ip_adapter_image_embeds, not both")
+        if image is not None and self.image_encoder is None:
+            raise InputValidationError(
+                "ip_adapter_image needs an image encoder: set "
+                "config.image_encoder and state['image_encoder']")
+        given = image if image is not None else embeds
+        if given is None:
+            return None
+        many = isinstance(given, (list, tuple))
+        n = len(given) if many else 1
+        if n > len(self.config.unet.ip_adapters):
+            raise InputValidationError(
+                f"{n} IP-Adapter embeddings for a UNet with "
+                f"{len(self.config.unet.ip_adapters)} adapters "
+                "(config.unet.ip_adapter_dim / ip_adapter_tokens)")
+        if image is not None:
+            embeds = [self._encode_one_ip_image(im)
+                      for im in (image if many else [image])]
+        else:
+            embeds = list(embeds) if many else [embeds]
+        pairs = []
+        for e in embeds:
+            e = (e if torch.is_tensor(e) else torch.as_tensor(
+                np.asarray(e, np.float32))).float().to(self.device)
+            e = e.reshape(1, -1) if e.dim() == 1 else e
+            if e.shape[0] not in (1, b) or e.shape[1] != \
+                    self.config.unet.ip_adapter_dim:
+                raise InputValidationError(
+                    f"an IP-Adapter embedding of shape {tuple(e.shape)} for "
+                    f"{b} images of ip_adapter_dim "
+                    f"{self.config.unet.ip_adapter_dim}")
+            e = e.expand(b, -1)
+            pairs.append(torch.cat([torch.zeros_like(e), e]))
+        return pairs if many else pairs[0]
 
     def __call__(self, image, mask, prompt="", negative_prompt="",
                  task: str = "text-guided", fitting_degree=1.0,
@@ -286,6 +364,8 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
                  callback: Optional[Callable] = None, callback_steps: int = 1,
                  height: Optional[int] = None, width: Optional[int] = None,
                  timesteps: Optional[Sequence[int]] = None,
+                 ip_adapter_image=None, ip_adapter_image_embeds=None,
+                 ip_adapter_scale=1.0,
                  cross_attention_kwargs: Optional[dict] = None) -> np.ndarray:
         """Inpaint ``image`` (H, W, 3) where ``mask`` (H, W) is 1.
 
@@ -306,7 +386,13 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
         of ints in [0, T), UniPC only, that replaces ``num_inference_steps``
         and its spacing; ``branch_cache_interval`` n > 1: the BrushNet
         branch runs every n-th iteration and its taps serve the ones
-        between (1 or less: every iteration)."""
+        between (1 or less: every iteration).
+
+        IP-Adapter: ``ip_adapter_image`` (an image, or one per adapter) is
+        encoded by the image tower; ``ip_adapter_image_embeds`` gives the
+        embeddings instead ((D,), (1, D) or (B, D) each); not both.
+        ``ip_adapter_scale``: a float or one per adapter (0 leaves the
+        image as without the adapter)."""
         if cross_attention_kwargs:
             call_kw = {k: v for k, v in locals().items()
                        if k not in ("self", "cross_attention_kwargs")}
@@ -340,6 +426,8 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
         if len(guidances) != b:
             guidances = [guidances[0]] * b
         seeds = resolve_seeds(seed, b)
+        ip_embeds = self._ip_pairs(ip_adapter_image, ip_adapter_image_embeds,
+                                   b)
 
         ids = [self.encode_task(add_task(v2_prompt_suffix(p, task), n, task,
                                          "ppt-v2"))
@@ -379,7 +467,8 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
                 branch_cache_interval=int(branch_cache_interval),
                 prompt_embeds=embeds_rows(norm_embeds(prompt_embeds), b, dev),
                 negative_prompt_embeds=embeds_rows(
-                    norm_embeds(negative_prompt_embeds), b, dev)).cpu().numpy()
+                    norm_embeds(negative_prompt_embeds), b, dev),
+                ip_embeds=ip_embeds, ip_scale=ip_adapter_scale).cpu().numpy()
         telemetry.count("images", out.shape[0])
         telemetry.count("denoise_steps", num_inference_steps)
         return out

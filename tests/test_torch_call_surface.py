@@ -1,18 +1,21 @@
 """The call surface the port's three pipelines share with the reference's
 diffusers pipelines, against the JAX package's: ``prompt_embeds`` /
 ``negative_prompt_embeds``, ``callback`` / ``callback_steps``, ``height`` /
-``width``, and ppt-v2's ``timesteps=``.
+``width``, and ppt-v2's ``timesteps=`` and IP-Adapter arguments.
 
 The host pieces (``norm_embeds``, the ``height`` / ``width`` resize, the
 custom-timestep checks and every UniPC coefficient table on a custom grid,
 the ControlNet control-image resize) are compared exactly with the JAX
-package's on the same inputs. One JAX pipeline call holds all four
-arguments together: a tiny ppt-v2 call at a non-square size on a 6-step
-custom grid with given embeddings and a callback, fed the same weights
-(``params_from_jax`` of the JAX trees), the same injected latents and the
-same VAE sample noise; the fp32 images must agree within 1 uint8 level and
-the latents the callback sees within 1e-4 of their largest magnitude at
-every step it sees. The rest
+package's on the same inputs. One JAX pipeline call holds all of them
+together: a tiny ppt-v2 call at a non-square size on a 6-step custom grid
+with given embeddings, a callback and an IP-Adapter's image embedding
+(``ip_adapter_image_embeds``, ``ip_adapter_scale``; the adapter a
+synthetic ``ip-adapter_sd15`` checkpoint through each package's
+converter), fed the same weights (``params_from_jax`` of the JAX trees),
+the same injected latents and the same VAE sample noise; the fp32 images
+must agree within 1e-3 (and so within 1 uint8 level) and the latents the
+callback sees within 1e-4 of their largest magnitude at every step it
+sees. The rest
 are the port's own checks: given embeddings equal to the pipeline's own
 pair give its image bitwise without running the text encoder (the task
 tower on ppt-v2), a callback sees copies, ``callback_steps=0`` is clamped,
@@ -26,6 +29,7 @@ import pytest
 import torch
 
 from powerpaint_tpu.core import validation as jax_validation
+from powerpaint_tpu.io import convert as jax_convert
 from powerpaint_tpu.pipelines import common as jax_common
 from powerpaint_tpu.pipelines.brushnet import BrushNetPipeline as JaxPipeline
 from powerpaint_tpu.pipelines.inpaint import InpaintPipeline as JaxInpaint
@@ -54,6 +58,7 @@ from powerpaint_tpu_torch.text.tokenizer import (
     add_task_tokens,
 )
 from test_torch_brushnet import v2_weights
+from test_torch_ip_adapter import DIM, ip_checkpoint
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -220,13 +225,19 @@ GRID = [981, 800, 601, 400, 222, 40]
 def test_v2_call_surface_matches_jax(tok, monkeypatch):
     """A tiny ppt-v2 call with ``timesteps=`` (6 entries), ``height`` /
     ``width`` (a 64x64 input to 128x64), ``prompt_embeds`` and
-    ``negative_prompt_embeds``, and ``callback`` with ``callback_steps=2``,
-    through each package's public ``__call__``."""
+    ``negative_prompt_embeds``, ``callback`` with ``callback_steps=2``, and
+    an IP-Adapter's ``ip_adapter_image_embeds`` at ``ip_adapter_scale``
+    0.8, through each package's public ``__call__``."""
     sd_np, trees = v2_weights()
+    jcfg, cfg = jax_tiny_v2_config(), tiny_v2_config()
+    jcfg = jcfg.replace(unet=jcfg.unet.replace(ip_adapter_dim=DIM))
+    cfg = cfg.replace(unet=cfg.unet.replace(ip_adapter_dim=DIM))
+    trees = dict(trees, unet=jax_convert.merge_ip_adapter(
+        trees["unet"], jax_convert.convert_ip_adapter(
+            ip_checkpoint(cfg.unet, 1), jcfg.unet)))
     state = {f: params_from_jax(t, f) for f, t in trees.items()}
-    jax_pipe = JaxPipeline(jax_tiny_v2_config(), trees, tok, dtype=jnp.float32)
-    port = BrushNetPipeline(tiny_v2_config(), state, tok, dtype=torch.float32,
-                            device="cpu")
+    jax_pipe = JaxPipeline(jcfg, trees, tok, dtype=jnp.float32)
+    port = BrushNetPipeline(cfg, state, tok, dtype=torch.float32, device="cpu")
     image, mask = _image_mask(64, 64)
     rng = np.random.RandomState(3)
     pos, neg = (rng.randn(1, 77, 32).astype(np.float32) for _ in range(2))
@@ -244,11 +255,15 @@ def test_v2_call_surface_matches_jax(tok, monkeypatch):
               guidance_scale=7.5, seed=SEED, latents=latents, height=H, width=W,
               timesteps=GRID, prompt_embeds=pos, negative_prompt_embeds=neg,
               callback_steps=2, output_type="float32")
+    ip = dict(ip_adapter_image_embeds=rng.randn(DIM).astype(np.float32),
+              ip_adapter_scale=0.8)
     want = jax_pipe(image, mask, callback=lambda i, x: seen["jax"].append(
-        (int(i), np.array(x))), **kw)
+        (int(i), np.array(x))), **kw, **ip)
     got = port(image, mask, callback=lambda i, x: seen["port"].append((i, x)),
-               **kw)
+               **kw, **ip)
     assert got.shape == np.asarray(want).shape == (1, H, W, 3)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-3)
+    assert np.abs(port(image, mask, **kw) - got).max() > 1e-2  # the adapter
     to_u8 = lambda x: np.round(np.clip(np.asarray(x) / 2 + 0.5, 0, 1) * 255)  # noqa: E731
     d = np.abs(to_u8(got) - to_u8(want))
     assert d.max() <= 1, (d.max(), d.mean())

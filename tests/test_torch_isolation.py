@@ -119,3 +119,11 @@ def test_the_loader_modules_are_covered_and_load_no_safetensors_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_adapter_modules_are_covered():
+    """The IP-Adapter and T2I-Adapter modules are checked like the rest."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"models/projection.py", "models/adapter.py",
+            "models/transformer.py", "models/clip_vision.py",
+            "io/convert.py", "pipelines/brushnet.py"} <= names

@@ -88,12 +88,38 @@ def test_group_norm_kernel(dev, shape, groups, silu, dtype, atol):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
+# The IP-Adapter's image attention (chip_smoke.IP_ATTN_SHAPES): the UNet's
+# queries at its four levels over 4 image tokens, the CFG batch of 2.
+IP_ATTN_SHAPES = [(2, 4096, 4, 8, 40), (2, 1024, 4, 8, 80),
+                  (2, 256, 4, 8, 160), (2, 64, 4, 8, 160)]
+
+
+@pytest.mark.parametrize("shape", IP_ATTN_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+def test_flash_attention_over_four_image_tokens(dev, shape, dtype, atol):
+    """S_kv = 4, far below a kv stage: the columns past it are masked. In
+    bf16 a two-request batch (4 images) gives the first request's bits."""
+    b, sq, skv, n, d = shape
+    q = _randn(dev, 2 * b, sq, n, d, dtype=dtype, seed=1)
+    k = _randn(dev, 2 * b, skv, n, d, dtype=dtype, seed=2)
+    v = _randn(dev, 2 * b, skv, n, d, dtype=dtype, seed=3)
+    got = fa.flash_attention(q[:b].contiguous(), k[:b].contiguous(),
+                             v[:b].contiguous())
+    want = fa.flash_attention_plain(q[:b], k[:b], v[:b])
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    if dtype == torch.bfloat16:
+        assert torch.equal(fa.flash_attention(q, k, v)[:b], got)
+
+
 # The main paths' rows (chip_smoke.LN_SHAPES: the UNet's four levels, CLIP),
-# then C off the 16-byte vectors (element loads), one and 2048 channels
-# (the least and the most the kernel takes), and a few rows of a wide C.
+# the IP-Adapter's (the ViT-H/14 tower's 257 tokens of 1280, one and two
+# images; the projection's 4 tokens of 768 under CFG), then C off the
+# 16-byte vectors (element loads), one and 2048 channels (the least and the
+# most the kernel takes), and a few rows of a wide C.
 LN_SHAPES = [(2, 4096, 320), (2, 1024, 640), (2, 256, 1280), (2, 64, 1280),
-             (4, 77, 768), (3, 5, 1280), (3, 7, 300), (2, 9, 77), (5, 1),
-             (3, 2048)]
+             (4, 77, 768), (1, 257, 1280), (2, 257, 1280), (4, 4, 768),
+             (3, 5, 1280), (3, 7, 300), (2, 9, 77), (5, 1), (3, 2048)]
 LN_CS = (320, 640, 1280, 768)  # the main paths' C
 
 

@@ -10,6 +10,8 @@ package's converter and back to the port through ``params_from_jax``; the
 same numpy inputs go through both.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,6 +115,14 @@ def _masks(hw):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_decode_with_condition(name):
+    """The JAX decode of one VAE, compiled once: both masks share its
+    shapes."""
+    jvae = JaxVAE(_jax_vae_config(VAES[name]()), dtype=F32)
+    return jax.jit(lambda p, *a: jvae.apply(p, *a, method="decode_with_condition"))
+
+
 @pytest.mark.parametrize("mask", ["half", "all_hole"])
 @pytest.mark.parametrize("name", list(VAES))
 def test_decode_with_condition_matches_jax(vaes, name, mask):
@@ -121,9 +131,8 @@ def test_decode_with_condition_matches_jax(vaes, name, mask):
     z = rng.randn(1, 4, 4, 4).astype(np.float32)
     image = (rng.rand(1, 32, 32, 3) * 2 - 1).astype(np.float32)
     m = _masks(32)[mask]
-    jvae = JaxVAE(_jax_vae_config(VAES[name]()), dtype=F32)
-    want = np.asarray(jax.jit(lambda p, *a: jvae.apply(
-        p, *a, method="decode_with_condition"))({"params": tree}, z, image, m))
+    want = np.asarray(_jax_decode_with_condition(name)(
+        {"params": tree}, z, image, m))
     got = vae.decode_with_condition(_t(z), _t(image), _t(m)).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-4 * float(np.abs(want).max()))

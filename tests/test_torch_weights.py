@@ -92,7 +92,8 @@ def test_converted_tree_has_the_jax_models_shapes(state_np, family):
 
 def test_params_from_jax_rejects_unknown_family():
     with pytest.raises(ValueError):
-        params_from_jax({}, "t2i_adapter")  # controlnet is a family now
+        # controlnet and t2i_adapter are families now
+        params_from_jax({}, "ema_unet")
 
 
 def test_init_state_matches_the_modules(state_np):
