@@ -180,13 +180,29 @@ Phases, in order; any failure exits non-zero:
    in-memory image. Phase 2 checks flash attention at the four S_kv = 4
    shapes (timed beside SDPA; batch invariance) and LayerNorm at the
    tower's (B, 257, 1280) rows and the projection's (4, 4, 768).
+   7h. Serving (``run_serving_path``), full width, bf16, 512^2, 20 steps:
+   ``submit()`` under ``torch.cuda.set_sync_debug_mode("error")`` (no
+   synchronising call between a call's entry and its final copy) on
+   ppt-v1 DDIM (bitwise phase 3's image), ppt-v1 euler_a, ppt-v2 UniPC and
+   ppt-v1 + ControlNet, each ``result()`` bitwise the ``__call__`` image,
+   with the seconds until ``submit()`` and ``result()`` return beside the
+   call's; ``serve.app.make_server`` in this process: ``/health``, phase
+   3's request as ``POST /inpaint`` (the PNG bitwise its blended image), a
+   400; micro-batched: four concurrent requests sent while one runs, one
+   batch of 4, each within Queue C's batch-vs-alone bound of its request
+   alone; eight at once against eight one by one (images per second). The
+   cold start in two processes, each in a fresh copy of the port: the
+   one-shot command builds its kernels and dumps ``--aot-cache``, then
+   ``--serve --micro-batch 4 --aot-cache`` loads it (no nvcc) and answers
+   the same request bitwise; seconds from each process's start to its
+   first image. Launches exact per in-process call.
 8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, each also
    with one other sampler: euler_a at strength 0.6, LCM on an LCM UNet,
    heun with a window; ppt-v1 with int8; ppt-v1 with the asymmetric VAE,
    encoder propagation and FreeU; ppt-v2 with the branch's cache; ppt-v2
-   with two IP-Adapters given an image each) must
-   give the same image through the kernels as through the plain versions
-   on the CPU.
+   with two IP-Adapters given an image each; a served request through
+   ``serve.app._run_request`` on ppt-v1) must give the same image through
+   the kernels as through the plain versions on the CPU.
 9. The ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -3737,6 +3753,434 @@ def run_adapter_path(device):
             for k in ip_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 7h: serving
+# ---------------------------------------------------------------------------
+
+# extra options of the two cold-start processes (a rehearsal on the CPU
+# sets ("--tiny", "--device", "cpu"))
+COLD_START_ARGS = ()
+SERVE_PROMPT = "a red bench in a park"
+
+
+def sync_free_submit(pipe, image, mask, **kw):
+    """``pipe.submit`` under ``torch.cuda.set_sync_debug_mode("error")``:
+    any synchronising call between the call's entry and its final copy
+    raises. Returns (pending, seconds until submit() returned)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        pending = pipe.submit(image, mask, **kw)
+    except RuntimeError as e:
+        fail(f"submit() synchronised with the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return pending, time.perf_counter() - t0
+
+
+def _png_b64(array) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(array).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _decode_png(body: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    with Image.open(io.BytesIO(body)) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def _http(url: str, payload=None, timeout: float = 300.0):
+    """(status, content type, body) of a GET, or of a POST of ``payload``
+    as JSON; an HTTP error is a result, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        try:
+            return e.code, e.headers["Content-Type"], e.read()
+        finally:
+            e.close()
+
+
+def serve_payload(image, mask, seed: int, prompt: str = SERVE_PROMPT) -> dict:
+    """Phase 3's request as ``POST /inpaint`` fields: the image and mask as
+    PNGs, 20 steps, guidance 7.5, at its own size."""
+    h, w = image.shape[:2]
+    return dict(image_b64=_png_b64(image),
+                mask_b64=_png_b64((mask * 255).astype(np.uint8)),
+                prompt=prompt, steps=STEPS, guidance_scale=GUIDANCE, seed=seed,
+                short_side=min(h, w))
+
+
+class _InProcessServer:
+    """``serve.app.make_server`` on a free port, serving in a thread."""
+
+    def __init__(self, pipe, **kw):
+        import threading
+
+        from powerpaint_tpu_torch.serve.app import make_server
+
+        self.server = make_server(pipe, port=0, **kw)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(60)
+
+    def post(self, payload):
+        return _http(self.url + "/inpaint", payload)
+
+
+def _concurrent(fn, args) -> list:
+    """``fn(a)`` for each of ``args`` in a thread each, all started
+    together; their results in order."""
+    import threading
+
+    out = [None] * len(args)
+
+    def run(i):
+        try:
+            out[i] = fn(args[i])
+        except Exception as e:  # reported by the check below
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    for r in out:
+        check(r is not None and not isinstance(r, Exception),
+              f"a concurrent request failed: {r!r}")
+    return out
+
+
+def _port_copy(root: str) -> str:
+    """A fresh copy of ``powerpaint_tpu_torch/`` (without ``_build/``) and
+    ``native/`` under ``root``."""
+    import os
+    import shutil
+
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    os.makedirs(root)
+    shutil.copytree("powerpaint_tpu_torch",
+                    os.path.join(root, "powerpaint_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copytree("native", os.path.join(root, "native"),
+                    ignore=shutil.ignore_patterns("*.so", "*.o"))
+    return os.path.abspath(root)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cold_start(work: str, image, mask) -> None:
+    """(a) The one-shot command in a fresh copy of the port: it builds
+    every kernel it runs and dumps ``--aot-cache``. (b) ``--serve
+    --micro-batch 4 --aot-cache`` in another fresh copy: it installs the
+    file's kernels (no nvcc), answers ``/health``, then (a)'s request
+    bitwise (a)'s image. Each process's seconds from its start to its
+    first image."""
+    import glob
+    import os
+
+    from PIL import Image
+
+    os.makedirs(work, exist_ok=True)
+    cache = os.path.abspath(os.path.join(work, "kernels.aot"))
+    if os.path.exists(cache):
+        os.remove(cache)
+    paths = {k: os.path.abspath(os.path.join(work, f"{k}.png"))
+             for k in ("image", "mask", "oneshot")}
+    Image.fromarray(image).save(paths["image"])
+    Image.fromarray((mask * 255).astype(np.uint8)).save(paths["mask"])
+    module = [sys.executable, "-m", "powerpaint_tpu_torch.serve.cli",
+              *COLD_START_ARGS]
+
+    a = _port_copy(os.path.join(work, "a"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        module + ["--image", paths["image"], "--mask", paths["mask"],
+                  "--output", paths["oneshot"], "--prompt", SERVE_PROMPT,
+                  "--steps", str(STEPS), "--short_side", str(image.shape[0]),
+                  "--seed", "1", "--aot-cache", cache],
+        cwd=a, capture_output=True, text=True, timeout=600)
+    a_s = time.perf_counter() - t0
+    nvcc_logs = sorted(os.path.basename(p) for p in
+                       glob.glob(os.path.join(a, "powerpaint_tpu_torch",
+                                              "_build", "*.log")))
+    log(serving="cold start (a) one-shot", rc=proc.returncode,
+        seconds_to_first_image=a_s, stdout=proc.stdout.strip().splitlines(),
+        stderr_tail=proc.stderr.strip().splitlines()[-5:],
+        nvcc_logs=nvcc_logs, cache_bytes=(os.path.getsize(cache)
+                                          if os.path.exists(cache) else None))
+    check(proc.returncode == 0, f"cold start (a): exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check(f"aot: dumped {cache}" in proc.stdout,
+          f"cold start (a) did not dump the cache: {proc.stdout!r}")
+    with Image.open(paths["oneshot"]) as im:
+        oneshot = np.asarray(im.convert("RGB"))
+
+    b = _port_copy(os.path.join(work, "b"))
+    port = _free_port()
+    out_path, err_path = (os.path.join(work, f"serve.{k}") for k in ("out", "err"))
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        t0 = time.perf_counter()
+        server = subprocess.Popen(
+            module + ["--serve", "--micro-batch", "4", "--aot-cache", cache,
+                      "--port", str(port)],
+            cwd=b, stdout=out, stderr=err, text=True)
+        try:
+            url = f"http://127.0.0.1:{port}"
+            health = None
+            while time.perf_counter() - t0 < 300 and server.poll() is None:
+                try:
+                    health = _http(url + "/health", timeout=5)
+                    break
+                except OSError:
+                    time.sleep(0.25)
+            health_s = time.perf_counter() - t0
+            check(health is not None and health[0] == 200,
+                  f"cold start (b): no /health (exit {server.poll()}): "
+                  f"{open(err_path).read()[-2000:]}")
+            status, ctype, body = _http(url + "/inpaint",
+                                        serve_payload(image, mask, 1))
+            b_s = time.perf_counter() - t0
+        finally:
+            server.terminate()
+            try:
+                server.wait(30)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait(30)
+    printed = open(out_path).read()
+    b_logs = sorted(os.path.basename(p) for p in
+                    glob.glob(os.path.join(b, "powerpaint_tpu_torch",
+                                           "_build", "*.log")))
+    installed = sorted(os.path.basename(p) for p in
+                       glob.glob(os.path.join(b, "powerpaint_tpu_torch",
+                                              "_build", "*.so")))
+    log(serving="cold start (b) server", status=status,
+        seconds_to_health=health_s, seconds_to_first_image=b_s,
+        stdout=printed.strip().splitlines(),
+        stderr_tail=open(err_path).read().strip().splitlines()[-5:],
+        nvcc_logs=b_logs, libraries=installed,
+        seconds_to_first_image_one_shot=a_s)
+    check(status == 200 and ctype == "image/png",
+          f"cold start (b): {status} {body[:300]!r}")
+    check(f"aot: loaded {cache}" in printed,
+          f"cold start (b) did not load the cache: {printed!r}")
+    check(not b_logs, f"cold start (b) ran nvcc: {b_logs}")
+    check(np.array_equal(_decode_png(body), oneshot),
+          "cold start (b): the served image is not the one-shot image")
+
+
+def run_serving_path(device, v1_refs: dict):
+    """Phase 7h: serving at full width, bf16, 512^2, 20 steps. ``submit()``
+    under ``set_sync_debug_mode("error")`` on ppt-v1 DDIM (bitwise phase
+    3's image), ppt-v1 euler_a, ppt-v2 UniPC and ppt-v1 + ControlNet, each
+    result bitwise its ``__call__``; ``serve.app.make_server`` in this
+    process, one request at a time (``/health``, phase 3's request bitwise
+    its blended image, a 400) and micro-batched (four concurrent requests
+    as one batch of 4 within Queue C's batch-vs-alone bound; eight at once
+    against eight one by one); the cold start through the cache in two
+    processes (``cold_start``)."""
+    import os
+
+    from powerpaint_tpu_torch.core.config import (
+        ppt_v1_config,
+        ppt_v1_controlnet_config,
+        ppt_v2_config,
+    )
+    from powerpaint_tpu_torch.io.weights import init_state
+    from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
+    from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+    from powerpaint_tpu_torch.tasks.postprocess import blend_result
+
+    def stack(cls, cfg):
+        state = init_state(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device, dtype=torch.bfloat16)
+        return cls(cfg, state, _tokenizer(cfg), dtype=torch.bfloat16,
+                   device=device)
+
+    cfg, cfg2, cfgc = ppt_v1_config(), ppt_v2_config(), ppt_v1_controlnet_config()
+    t0 = time.perf_counter()
+    pipe = stack(InpaintPipeline, cfg)
+    log(phase="setup", path="serving", card=CARD[0],
+        seconds=time.perf_counter() - t0)
+    image, mask = inputs(HW, 0)
+    edges = edge_map(HW, 0)
+    base = dict(prompt=SERVE_PROMPT, seed=1, num_inference_steps=STEPS,
+                guidance_scale=GUIDANCE)
+    total = {k: 0 for k in KERNELS}
+
+    def counted(label, want, run):
+        """``run()`` with its launches checked against ``want``."""
+        before = read_counts()
+        out = run()
+        got = {k: v - before[k] for k, v in read_counts().items()}
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        for k, n in got.items():
+            total[k] += n
+        return out
+
+    # ---- submit() never waits on the card
+    cases = (("ppt-v1 ddim", lambda: pipe, {}, expected_launches(cfg, STEPS)),
+             ("ppt-v1 euler_a", lambda: pipe, dict(scheduler="euler_a"),
+              expected_launches(cfg, STEPS, scheduler="euler_a")),
+             ("ppt-v2 unipc", lambda: stack(BrushNetPipeline, cfg2), {},
+              expected_launches_v2(cfg2, STEPS)),
+             ("ppt-v1 + controlnet", lambda: stack(ControlNetPipeline, cfgc),
+              dict(control_image=edges), expected_launches_cn(cfgc, STEPS)))
+    for label, make, extra, want in cases:
+        p = make()
+        kw = dict(base, **extra)
+        p(image, mask, **kw)  # warm-up: the plans of this stack's shapes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = counted(f"serving {label} __call__", want, lambda: p(image, mask, **kw))
+        call_s = time.perf_counter() - t0
+
+        def submitted():
+            pending, submit_s = sync_free_submit(p, image, mask, **kw)
+            out = pending.result()
+            return out, submit_s, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        out, submit_s, result_s = counted(f"serving {label} submit", want, submitted)
+        log(serving=label, card=CARD[0], submit_return_s=submit_s,
+            result_return_s=result_s, call_wall_s=call_s, sync_free=True)
+        check(np.array_equal(out, ref),
+              f"serving {label}: submit().result() is not the __call__ image")
+        if label == "ppt-v1 ddim":
+            check(np.array_equal(out, v1_refs["text-guided"]),
+                  "serving ppt-v1: submit() is not phase 3's image")
+        if p is not pipe:
+            del p
+            torch.cuda.empty_cache()
+
+    # ---- HTTP, one request at a time
+    want = expected_launches(cfg, STEPS)
+    payload = serve_payload(image, mask, 1)
+    with _InProcessServer(pipe) as s:
+        check(_http(s.url + "/health")[:2] == (200, "application/json"),
+              "serving: /health")
+        t0 = time.perf_counter()
+        status, ctype, body = counted("serving POST", want, lambda: s.post(payload))
+        log(serving="POST /inpaint", status=status, content_type=ctype,
+            seconds=time.perf_counter() - t0, png_bytes=len(body))
+        check((status, ctype) == (200, "image/png"), f"serving POST: {status}")
+        check(np.array_equal(_decode_png(body), blend_result(
+            v1_refs["text-guided"][0], image, mask)),
+            "serving POST: the PNG is not phase 3's blended image")
+        bad = s.post(dict(payload, task="bogus"))
+        log(serving="POST bad field", status=bad[0], body=bad[2].decode()[:200])
+        check(bad[0] == 400, f"serving: a bad field got {bad[0]}")
+
+    # ---- HTTP, micro-batched
+    import threading
+
+    four = [(11, "a dog"), (12, "a cat on a sofa"), (13, "a bowl of fruit"),
+            (14, "a lighthouse")]
+    alone = [blend_result(pipe(image, mask, prompt=p_, seed=s_,
+                               num_inference_steps=STEPS,
+                               guidance_scale=GUIDANCE)[0], image, mask)
+             for s_, p_ in four]
+    with _InProcessServer(pipe, micro_batch=4) as s:
+        batcher = s.server.batcher
+        entered, real_submit = threading.Event(), pipe.submit
+
+        def gated(*a, **kw):
+            """The first dispatch waits until the four are queued: they
+            arrive while it runs."""
+            if not entered.is_set():
+                entered.set()
+                deadline = time.monotonic() + 120
+                while batcher._q.qsize() < 4 and time.monotonic() < deadline:
+                    time.sleep(0.002)
+            return real_submit(*a, **kw)
+
+        pipe.submit = gated
+        try:
+            def burst():
+                first = threading.Thread(
+                    target=lambda: s.post(serve_payload(image, mask, 10)),
+                    daemon=True)
+                first.start()
+                check(entered.wait(120), "serving: the first request never ran")
+                out = _concurrent(s.post, [serve_payload(image, mask, s_, p_)
+                                           for s_, p_ in four])
+                first.join(600)
+                return out
+
+            out = counted("serving micro-batch 1 + 4", _total((2, want)), burst)
+        finally:
+            del pipe.submit
+        sizes = dict(batcher.sizes)
+        check(sizes == {1: 1, 4: 1}, f"serving: batches {sizes}, not 1 and 4")
+        for (s_, p_), (status, _, body), ref in zip(four, out, alone):
+            check(status == 200, f"serving micro-batch: {status}")
+            d = np.abs(_decode_png(body).astype(np.int32) - ref.astype(np.int32))
+            log(serving="micro-batch of 4 vs alone", seed=s_,
+                max_uint8_diff=int(d.max()), mean_uint8_diff=float(d.mean()))
+            check(d.max() <= V1_BATCH_MAX_UINT8 and d.mean() <= V1_BATCH_MEAN_UINT8,
+                  f"serving micro-batch: seed {s_} is {d.max()} / {d.mean()} "
+                  "from its request alone")
+
+        eight = [serve_payload(image, mask, 20 + i, f"request {i}") for i in range(8)]
+        batcher.sizes.clear()
+        t0 = time.perf_counter()
+        for p_ in eight:
+            check(s.post(p_)[0] == 200, "serving: a serial request failed")
+        serial_s = time.perf_counter() - t0
+        batcher.sizes.clear()
+        t0 = time.perf_counter()
+        outs = _concurrent(s.post, eight)
+        burst_s = time.perf_counter() - t0
+        check(all(o[0] == 200 for o in outs), "serving: a burst request failed")
+        log(serving="eight requests", card=CARD[0],
+            serial_s=serial_s, serial_images_per_s=8 / serial_s,
+            micro_batch_s=burst_s, micro_batch_images_per_s=8 / burst_s,
+            micro_batch_sizes=dict(batcher.sizes))
+    del pipe
+    torch.cuda.empty_cache()
+
+    # ---- the cold start, in two processes
+    cold_start(os.path.join("smoke_out", "serving"), image, mask)
+    return total
+
+
 # device time by family, from the kernel names (first match wins); the
 # GroupNorm family holds the statistics launches of the fused conv and the
 # int8 units' quantisers too
@@ -3961,6 +4405,29 @@ def tiny_reference(device) -> None:
               f"tiny {label}: {len(sites)} int8 units ran, not {n_units}")
         log(tiny_reference=label, int8_units=len(sites), max_abs_err=worst,
             flip_candidates=flips)
+
+    # a served request (``serve.app._run_request``: the decode, the pipeline
+    # call, the blend and the PNG) on the tiny ppt-v1 pipeline; the card's
+    # pipeline draws its noise on the CPU, so both sides see the same draws
+    from powerpaint_tpu_torch.serve.app import _run_request
+
+    cfg = tiny_v1_config()
+    state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu",
+                       dtype=torch.float32)
+    pipes = {d: InpaintPipeline(cfg, state, tok, dtype=torch.float32, device=d)
+             for d in ("cpu", device)}
+    on_cpu = pipes["cpu"]._draw_noise
+    pipes[device]._draw_noise = lambda *a: [
+        x if x is None else x.to(device) if torch.is_tensor(x)
+        else [y.to(device) for y in x] for x in on_cpu(*a)]
+    payload = dict(serve_payload(image, mask, 3), steps=3)
+    outs = {d: _decode_png(_run_request(p, payload)[1]).astype(np.int32)
+            for d, p in pipes.items()}
+    d = np.abs(outs["cpu"] - outs[device])
+    log(tiny_reference="served request ppt-v1", max_uint8_diff=int(d.max()),
+        mean_uint8_diff=float(d.mean()))
+    check(d.max() <= 3 and d.mean() <= 0.5,
+          f"tiny served request: card vs CPU uint8 diff max {d.max()} mean {d.mean()}")
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -4051,7 +4518,8 @@ def main() -> None:
              ("checkpoints + lora", run_checkpoint_path),
              ("call surface", run_call_surface_path),
              ("vae extras", run_vae_extras_path),
-             ("adapters", run_adapter_path))
+             ("adapters", run_adapter_path),
+             ("serving", lambda d: run_serving_path(d, refs["ppt-v1"])))
     for label, run in paths:
         t0 = time.perf_counter()
         counts = run(device)

@@ -3,9 +3,12 @@ metrics.py``), and a ``torch.profiler`` trace for the CLI's ``--profile``.
 
 Stages are wall-clock spans on the host. A span that must include the
 device's work ends where the caller has waited for it (the pipelines' stage
-``generate`` ends after the result is copied to the host). ``Telemetry``
-keeps counters (images generated, denoise steps run) beside the last call's
-stages; ``PowerPaint.infer`` reports the stages as ``timings_ms``.
+``generate`` ends after the result is copied to the host). Under
+``submit()`` (``pipelines.async_dispatch``) nothing waits: ``generate``
+ends at dispatch, once the call's last launch and its copy are queued.
+``Telemetry`` keeps counters (images generated, denoise steps run) beside
+the last call's stages; ``PowerPaint.infer`` reports the stages as
+``timings_ms``.
 """
 
 from __future__ import annotations

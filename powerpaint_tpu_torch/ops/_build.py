@@ -14,6 +14,10 @@ build the same way with the flags of ``native/build.sh`` into
 ``powerpaint_tpu/native/`` are never read. Every build writes a file named
 by its process id and renames it into place, so processes that build at
 once leave one whole library.
+
+``built_libraries`` lists what is built for the sources as they are now,
+and ``install`` writes a library from bytes the same way: the cold-start
+cache (``io.aot``) carries ``_build/`` from one process to another.
 """
 
 from __future__ import annotations
@@ -151,3 +155,34 @@ def load_native(name: str) -> ctypes.CDLL:
                                f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
+
+
+def built_libraries() -> Dict[str, Path]:
+    """The libraries built for the sources as they are now, by key:
+    ``cuda:<name>`` for ``csrc/<name>.cu`` and ``native:<name>`` for a host
+    native; a source without its current library is left out."""
+    paths = {f"cuda:{n}": library_path(n) for n in SOURCES}
+    paths.update({f"native:{n}": native_library_path(n) for n in NATIVE_SOURCES})
+    return {k: p for k, p in paths.items() if p.exists()}
+
+
+def current_library_path(key: str) -> Path:
+    """Where the library of ``key`` (``cuda:<name>`` or ``native:<name>``)
+    is built for the sources, headers and flags as they are now."""
+    kind, _, name = key.partition(":")
+    if kind == "cuda" and name in SOURCES:
+        return library_path(name)
+    if kind == "native" and name in NATIVE_SOURCES:
+        return native_library_path(name)
+    raise KeyError(f"no library {key!r}")
+
+
+def install(filename: str, data: bytes) -> Path:
+    """Write a library's bytes into ``BUILD_DIR`` as ``filename``, through a
+    file named by the process id renamed into place, as a build does."""
+    out = BUILD_DIR / filename
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_bytes(data)
+    os.replace(tmp, out)
+    return out

@@ -45,6 +45,6 @@ def apply_freeu(resolution_idx: int, hidden: torch.Tensor, skip: torch.Tensor,
         return hidden, skip
     b, s = (cfg.b1, cfg.s1) if resolution_idx == 0 else (cfg.b2, cfg.s2)
     n = hidden.shape[-1] // 2
-    factor = torch.tensor(b, dtype=hidden.dtype, device=hidden.device)
+    factor = torch.full((), b, dtype=hidden.dtype, device=hidden.device)
     hidden = torch.cat([hidden[..., :n] * factor, hidden[..., n:]], dim=-1)
     return hidden, fourier_filter(skip, threshold=1, scale=s)

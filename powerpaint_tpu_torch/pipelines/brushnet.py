@@ -64,8 +64,10 @@ from powerpaint_tpu_torch.core.validation import (
     check_output_type,
     check_scheduler,
 )
+from powerpaint_tpu_torch.io.aot import AotPipelineMixin
 from powerpaint_tpu_torch.io.lora import LoraMixin
 from powerpaint_tpu_torch.io.weights import load_models
+from powerpaint_tpu_torch.pipelines.async_dispatch import AsyncDispatchMixin, finish
 from powerpaint_tpu_torch.pipelines.common import (
     StepCallbackMixin,
     apply_target_hw,
@@ -81,8 +83,10 @@ from powerpaint_tpu_torch.pipelines.common import (
     resolve_seeds,
     resolve_timesteps,
     sampler_step,
+    step_timesteps,
     table_row,
     takes_step_noise,
+    to_device,
     to_output,
     vae_sample,
 )
@@ -91,7 +95,8 @@ from powerpaint_tpu_torch.tasks.preprocess import to_numpy_image
 from powerpaint_tpu_torch.text.prompts import TaskPrompts, add_task, v2_prompt_suffix
 
 
-class BrushNetPipeline(LoraMixin, StepCallbackMixin):
+class BrushNetPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
+                       StepCallbackMixin):
     """``BrushNetPipeline(config, state, tokenizer)(image, mask, prompt)``.
 
     ``state`` holds one diffusers / transformers named state dict per family
@@ -105,7 +110,8 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
     ``"cpu"``).
     ``int8=True`` runs the ResNet units the JAX package quantises as the
     static-scale int8 W8A8 kernel (``pipelines.common.int8_x_scale``;
-    ``None`` reads ``POWERPAINT_INT8`` here, once).
+    ``None`` reads ``POWERPAINT_INT8`` here, once). ``submit(...)`` and
+    ``aot_dump`` / ``aot_load`` as on the ppt-v1 pipeline.
     """
 
     def __init__(self, config: PowerPaintConfig, state: Dict[str, dict],
@@ -203,9 +209,10 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
         with i % n == 0 and the others take the taps it gave there."""
         b = latents.shape[0]
         state = mod.init_state(sched, latents.shape, latents.device)
+        timesteps = step_timesteps(sched, latents.device)
         for i in range(sched.num_steps):
             scaled = mod.scale_model_input(sched, latents, i)
-            t = torch.tensor(int(sched.timesteps[i]), device=latents.device)
+            t = timesteps[i]
             if branch_cache_interval <= 1 or i % branch_cache_interval == 0:
                 taps = self._branch(scaled, t, cond_task, cond5,
                                     float(table_row(scales, i)), guess_mode)
@@ -302,8 +309,7 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
         pix = np.asarray(Image.fromarray(to_numpy_image(image)).resize(
             (s, s), Image.BICUBIC), dtype=np.float32)
         pix = (pix / 255.0 - CLIP_MEAN) / CLIP_STD
-        return self.image_encoder(torch.as_tensor(pix[None],
-                                                  device=self.device)).float()
+        return self.image_encoder(to_device(pix[None], self.device)).float()
 
     def _ip_pairs(self, image, embeds, b: int):
         """The UNet's ``image_embeds``: one CFG pair (2B, D) [zeros |
@@ -335,8 +341,8 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
             embeds = list(embeds) if many else [embeds]
         pairs = []
         for e in embeds:
-            e = (e if torch.is_tensor(e) else torch.as_tensor(
-                np.asarray(e, np.float32))).float().to(self.device)
+            e = to_device(e.float() if torch.is_tensor(e)
+                          else np.asarray(e, np.float32), self.device)
             e = e.reshape(1, -1) if e.dim() == 1 else e
             if e.shape[0] not in (1, b) or e.shape[1] != \
                     self.config.unet.ip_adapter_dim:
@@ -450,25 +456,25 @@ class BrushNetPipeline(LoraMixin, StepCallbackMixin):
         self._set_step_callback(callback, callback_steps)
         telemetry.reset_stages()
         with telemetry.stage("generate"):
-            out = self._generate(
-                torch.as_tensor(ids_task, dtype=torch.long, device=dev),
-                torch.as_tensor(ids_plain, dtype=torch.long, device=dev),
-                torch.as_tensor(np.asarray(fittings, np.float32), device=dev),
-                torch.as_tensor(img_b, device=dev),
-                torch.as_tensor(mask_b, device=dev),
-                torch.as_tensor(np.asarray(guidances, np.float32), device=dev),
+            out = finish(self._generate(
+                to_device(ids_task, dev, torch.long),
+                to_device(ids_plain, dev, torch.long),
+                to_device(np.asarray(fittings, np.float32), dev),
+                to_device(img_b, dev),
+                to_device(mask_b, dev),
+                to_device(np.asarray(guidances, np.float32), dev),
                 scales, noise0, vae_noise, step_noise or None,
                 num_steps=num_inference_steps, output_type=output_type,
                 guess_mode=bool(guess_mode),
-                latents_in=(None if latents is None
-                            else torch.as_tensor(latents, device=dev)),
+                latents_in=None if latents is None else to_device(latents, dev),
                 clip_skip=int(clip_skip), scheduler=scheduler,
                 timesteps=custom_ts,
                 branch_cache_interval=int(branch_cache_interval),
                 prompt_embeds=embeds_rows(norm_embeds(prompt_embeds), b, dev),
                 negative_prompt_embeds=embeds_rows(
                     norm_embeds(negative_prompt_embeds), b, dev),
-                ip_embeds=ip_embeds, ip_scale=ip_adapter_scale).cpu().numpy()
-        telemetry.count("images", out.shape[0])
+                ip_embeds=ip_embeds, ip_scale=ip_adapter_scale))
+        self._calls += 1
+        telemetry.count("images", b)
         telemetry.count("denoise_steps", num_inference_steps)
         return out

@@ -139,6 +139,30 @@ def resolve_timesteps(scheduler: str, scheduler_config,
         raise InputValidationError(str(e)) from e
 
 
+def to_device(array, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A host array (or CPU tensor) as a tensor on ``device`` without
+    waiting on the card: on a card, staged in pinned host memory and copied
+    with ``non_blocking`` on the current stream (the caching host allocator
+    keeps the pinned block until the copy's event completes); on the CPU,
+    or from a device tensor, ``.to(device)``. ``torch.as_tensor(array,
+    device="cuda")`` copies from pageable memory and waits for the stream
+    to drain."""
+    t = torch.as_tensor(array, dtype=dtype)
+    if torch.device(device).type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def step_timesteps(sched, device) -> torch.Tensor:
+    """The sampler's timestep at each iteration, one int64 tensor on
+    ``device`` uploaded once a call: iteration i takes the 0-dim view
+    ``[i]`` (a ``torch.tensor(t, device=...)`` a step would wait on the
+    card at every step)."""
+    return to_device(np.asarray([int(sched.timesteps[i])
+                                 for i in range(sched.num_steps)], np.int64),
+                     device)
+
+
 def norm_embeds(e) -> Optional[np.ndarray]:
     """A caller's ``prompt_embeds`` / ``negative_prompt_embeds`` as (B, 77,
     D) float32 numpy (a (77, D) array is one row), or None."""
@@ -153,7 +177,7 @@ def embeds_rows(e: Optional[np.ndarray], b: int, device) -> Optional[torch.Tenso
     repeated over the ``b`` images, as the encoded pair is."""
     if e is None:
         return None
-    t = torch.as_tensor(e, dtype=torch.float32, device=device)
+    t = to_device(e, device, torch.float32)
     return t.repeat_interleave(b // t.shape[0], dim=0) if t.shape[0] != b else t
 
 

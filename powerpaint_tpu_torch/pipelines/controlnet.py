@@ -52,6 +52,7 @@ from powerpaint_tpu_torch.pipelines.common import (
     cond_scale_table,
     per_iteration,
     table_row,
+    to_device,
 )
 from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
 from powerpaint_tpu_torch.tasks.preprocess import resize_to, to_numpy_image
@@ -269,7 +270,7 @@ class ControlNetPipeline(InpaintPipeline):
         self._set_step_callback(callback, callback_steps, self.step_callback)
         return self._run(req, num_inference_steps, output_type, eta, latents,
                          clip_skip,
-                         control_u8=torch.as_tensor(control, device=self.device),
+                         control_u8=to_device(control, self.device),
                          scales=table, guess_mode=bool(guess_mode),
                          **self._embeds(req, prompt_embeds,
                                         negative_prompt_embeds))

@@ -43,8 +43,10 @@ from powerpaint_tpu_torch.core.validation import (
     check_output_type,
     check_scheduler,
 )
+from powerpaint_tpu_torch.io.aot import AotPipelineMixin
 from powerpaint_tpu_torch.io.lora import LoraMixin
 from powerpaint_tpu_torch.io.weights import load_models
+from powerpaint_tpu_torch.pipelines.async_dispatch import AsyncDispatchMixin, finish
 from powerpaint_tpu_torch.pipelines.common import (
     StepCallbackMixin,
     apply_target_hw,
@@ -57,7 +59,9 @@ from powerpaint_tpu_torch.pipelines.common import (
     norm_embeds,
     resolve_seeds,
     sampler_step,
+    step_timesteps,
     takes_step_noise,
+    to_device,
     to_output,
     vae_sample,
 )
@@ -77,7 +81,8 @@ class Request(NamedTuple):
     scheduler: str  # the registry sampler
 
 
-class InpaintPipeline(LoraMixin, StepCallbackMixin):
+class InpaintPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
+                      StepCallbackMixin):
     """``InpaintPipeline(config, state, tokenizer)(image, mask, prompt)``.
 
     ``state`` holds one diffusers / transformers named state dict per family
@@ -159,11 +164,12 @@ class InpaintPipeline(LoraMixin, StepCallbackMixin):
         b = latents.shape[0]
         extra = torch.cat([mask_lat, masked_lat], dim=-1).repeat(2, 1, 1, 1)
         state = mod.init_state(sched, latents.shape, latents.device)
+        timesteps = step_timesteps(sched, latents.device)
         cache = None
         for i in range(sched.num_steps):
             scaled = mod.scale_model_input(sched, latents, i)
             lmi = torch.cat([scaled.repeat(2, 1, 1, 1), extra], dim=-1)
-            t = torch.tensor(int(sched.timesteps[i]), device=latents.device)
+            t = timesteps[i]
             kw = residuals(i, scaled, t, cond) if residuals is not None else {}
             if encoder_cache_interval <= 1:
                 eps = self.unet(lmi, t, cond, **kw)
@@ -349,8 +355,8 @@ class InpaintPipeline(LoraMixin, StepCallbackMixin):
              eta: float, latents: Optional[np.ndarray], clip_skip: int,
              **extra) -> np.ndarray:
         """Draw the noise, run ``_generate`` (with ``extra``, the keyword
-        arguments a subclass's ``_generate`` adds) under the telemetry
-        stage ``generate``, and count the images and steps."""
+        arguments a subclass's ``_generate`` adds) and ``finish`` under the
+        telemetry stage ``generate``, and count the images and steps."""
         _, h, w, _ = req.images.shape
         mod, sched = make_sampler(req.scheduler, self.config.scheduler,
                                   num_inference_steps, req.strength_steps)
@@ -361,20 +367,20 @@ class InpaintPipeline(LoraMixin, StepCallbackMixin):
         dev = self.device
         telemetry.reset_stages()
         with telemetry.stage("generate"):
-            out = self._generate(
-                torch.as_tensor(req.ids, dtype=torch.long, device=dev),
-                torch.as_tensor(np.asarray(req.fittings, np.float32), device=dev),
-                torch.as_tensor(req.images, device=dev),
-                torch.as_tensor(req.masks, device=dev),
-                torch.as_tensor(np.asarray(req.guidances, np.float32), device=dev),
+            out = finish(self._generate(
+                to_device(req.ids, dev, torch.long),
+                to_device(np.asarray(req.fittings, np.float32), dev),
+                to_device(req.images, dev),
+                to_device(req.masks, dev),
+                to_device(np.asarray(req.guidances, np.float32), dev),
                 noise0, vae_noise, img_noise, step_noise,
                 num_steps=num_inference_steps,
                 strength_steps=req.strength_steps, output_type=output_type,
                 eta=float(eta),
-                latents_in=(None if latents is None
-                            else torch.as_tensor(latents, device=dev)),
+                latents_in=None if latents is None else to_device(latents, dev),
                 clip_skip=int(clip_skip), scheduler=req.scheduler,
-                **extra).cpu().numpy()
-        telemetry.count("images", out.shape[0])
+                **extra))
+        self._calls += 1
+        telemetry.count("images", req.images.shape[0])
         telemetry.count("denoise_steps", req.strength_steps)
         return out

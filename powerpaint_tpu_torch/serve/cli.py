@@ -1,8 +1,17 @@
-"""Command line, one-shot mode (the port of ``powerpaint_tpu/serve/cli.py``;
-reference app.py:546-556 flags).
+"""Command line (the port of ``powerpaint_tpu/serve/cli.py``; reference
+app.py:546-556 flags). Two modes:
 
-    python -m powerpaint_tpu_torch.serve.cli --image in.png --mask m.png \
-        --task text-guided --prompt "a dog" --output out.png
+- one-shot: ``python -m powerpaint_tpu_torch.serve.cli --image in.png
+  --mask m.png --task text-guided --prompt "a dog" --output out.png``
+- serve: ``--serve`` launches the web UI (``serve.app.launch``: gradio
+  when installed, else the HTTP server, ``POST /inpaint``), with
+  ``--micro-batch N`` (default 4) coalescing concurrent requests and
+  ``--share`` going to gradio.
+
+``--aot-cache FILE`` is the cold-start cache of the built kernels
+(``io.aot``): loaded if the file exists, else dumped there after the
+one-shot call (in serve mode, after the first request, without
+micro-batching).
 
 The options, their choices and defaults are the JAX package's, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
@@ -17,9 +26,7 @@ branch is ``--controlnet_dir``'s (a diffusers ControlNet directory,
 stack's random branch from seed 0; depth, hed and pose run their annotator
 with random weights from seed 0 unless one is registered (canny needs
 OpenCV). ``POWERPAINT_INT8=1`` in the environment
-runs the int8 W8A8 ResNet units, as in the JAX package. Options whose
-modules are not ported yet stop the command with the ROADMAP item that
-brings them; none is ignored.
+runs the int8 W8A8 ResNet units, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,12 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clip_skip", type=int, default=0,
                    help="skip the last N CLIP layers when encoding")
     p.add_argument("--serve", action="store_true",
-                   help="launch the web UI (not ported yet: ROADMAP A17)")
+                   help="launch the web UI (gradio, else the HTTP server)")
     p.add_argument("--port", type=int, default=7860)
     p.add_argument("--share", action="store_true")
     p.add_argument("--micro-batch", dest="micro_batch", type=int, default=4,
-                   help="coalesce up to N concurrent HTTP requests (serve "
-                        "mode, not ported yet: ROADMAP A17)")
+                   help="coalesce up to N concurrent HTTP requests into one "
+                        "batched generate (0/1 disables)")
     # one-shot args (reference Gradio widget parameters, app.py:664-690)
     p.add_argument("--image", help="input image path")
     p.add_argument("--mask", help="mask image path (white = repaint)")
@@ -94,24 +101,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the call to DIR")
     p.add_argument("--aot-cache", dest="aot_cache", default=None,
                    metavar="FILE",
-                   help="cold-start executable cache (not ported yet: "
-                        "ROADMAP A17)")
+                   help="cold-start cache of the built kernels: load FILE "
+                        "if it exists, else dump it there after the call")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cpu runs the kernels' "
                         "plain PyTorch versions)")
     return p
-
-
-def unported(args, defaults) -> list:
-    """One message per given option whose module is not ported yet."""
-    out = []
-    for flag, given, item in (
-            ("--serve", args.serve, "A17"),
-            ("--micro-batch", args.micro_batch != defaults.micro_batch, "A17"),
-            ("--aot-cache", args.aot_cache, "A17")):
-        if given:
-            out.append(f"{flag} is not ported yet (ROADMAP {item})")
-    return out
 
 
 def control_problems(args) -> list:
@@ -280,6 +275,7 @@ def run_one_shot(args) -> int:
     mask = mask[: image.shape[0], : image.shape[1]]
 
     pipe = build_pipeline(args)
+    aot_loaded = load_aot(pipe, args.aot_cache)
     kwargs = {}
     if args.scheduler is not None:
         kwargs["scheduler"] = args.scheduler
@@ -308,9 +304,33 @@ def run_one_shot(args) -> int:
     dt = time.time() - t0
     final = blend_result(out[0], image, mask)
     Image.fromarray(np.asarray(final)).save(args.output)
+    if args.aot_cache and not aot_loaded:
+        # after the blend, so the cache holds the host natives it built too
+        try:
+            pipe.aot_dump(args.aot_cache)
+            print(f"aot: dumped {args.aot_cache}")
+        except Exception as e:
+            print(f"aot: dump failed: {e}", file=sys.stderr)
     print(f"wrote {args.output} ({final.shape[1]}x{final.shape[0]}) "
           f"in {dt:.1f}s ({args.steps} steps{note})")
     return 0
+
+
+def load_aot(pipe, path) -> bool:
+    """``--aot-cache``: install the file's kernels when it exists (True);
+    a file that is refused is reported and the kernels build from the
+    sources as usual."""
+    import os
+
+    if not path or not os.path.exists(path):
+        return False
+    try:
+        pipe.aot_load(path)
+    except Exception as e:
+        print(f"aot: ignoring {path}: {e}", file=sys.stderr)
+        return False
+    print(f"aot: loaded {path}", flush=True)
+    return True
 
 
 def control_map(args, image):
@@ -351,7 +371,7 @@ def control_map(args, image):
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    problems = unported(args, parser.parse_args([])) + control_problems(args)
+    problems = control_problems(args)
     if problems:
         parser.error("; ".join(problems))
     if args.scheduler is not None:
@@ -360,6 +380,10 @@ def main(argv=None) -> int:
         from powerpaint_tpu_torch.core.validation import check_scheduler
 
         check_scheduler(args.scheduler, SchedulerConfig(), args.steps)
+    if args.serve:
+        from powerpaint_tpu_torch.serve.app import launch
+
+        return launch(args)
     return run_one_shot(args)
 
 

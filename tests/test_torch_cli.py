@@ -225,7 +225,7 @@ def test_a14_options_load(tmp_path, capsys, flag):
                        "--mask", str(tmp_path / "mask.png"), "--output", str(out),
                        "--steps", "2", "--short_side", "64",
                        "--prompt", "a <cat-toy> on a bench"]
-        assert cli.unported(parser.parse_args(argv), parser.parse_args([])) == []
+        assert cli.control_problems(parser.parse_args(argv)) == []
         assert cli.main(argv) == 0
         lines = capsys.readouterr().out.strip().splitlines()
         assert lines[0] == f"lora: merged {lora_path} (scale 0.5)"
@@ -287,14 +287,46 @@ def test_parser_matches_jax():
     assert port["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--serve"], "A17"),
-    (["--micro-batch", "8"], "A17"), (["--aot-cache", "c.aot"], "A17")])
-def test_unported_options_are_refused(argv, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv + ["--image", "unused.png"])
-    assert exc.value.code == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+class _ServedStub(StubPipeline):
+    """A pipeline for ``serve.app.launch``: records ``aot_load``."""
+
+    loaded = None
+
+    def aot_load(self, path):
+        self.loaded = path
+        return []
+
+
+@pytest.mark.parametrize("argv,reaches", [
+    (["--serve"], "launch"),
+    (["--serve", "--micro-batch", "8"], "make_server"),
+    (["--serve", "--aot-cache", "c.aot"], "aot_load")])
+def test_unported_options_are_refused(argv, reaches, tmp_path, monkeypatch,
+                                      capsys):
+    """The serving options, refused while ROADMAP A17b was not ported, now
+    reach their modules: ``--serve`` launches the HTTP server (no gradio
+    here; ``serve_forever`` returns at once), with ``--micro-batch`` (4 by
+    default) coalescing through its batcher, and ``--aot-cache`` loads an
+    existing file before serving."""
+    from powerpaint_tpu_torch.serve import app
+
+    stub, served = _ServedStub(), []
+    monkeypatch.setattr(cli, "build_pipeline", lambda args: stub)
+    monkeypatch.setattr(app._Server, "serve_forever",
+                        lambda self: served.append(self))
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "c.aot").write_bytes(b"")
+    assert cli.main(argv + ["--port", "0"]) == 0
+    server, = served
+    out = capsys.readouterr().out
+    assert "POST /inpaint" in out
+    want_batch = 8 if reaches == "make_server" else 4
+    assert server.batcher is not None and server.batcher.max_batch == want_batch
+    assert not server.batcher._thread.is_alive()  # closed with the server
+    if reaches == "aot_load":
+        assert stub.loaded == "c.aot" and "aot: loaded c.aot" in out
+    else:
+        assert stub.loaded is None
 
 
 def test_control_type_runs_a_controlnet_one_shot(tmp_path, capsys):
@@ -345,14 +377,78 @@ def test_control_options_are_checked(argv, message, capsys):
     assert message in capsys.readouterr().err
 
 
-def test_ported_scheduler_and_defaults_are_accepted():
-    parser = cli.build_parser()
-    defaults = parser.parse_args([])
+def test_ported_scheduler_and_defaults_are_accepted(monkeypatch):
+    """Every option the command takes reaches the one-shot run, or with
+    ``--serve`` the server's launch, as parsed."""
+    from powerpaint_tpu_torch.serve import app
+
+    reached = []
+    monkeypatch.setattr(cli, "run_one_shot",
+                        lambda args: reached.append(("one-shot", args)) or 0)
+    monkeypatch.setattr(app, "launch",
+                        lambda args: reached.append(("serve", args)) or 0)
     for argv in ([], ["--scheduler", "ddim"], ["--micro-batch", "4"],
                  ["--version", "ppt-v2", "--scheduler", "unipc"],
                  ["--scheduler", "pndm"],
-                 ["--version", "ppt-v2", "--scheduler", "ddim"]):
-        assert cli.unported(parser.parse_args(argv), defaults) == []
+                 ["--version", "ppt-v2", "--scheduler", "ddim"],
+                 ["--serve"], ["--serve", "--micro-batch", "8", "--share"],
+                 ["--aot-cache", "c.aot"],
+                 ["--serve", "--aot-cache", "c.aot", "--port", "7861"]):
+        reached.clear()
+        assert cli.main(argv) == 0
+        (mode, args), = reached
+        assert mode == ("serve" if "--serve" in argv else "one-shot")
+        assert vars(args) == vars(cli.build_parser().parse_args(argv))
+
+
+def test_aot_cache_one_shot_loads_or_dumps(tmp_path, monkeypatch, capsys):
+    """``--aot-cache FILE`` on the one-shot command: without the file the
+    call builds as usual and dumps the built libraries after it; with it,
+    they are installed before the call; a file that is refused is reported
+    and the run goes on. ``_build/`` is a temporary copy holding the host
+    natives the blend needs."""
+    import shutil
+
+    from powerpaint_tpu_torch.io import aot
+    from powerpaint_tpu_torch.ops import _build
+
+    _build.load_native("image")  # built where the suite builds it
+    real = _build.native_library_path("image")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    _build.BUILD_DIR.mkdir()
+    shutil.copy(real, _build.native_library_path("image"))
+    rng = np.random.RandomState(1)
+    Image.fromarray((rng.rand(64, 64, 3) * 255).astype(np.uint8)).save(
+        tmp_path / "in.png")
+    m = np.zeros((64, 64), np.uint8)
+    m[16:48, 16:48] = 255
+    Image.fromarray(m).save(tmp_path / "mask.png")
+    cache = tmp_path / "kernels.aot"
+    argv = ["--tiny", "--device", "cpu", "--weight_dtype", "float32",
+            "--image", str(tmp_path / "in.png"), "--mask",
+            str(tmp_path / "mask.png"), "--output", str(tmp_path / "out.png"),
+            "--steps", "2", "--short_side", "64", "--aot-cache", str(cache)]
+
+    assert cli.main(argv) == 0
+    captured = capsys.readouterr()
+    assert f"aot: dumped {cache}" in captured.out, captured.err
+    header = aot.read_header(str(cache))
+    assert header["device"] == "cpu" and header["mode"] == "int8=0"
+    assert {lib["key"] for lib in header["libraries"]} >= {"native:image"}
+    built = {p.name: p.read_bytes() for p in _build.BUILD_DIR.iterdir()}
+
+    for p in _build.BUILD_DIR.iterdir():
+        p.unlink()
+    assert cli.main(argv) == 0
+    assert f"aot: loaded {cache}" in capsys.readouterr().out
+    assert {p.name: p.read_bytes() for p in _build.BUILD_DIR.iterdir()} == built
+
+    cache.write_bytes(b"PPTAOTT1\n" + (0).to_bytes(8, "little"))
+    assert cli.main(argv) == 0
+    captured = capsys.readouterr()
+    assert f"aot: ignoring {cache}: {cache}: corrupt cache header" in captured.err
+    assert captured.out.strip().splitlines()[-1].startswith(
+        f"wrote {tmp_path / 'out.png'} (64x64) in ")
 
 
 @pytest.mark.parametrize("version,int8", [("ppt-v1", "1"), ("ppt-v2", "0")])

@@ -127,3 +127,21 @@ def test_the_adapter_modules_are_covered():
     assert {"models/projection.py", "models/adapter.py",
             "models/transformer.py", "models/clip_vision.py",
             "io/convert.py", "pipelines/brushnet.py"} <= names
+
+
+def test_the_serving_modules_are_covered_and_load_no_gradio():
+    """The serving modules are checked like the rest, and importing them
+    loads no gradio: the UI imports it only when it is launched."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"serve/app.py", "serve/batcher.py", "pipelines/async_dispatch.py",
+            "io/aot.py"} <= names
+    code = ("import sys\n"
+            "import powerpaint_tpu_torch.serve.app\n"
+            "import powerpaint_tpu_torch.serve.batcher\n"
+            "import powerpaint_tpu_torch.pipelines.async_dispatch\n"
+            "import powerpaint_tpu_torch.io.aot\n"
+            "import powerpaint_tpu_torch.serve.cli\n"
+            "assert 'gradio' not in sys.modules\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

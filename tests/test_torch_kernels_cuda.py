@@ -674,6 +674,51 @@ def test_tiny_controlnet_on_the_card_matches_the_cpu(dev):
                    "conv3x3_gn_silu": 2 * n_units, "conv3x3": 0}
 
 
+@pytest.mark.parametrize("version", ["ppt-v1", "ppt-v2"])
+def test_tiny_submit_waits_on_nothing(dev, version):
+    """``submit()`` of a tiny pipeline, fp32, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no call between the
+    entry and the final copy synchronises; ``result()`` is bitwise the
+    ``__call__`` image of the same request (v1 also at euler_a's step
+    noise)."""
+    import numpy as np
+
+    from powerpaint_tpu_torch.io.weights import init_state
+    from powerpaint_tpu_torch.pipelines.brushnet import BrushNetPipeline
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+    from powerpaint_tpu_torch.testing import tiny_v1_config, tiny_v2_config
+    from powerpaint_tpu_torch.text.tokenizer import (
+        HashTokenizer,
+        TokenizerWrapper,
+        add_task_tokens,
+    )
+
+    v1 = version == "ppt-v1"
+    cfg = tiny_v1_config() if v1 else tiny_v2_config()
+    tok = TokenizerWrapper(HashTokenizer(994))
+    add_task_tokens(tok)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    pipe = (InpaintPipeline if v1 else BrushNetPipeline)(
+        cfg, state, tok, dtype=torch.float32, device=dev)
+    rng = np.random.RandomState(1)
+    image = (rng.rand(64, 64, 3) * 255).astype(np.uint8)
+    mask = np.zeros((64, 64), np.float32)
+    mask[16:48, 12:40] = 1.0
+    for kw in ([dict(), dict(scheduler="euler_a")] if v1 else [dict()]):
+        kw = dict(kw, prompt="a dog", num_inference_steps=3, seed=5)
+        want = pipe(image, mask, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = pipe.submit(image, mask, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = pending.result()
+        assert pending.done()
+        assert np.array_equal(got, want)
+
+
 def _dpt_gn_shapes():
     from powerpaint_tpu_torch.core.config import dpt_hybrid_midas_config
     from powerpaint_tpu_torch.models.dpt import gn_shapes
