@@ -36,7 +36,13 @@ Phases, in order; any failure exits non-zero:
    against one request (2 images), and the same for the cuBLAS and cuDNN
    calls the paths make; the bf16 flash attention and conv kernels must be
    bitwise invariant and deterministic, and so must GroupNorm, LayerNorm
-   and the int8 unit.
+   and the int8 unit. Then the gradients (``grad_checks``): each
+   differentiable wrapper (flash attention, the fused and the plain conv,
+   GroupNorm, LayerNorm) at the shapes a full-width v1 train step gives it,
+   in bf16: its output carries its ``torch.autograd.Function``'s
+   ``grad_fn``, its forward is the kernel's, and its gradients (a
+   recompute of the plain version) equal autograd of the plain version
+   within one bf16 step of each input's largest gradient.
 3. The ppt-v1 path: full width (860M-parameter 9-channel UNet, SD1.5 VAE,
    CLIP ViT-L/14 text with 30 task-token rows), random weights from a
    seed, bf16, a 512x512 image: the four tasks at 20 DDIM steps with
@@ -91,7 +97,8 @@ Phases, in order; any failure exits non-zero:
    1e-3 of the CPU output's largest magnitude with TF32 off, within 0.1 at
    the default precision.
    7c. The sampler family (``run_sampler_path``), full width, bf16, 512^2:
-   ppt-v1 with each registry sampler but DDIM at 20 steps (LCM at 4),
+   ppt-v1 with each registry sampler but DDIM at 5 steps (20 before
+   phase 7i; LCM at 4),
    euler at strength 0.6, euler_a repeated (bitwise) and as a two-request
    batch (each image's step noise bitwise its standalone draw, the images
    within Queue C's batch-vs-alone difference); ppt-v2 with euler_a, and
@@ -149,7 +156,7 @@ Phases, in order; any failure exits non-zero:
    ``int8_site``). ``decode_tiled`` on the SD1.5 VAE: a 2048^2 canvas in
    25 tiles of 64 with overlap 16 and in one pass (mid attention at S =
    65536), a 768 x 512 canvas in 2 tiles (seconds, device ms, peak memory,
-   launches exact per decode). ppt-v1 at ``encoder_cache_interval`` 1-4
+   launches exact per decode). ppt-v1 at ``encoder_cache_interval`` 1, 2, 4
    and ppt-v2 at ``branch_cache_interval`` 2 (launches exact: key steps
    the whole model, other steps the UNet's mid and up blocks or the base
    UNet alone; denoise device ms and PSNR against interval 1), FreeU on
@@ -196,13 +203,35 @@ Phases, in order; any failure exits non-zero:
    ``--serve --micro-batch 4 --aot-cache`` loads it (no nvcc) and answers
    the same request bitwise; seconds from each process's start to its
    first image. Launches exact per in-process call.
+   7i. Training (``run_train_path``), full width, 512^2, batch 2, bf16
+   compute with fp32 master weights, random weights from seeds, synthetic
+   batches (``train.data``): three steps each of ``v1``, ``task_tokens``,
+   ``lora`` (rank 8), ``lcm_distill`` on ppt-v1 and ``v2`` on ppt-v2, four
+   of ``v1`` with accumulate 2 and EMA 0.9 (params move on every second
+   call, the EMA on each); per step the loss, grad_norm, seconds and
+   forward launches (exact: the backward recomputes plain versions and
+   launches no hand kernel), per mode one profiled step's device ms by
+   family and its top kernels, and peak memory. Frozen tensors bitwise
+   unchanged, every trained tensor moved, the teacher of LoRA and
+   distillation untouched. The trained v1 weights written in the reference
+   layout, loaded by ``load_ppt_v1`` and served: one 20-step image bitwise
+   the in-memory stack's. ``task_tokens`` run again with a save and a load
+   after two steps: within lr per step of the straight run (logged
+   whether bitwise). The LoRA exported and merged by ``load_lora_weights``
+   (the serve CLI's ``--lora``) with nothing unmatched. The train CLI in a
+   subprocess (``--mode lora --steps 2 --batch_size 1``), its
+   ``lora.npz`` served the same way.
 8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, each also
    with one other sampler: euler_a at strength 0.6, LCM on an LCM UNet,
    heun with a window; ppt-v1 with int8; ppt-v1 with the asymmetric VAE,
    encoder propagation and FreeU; ppt-v2 with the branch's cache; ppt-v2
    with two IP-Adapters given an image each; a served request through
    ``serve.app._run_request`` on ppt-v1) must give the same image through
-   the kernels as through the plain versions on the CPU.
+   the kernels as through the plain versions on the CPU. Then training
+   (``tiny_train_reference``): three steps of ``v1``, ``v2`` and ``lora``
+   at the tiny configs in fp32 through the kernels on the card against the
+   same steps on the CPU (loss, the first step's gradients, the
+   parameters), within the bounds its docstring states.
 9. The ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1833,15 +1862,19 @@ def denoise_device_ms(pipe, run):
 # downsample are batch-variant, and the bf16 entry (max 10, mean 1.19) is
 # no bound: the 20-step DDIM batch itself measures 11 / 1.21 in some runs
 V1_BATCH_MAX_UINT8, V1_BATCH_MEAN_UINT8 = 18, 2.0
+# phase 7c's steps (heun's ControlNet call keeps STEPS): 20 until the
+# training phase came, cut to 5 to keep the script inside its time; the
+# device ms per evaluation it measures does not depend on the count
+SAMPLER_STEPS = 5
 
 
 def run_sampler_path(device):
     """Phase 7c: the sampler family at full width, bf16, 512^2, guidance
-    7.5. ppt-v1: each registry sampler but DDIM (phase 3's) at 20 steps
-    (LCM at 4), then euler at strength 0.6, euler_a again with the same
-    seed (bitwise the same image) and as a two-request batch (each image's
-    step noise bitwise its standalone draw; the images within Queue C's
-    batch-vs-alone difference). ppt-v2: euler_a at 20 steps on UniPC's
+    7.5. ppt-v1: each registry sampler but DDIM (phase 3's) at
+    ``SAMPLER_STEPS`` (LCM at 4), then euler at strength 0.6, euler_a again
+    with the same seed (bitwise the same image) and as a two-request batch
+    (each image's step noise bitwise its standalone draw; the images within
+    Queue C's batch-vs-alone difference). ppt-v2: euler_a on UniPC's
     stack, and an LCM-distilled UNet (``time_cond_proj_dim`` 256, as
     SimianLuo/LCM_Dreamshaper_v7) at 4 LCM steps, where guidance 5 and 9
     must differ. ppt-v1 + ControlNet: heun at 20 steps (39 evaluations of
@@ -1904,28 +1937,28 @@ def run_sampler_path(device):
     for name in schedulers.SCHEDULERS:
         if name != "ddim":
             outs[name] = sampled(pipe, call, "ppt-v1", name,
-                                 4 if name == "lcm" else STEPS)
+                                 4 if name == "lcm" else SAMPLER_STEPS)
             check(outs[name].shape == (1, HW, HW, 3),
                   f"samplers {name}: output {outs[name].shape}")
     check(len({o.tobytes() for o in outs.values()}) == len(outs),
           "samplers: two samplers gave the same image")
-    sampled(pipe, call, "ppt-v1", "euler", STEPS, strength=0.6)
+    sampled(pipe, call, "ppt-v1", "euler", SAMPLER_STEPS, strength=0.6)
 
     draws = []
     draw = pipe._draw_noise
     pipe._draw_noise = lambda *a: draws.append(draw(*a)) or draws[-1]
-    again = call("samplers v1 euler_a same seed", prompt=prompt, seed=1,
-                 scheduler="euler_a")
+    kw = dict(scheduler="euler_a", num_inference_steps=SAMPLER_STEPS)
+    again = call("samplers v1 euler_a same seed", prompt=prompt, seed=1, **kw)
     both = call("samplers v1 euler_a batch of two", prompt=[prompt, "a dog"],
-                seed=[1, 5], scheduler="euler_a")
+                seed=[1, 5], **kw)
     alone = call("samplers v1 euler_a second request alone", prompt="a dog",
-                 seed=5, scheduler="euler_a")
+                 seed=5, **kw)
     pipe._draw_noise = draw
     check(np.array_equal(again, outs["euler_a"]),
           "euler_a: the same seed gave a different image")
     step_a, step_both, step_alone = (d[3] for d in draws)
-    check(len(step_a) == len(step_both) == len(step_alone) == STEPS,
-          f"euler_a: {len(step_both)} step draws for {STEPS} iterations")
+    check(len(step_a) == len(step_both) == len(step_alone) == SAMPLER_STEPS,
+          f"euler_a: {len(step_both)} step draws for {SAMPLER_STEPS} iterations")
     check(all(torch.equal(x[0:1], y) and torch.equal(x[1:2], z)
               for x, y, z in zip(step_both, step_a, step_alone)),
           "euler_a: a batched request's step noise is not its requests' own")
@@ -1951,7 +1984,7 @@ def run_sampler_path(device):
             c, kw["num_inference_steps"], scheduler=kw.get("scheduler", "unipc")),
             models=v2_stages)
         if label == "ppt-v2":
-            sampled(pipe, call, label, "euler_a", STEPS)
+            sampled(pipe, call, label, "euler_a", SAMPLER_STEPS)
         else:
             check(pipe.unet.time_embedding.cond_proj is not None,
                   "ppt-v2 lcm unet: no cond_proj")
@@ -3077,7 +3110,9 @@ ASYM_X15 = dict(asymmetric=True, up_block_out_channels=(192, 384, 768, 768),
                 layers_per_up_block=3,
                 condition_layers=((3, 1, 192), (3, 1, 384), (4, 2, 768),
                                   (4, 2, 768), (4, 2, 768)))
-CACHE_INTERVALS = (1, 2, 3, 4)
+# 1, 2, 3 and 4 until the training phase came; 3 cut to keep the script
+# inside its time
+CACHE_INTERVALS = (1, 2, 4)
 FREEU = (1.5, 1.6, 0.9, 0.2)
 # decode_tiled's tile and overlap (its defaults), and the latents of a
 # 2048^2 outpainting canvas (25 tiles, also decoded in one pass) and of a
@@ -3102,10 +3137,11 @@ def blend_shapes(v, h: int, w: int):
     return samples, feats
 
 
-def device_ms(fn, families: dict = None) -> float:
+def device_ms(fn, families: dict = None, top: list = None) -> float:
     """Device time in ms of the kernels ``fn()`` launches, under
     ``torch.profiler`` (None where it records no device time); with a dict
-    ``families``, its split by kernel family (``by_family``) goes there."""
+    ``families``, its split by kernel family (``by_family``) goes there,
+    and with a list ``top``, the kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3117,6 +3153,9 @@ def device_ms(fn, families: dict = None) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if families is not None:
         families.update(by_family(kernels))
+    if top is not None:
+        top.extend(dict(name=n[:90], ms=t / 1e3, calls=c)
+                   for n, t, c in sorted(kernels, key=lambda k: -k[1]))
     us = sum(t for _, t, _ in kernels)
     return us / 1e3 if us else None
 
@@ -3143,9 +3182,9 @@ def run_vae_extras_path(device):
     SD1.5 VAE: a 2048^2 canvas in 25 tiles and in one pass (mid attention
     at S = 65536), seconds, device ms, peak memory and their mean
     difference, and a 768 x 512 canvas in 2 tiles. Encoder propagation on
-    ppt-v1 at intervals 1-4 and the BrushNet branch's cache on ppt-v2 at
-    interval 2 (denoise device ms and PSNR against interval 1); FreeU on
-    ppt-v1 (the image differs, the launches do not). ControlNet refuses an
+    ppt-v1 at intervals 1, 2 and 4 and the BrushNet branch's cache on
+    ppt-v2 at interval 2 (denoise device ms and PSNR against interval 1);
+    FreeU on ppt-v1 (the image differs, the launches do not). ControlNet refuses an
     encoder cache. Launches exact per call and per decode."""
     import gc
     import os
@@ -4190,7 +4229,7 @@ FAMILIES = (("flash_attention", ("flash_",)),
             ("group_norm", ("gn_resident_kernel", "gn_partial_kernel",
                             "gn_finish_kernel", "quantize_kernel")),
             ("layer_norm", ("ln_kernel",)),
-            ("cudnn conv", ("fprop", "conv")),
+            ("cudnn conv", ("fprop", "conv", "dgrad", "wgrad")),
             ("matmul", ("gemm", "nvjet", "cutlass")))
 
 
@@ -4431,6 +4470,562 @@ def tiny_reference(device) -> None:
     torch.backends.cudnn.allow_tf32 = True
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (gradients), phase 7i (training) and phase 8 (tiny training)
+# ---------------------------------------------------------------------------
+
+# The kernels' Functions at the shapes a full-width v1 train step at 512^2
+# gives them (batch 2, bf16): flash self-attention at the first two levels
+# and the cross-attention to 77 tokens; the ResNet unit at the first and
+# the deepest level; the last upsampler's conv; GroupNorm as a transformer's
+# input norm and as conv_norm_out (+SiLU); LayerNorm in a transformer block
+# and in CLIP.
+GRAD_SHAPES = {
+    "flash_attention": [(2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80),
+                        (2, 4096, 77, 8, 40)],
+    "conv3x3_gn_silu": [(2, 64, 64, 320, 320, 32), (2, 8, 8, 1280, 1280, 32)],
+    "conv3x3": [(2, 64, 64, 640, 640, 0)],
+    "group_norm": [((2, 4096, 320), 1e-6, False), ((2, 4096, 320), 1e-5, True)],
+    "layer_norm": [((2, 4096, 320), 1e-5), ((2, 77, 768), 1e-5)],
+}
+GRAD_FUNCTIONS = {"flash_attention": "FlashAttentionBackward",
+                  "conv3x3_gn_silu": "Conv3x3GnSiluBackward",
+                  "conv3x3": "Conv3x3Backward", "group_norm": "GroupNormBackward",
+                  "layer_norm": "LayerNormBackward"}
+
+
+def grad_checks(device) -> dict:
+    """Each kernel's ``torch.autograd.Function`` on the card: its output
+    has the Function's ``grad_fn`` (a wrapper that filled a fresh tensor
+    through ctypes without one would cut every gradient upstream), its
+    forward is the kernel's (within ``tolerance`` of the plain version, as
+    in the checks above), and its gradients, a recompute of the plain
+    version on the saved inputs, against autograd of the plain version on
+    the same inputs and the same output gradient: the same arithmetic, so
+    bitwise but for a nondeterministic cuDNN or cuBLAS backward, bound one
+    bf16 step of each input's largest gradient. Returns {kernel: max
+    |err|}."""
+    from powerpaint_tpu_torch.ops import conv, norms
+    from powerpaint_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    def cases():
+        for (b, sq, skv, n, d) in GRAD_SHAPES["flash_attention"]:
+            yield ("flash_attention", (b, sq, skv, n, d),
+                   [randn(b, sq, n, d), randn(b, skv, n, d), randn(b, skv, n, d)],
+                   lambda q, k, v: fa.flash_attention(q, k, v),
+                   lambda q, k, v: fa.flash_attention_plain(q, k, v))
+        for name in ("conv3x3_gn_silu", "conv3x3"):
+            for (b, h, w, cin, cout, groups) in GRAD_SHAPES[name]:
+                x = randn(b, h, w, cin, scale=2.0)
+                wt = randn(cout, cin, 3, 3, scale=1 / (3 * cin ** 0.5)).contiguous(
+                    memory_format=torch.channels_last)
+                bias = randn(cout, scale=0.1)
+                if name == "conv3x3":
+                    yield (name, (b, h, w, cin, cout), [x, wt, bias],
+                           conv.conv3x3, conv.conv3x3_plain)
+                    continue
+                kw = dict(num_groups=groups, eps=1e-5)
+                yield (name, (b, h, w, cin, cout),
+                       [x, wt, bias, 1 + randn(cin, scale=0.1, dtype=f32),
+                        randn(cin, scale=0.1, dtype=f32)],
+                       lambda *a, kw=kw: conv.conv3x3_gn_silu(*a, **kw),
+                       lambda *a, kw=kw: conv.conv3x3_gn_silu_plain(*a, **kw))
+        for shape, eps, silu in GRAD_SHAPES["group_norm"]:
+            kw = dict(num_groups=32, eps=eps, silu=silu)
+            c = shape[-1]
+            yield ("group_norm", shape,
+                   [randn(*shape, scale=2.0), 1 + randn(c, scale=0.1, dtype=f32),
+                    randn(c, scale=0.1, dtype=f32)],
+                   lambda *a, kw=kw: norms.group_norm(*a, **kw),
+                   lambda *a, kw=kw: norms.group_norm_plain(*a, **kw))
+        for shape, eps in GRAD_SHAPES["layer_norm"]:
+            c = shape[-1]
+            yield ("layer_norm", shape,
+                   [randn(*shape, scale=3.0), 1 + randn(c, scale=0.1, dtype=f32),
+                    randn(c, scale=0.1, dtype=f32)],
+                   lambda *a, eps=eps: norms.layer_norm(*a, eps=eps),
+                   lambda *a, eps=eps: norms.layer_norm_plain(*a, eps=eps))
+
+    t0 = time.perf_counter()
+    worst = {}
+    for name, shape, inputs_, fn, plain in cases():
+        leaves = [t.detach().requires_grad_(True) for t in inputs_]
+        refs = [t.detach().requires_grad_(True) for t in inputs_]
+        out = fn(*leaves)
+        fn_name = type(out.grad_fn).__name__ if out.grad_fn is not None else None
+        check(fn_name == GRAD_FUNCTIONS[name],
+              f"{name} {shape}: output grad_fn {fn_name}, not "
+              f"{GRAD_FUNCTIONS[name]}")
+        want = plain(*refs)
+        fwd_err = float((out.float() - want.float()).abs().max())
+        check(fwd_err <= tolerance(bf, want),
+              f"{name} {shape}: forward |err| {fwd_err}")
+        g = torch.randn(out.shape, generator=gen, device=device).to(out.dtype)
+        got = torch.autograd.grad(out, leaves, g)
+        ref = torch.autograd.grad(want, refs, g)
+        torch.cuda.synchronize()
+        errs = [float((a.float() - r.float()).abs().max())
+                for a, r in zip(got, ref)]
+        bounds = [2.0 ** -7 * float(r.float().abs().max()) for r in ref]
+        err = max(errs)
+        log(check=f"{name} gradient", shape=list(shape), dtype="bfloat16",
+            grad_fn=fn_name, forward_max_abs_err=fwd_err, max_abs_err=errs,
+            bound=bounds, bitwise=all(torch.equal(a, r) for a, r in zip(got, ref)))
+        check(all(e <= b for e, b in zip(errs, bounds)),
+              f"{name} {shape}: gradient |err| {errs} beyond {bounds}")
+        worst[name] = max(worst.get(name, 0.0), err)
+        del leaves, refs, out, want, got, ref
+    log(phase="kernel checks", kernel="gradients", seconds=time.perf_counter() - t0)
+    return worst
+
+
+TRAIN_STEPS = 3
+TRAIN_BATCH = 2
+# extra arguments of the train CLI's subprocess (a CPU rehearsal's)
+TRAIN_CLI_ARGS = ()
+TRAIN_SEED = 11
+# learning rates: the train CLI's defaults (v1, v2 1e-5; task tokens 5e-4;
+# LoRA and distillation 1e-4)
+TRAIN_LR = {"v1": 1e-5, "task_tokens": 5e-4, "v2": 1e-5, "lora": 1e-4,
+            "lcm_distill": 1e-4}
+
+
+def train_launches(cfg, mode: str) -> dict:
+    """Forward launches of one train step (the backward recomputes plain
+    versions and launches no hand kernel): two VAE encodes (image and
+    masked image), the text towers, and the UNet evaluations: v1, LoRA and
+    task tokens one UNet and one CLIP; v2 the base UNet, the BrushNet
+    branch and both towers; distillation four UNet evaluations (the
+    teacher's two, the student's online and target) and CLIP twice."""
+    text = {"layer_norm": 2 * cfg.text_encoder.num_hidden_layers + 1}
+    enc = vae_launches(cfg.vae, False)
+    unet = unet_launches(cfg.unet)
+    if mode == "v2":
+        return _total((1, unet), (1, unet_launches(cfg.brushnet.base,
+                                                   with_out_norm=False)),
+                      (2, text), (2, enc))
+    if mode == "lcm_distill":
+        return _total((4, unet), (2, text), (2, enc))
+    return _total((1, unet), (1, text), (2, enc))
+
+
+def _clone(flat: dict) -> dict:
+    return {k: v.detach().clone() for k, v in flat.items()}
+
+
+def run_train_path(device):
+    """Phase 7i: training at full width on the card, bf16 compute with fp32
+    masters, random weights from seeds, 512^2, synthetic data
+    (``train.data``): each mode's steps with their loss, grad_norm,
+    seconds, device ms and peak memory, exact forward launches per step,
+    frozen tensors bitwise unchanged and trained ones moved; the v1
+    weights written and served; task tokens resumed; a LoRA served; the
+    train CLI in a subprocess."""
+    import functools
+    import os
+    import shutil
+    import subprocess as sp
+
+    from powerpaint_tpu_torch.core.config import ppt_v1_config, ppt_v2_config
+    from powerpaint_tpu_torch.io import checkpoint
+    from powerpaint_tpu_torch.io.weights import build_models, init_state
+    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
+    from powerpaint_tpu_torch.train import data, distill
+    from powerpaint_tpu_torch.train import loss as L
+    from powerpaint_tpu_torch.train.cli import channels_last
+    from powerpaint_tpu_torch.train.lora import init_lora_tree, save_lora_npz
+    from powerpaint_tpu_torch.train.step import (
+        AdamW,
+        flatten,
+        init_train_state,
+        make_train_step,
+        trainable_mask,
+    )
+    from powerpaint_tpu_torch.train.trainer import (
+        load_train_state,
+        save_train_state,
+    )
+
+    out_dir = os.path.join("smoke_out", "train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    bf = torch.bfloat16
+    cfg1, cfg2 = ppt_v1_config(), ppt_v2_config()
+    tok1 = _tokenizer(cfg1)
+
+    def stream(version, tok, n):
+        it = data.batches(data.SyntheticSource(hw=HW, seed=TRAIN_SEED), tok,
+                          TRAIN_BATCH, version=version, seed=TRAIN_SEED)
+        return [next(it) for _ in range(n)]
+
+    batches1 = stream("ppt-v1", tok1, 4)
+    totals = {k: 0 for k in KERNELS}
+
+    def take() -> dict:
+        """The launches since the last take, added to the path's total."""
+        counts = read_counts()
+        for k, n in counts.items():
+            totals[k] += n
+        reset_counts()
+        return counts
+
+    def masters(cfg, seed=0):
+        t0 = time.perf_counter()
+        params = channels_last(init_state(
+            cfg, torch.Generator(device=device).manual_seed(seed),
+            device=device))
+        log(phase="setup", path="train", seconds=time.perf_counter() - t0,
+            params=sum(t.numel() for sd in params.values() for t in sd.values()))
+        return params
+
+    def steps(label, cfg, mode, state, step, batches, n, frozen=(),
+              moved_each=None):
+        """``n`` steps, each with exact launches, then the checks."""
+        want = train_launches(cfg, mode)
+        flat = flatten(state.params)
+        before = _clone({k: flat[k] for k in flat})
+        frozen_before = {k: v for k, v in before.items() if k in frozen}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        take()
+        for i in range(n):
+            prev = _clone(flatten(state.params)) if moved_each else None
+            batch = batches[i % len(batches)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch, TRAIN_SEED)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = take()
+            check(launches == want, f"train {label} step {i}: launches "
+                                    f"{launches}, expected {want}")
+            row = {k: float(v) for k, v in metrics.items()}
+            check(all(np.isfinite(v) for v in row.values()),
+                  f"train {label} step {i}: {row}")
+            if moved_each:
+                now = flatten(state.params)
+                moved = any(not torch.equal(now[k], prev[k]) for k in now)
+                check(moved == moved_each(i),
+                      f"train {label} step {i}: params moved {moved}")
+            rows.append(dict(step=state.step, seconds=secs, **row))
+        peak = torch.cuda.max_memory_allocated()
+        fams, top = {}, []
+        batch = batches[n % len(batches)]
+        ms = device_ms(lambda: step(state, batch, TRAIN_SEED), fams, top)
+        take()
+        now = flatten(state.params)
+        for k in frozen_before:
+            check(torch.equal(now[k], frozen_before[k]),
+                  f"train {label}: frozen {k} changed")
+        trained = [k for k in now if k not in frozen]
+        unmoved = [k for k in trained if torch.equal(now[k], before[k])]
+        check(not unmoved, f"train {label}: {len(unmoved)} trained tensors "
+                           f"did not move, e.g. {unmoved[:3]}")
+        log(train=label, mode=mode, batch=TRAIN_BATCH, card=CARD[0],
+            steps=rows, seconds_per_step=[r["seconds"] for r in rows],
+            device_ms_per_step=ms, device_ms_by_family=fams,
+            top_kernels=top[:10], peak_memory_bytes=peak,
+            forward_launches_per_step=want,
+            trained_tensors=len(trained), frozen_tensors=len(frozen_before))
+        return rows
+
+    def v1_mode(mode, params, **kw):
+        labels = trainable_mask(params, mode)
+        tx = AdamW(TRAIN_LR[mode], labels=labels,
+                   accumulate_steps=kw.get("accumulate", 1))
+        state = init_train_state(params, tx, ema=kw.get("ema") is not None)
+        step = make_train_step(L.make_v1_loss(cfg1, dtype=bf), tx,
+                               ema_decay=kw.get("ema"),
+                               draw=functools.partial(L.draw, cfg1))
+        frozen = {k for k, t in labels.items() if not t}
+        return state, step, frozen
+
+    reset_counts()  # the path starts here
+
+    # ---- v1: UNet + text encoder (task rows too); the VAE frozen
+    params = masters(cfg1)
+    state, step, frozen = v1_mode("v1", params)
+    steps("v1", cfg1, "v1", state, step, batches1, TRAIN_STEPS, frozen)
+    take()
+    # the written weights served bitwise as the in-memory stack
+    weights = os.path.join(out_dir, "weights")
+    t0 = time.perf_counter()
+    checkpoint.save_native(weights, cfg1, params)
+    save_s = time.perf_counter() - t0
+    image, mask = inputs(HW, 0)
+    mem = InpaintPipeline(cfg1, params, tok1, dtype=bf, device=device)
+    want_img = mem(image, mask, prompt="a red bench in a park", seed=1,
+                   num_inference_steps=STEPS, guidance_scale=GUIDANCE)
+    del mem
+    t0 = time.perf_counter()
+    served = checkpoint.load_ppt_v1(weights, config=cfg1, dtype=bf,
+                                    device=device)
+    load_s = time.perf_counter() - t0
+    got_img = served(image, mask, prompt="a red bench in a park", seed=1,
+                     num_inference_steps=STEPS, guidance_scale=GUIDANCE)
+    nbytes = sum(os.path.getsize(os.path.join(r, f))
+                 for r, _, fs in os.walk(weights) for f in fs)
+    log(train="v1 weights served", bytes=nbytes, save_seconds=save_s,
+        load_seconds=load_s, bitwise=bool(np.array_equal(got_img, want_img)))
+    check(np.array_equal(got_img, want_img),
+          "train v1: the written weights' image is not the in-memory stack's")
+    del served, params, state, step
+    shutil.rmtree(weights)
+    torch.cuda.empty_cache()
+
+    # ---- v1, accumulate 2 and EMA: params move on every second call
+    params = masters(cfg1)
+    state, step, frozen = v1_mode("v1", params, accumulate=2, ema=0.9)
+    ema0 = _clone(state.ema)
+    steps("v1 accumulate 2 + ema", cfg1, "v1", state, step, batches1, 4,
+          frozen, moved_each=lambda i: i % 2 == 1)
+    check(all(not torch.equal(state.ema[k], ema0[k]) for k in state.ema
+              if k not in frozen), "train v1 ema: an EMA leaf did not move")
+    take()
+    del params, state, step, ema0
+    torch.cuda.empty_cache()
+
+    # ---- task tokens, then resumed: 2 steps, save, load, then the straight
+    # run's third step and its profiled fourth
+    params = masters(cfg1)
+    state, step, frozen = v1_mode("task_tokens", params)
+    steps("task_tokens", cfg1, "task_tokens", state, step, batches1,
+          TRAIN_STEPS, frozen)
+    take()
+    straight = _clone({k: v for k, v in flatten(state.params).items()
+                       if k not in frozen})
+    del params, state, step
+    torch.cuda.empty_cache()
+    params = masters(cfg1)
+    state, step, frozen = v1_mode("task_tokens", params)
+    for i in range(2):
+        step(state, batches1[i], TRAIN_SEED)
+    path = os.path.join(out_dir, "state.npz")
+    t0 = time.perf_counter()
+    save_train_state(path, state)
+    save_s = time.perf_counter() - t0
+    del params, state
+    torch.cuda.empty_cache()
+    params = masters(cfg1)
+    state, step, frozen = v1_mode("task_tokens", params)
+    t0 = time.perf_counter()
+    state = load_train_state(path, state)
+    load_s = time.perf_counter() - t0
+    # the straight run's third step and its profiled fourth
+    for i in (2, 3):
+        step(state, batches1[i], TRAIN_SEED)
+    take()
+    resumed = {k: v for k, v in flatten(state.params).items() if k not in frozen}
+    diff = max(float((resumed[k] - straight[k]).abs().max()) for k in straight)
+    bound = TRAIN_LR["task_tokens"] * (TRAIN_STEPS + 1)
+    log(train="task_tokens resumed", state_bytes=os.path.getsize(path),
+        save_seconds=save_s, load_seconds=load_s, max_abs_diff=diff,
+        bound=bound, bitwise=all(torch.equal(resumed[k], straight[k])
+                                 for k in straight))
+    # the embedding backward sums rows with atomics: the runs may differ in
+    # the last bits of a gradient, which Adam can turn into up to a step
+    check(diff <= bound, f"train task_tokens: resumed run {diff} from the "
+                         f"straight one, beyond lr x steps {bound}")
+    os.remove(path)
+    del params, state, step, straight, resumed
+    torch.cuda.empty_cache()
+
+    # ---- LoRA (rank 8) and LCM-LoRA distillation on the frozen teacher
+    params = masters(cfg1)
+    teacher = _clone(flatten(params))
+    unet_meta = build_models(cfg1)["unet"]
+    for mode in ("lora", "lcm_distill"):
+        lora = init_lora_tree(unet_meta, 8, torch.Generator(device=device)
+                              .manual_seed(1))
+        tx = AdamW(TRAIN_LR[mode])
+        state = init_train_state(lora, tx)
+        if mode == "lora":
+            loss_fn = L.make_lora_loss(L.make_v1_loss(cfg1, dtype=bf), params)
+            draw = functools.partial(L.draw, cfg1)
+        else:
+            loss_fn = distill.make_lcm_distill_loss(cfg1, params, dtype=bf)
+            draw = functools.partial(distill.draw, cfg1)
+        step = make_train_step(loss_fn, tx, draw=draw)
+        steps(mode, cfg1, mode, state, step, batches1, TRAIN_STEPS)
+        take()
+        flat = flatten(params)
+        check(all(torch.equal(flat[k], teacher[k]) for k in teacher),
+              f"train {mode}: the teacher changed")
+        if mode == "lora":
+            npz = os.path.join(out_dir, "lora.npz")
+            save_lora_npz(npz, state.params)
+            pipe = InpaintPipeline(cfg1, params, tok1, dtype=bf, device=device)
+            base = pipe(image, mask, prompt="a red bench in a park", seed=1,
+                        num_inference_steps=STEPS, guidance_scale=GUIDANCE)
+            unmatched = pipe.load_lora_weights(npz)
+            img = pipe(image, mask, prompt="a red bench in a park", seed=1,
+                       num_inference_steps=STEPS, guidance_scale=GUIDANCE)
+            d = np.abs(img.astype(np.int32) - base.astype(np.int32))
+            log(train="lora served", sites=len(state.params), unmatched=unmatched,
+                vs_base_max_uint8_diff=int(d.max()),
+                vs_base_mean_uint8_diff=float(d.mean()))
+            check(unmatched == [], f"train lora: unmatched {unmatched}")
+            del pipe
+        del state, step, loss_fn
+        torch.cuda.empty_cache()
+    del params, teacher
+    torch.cuda.empty_cache()
+
+    # ---- v2: the BrushNet branch and its task tower; the base frozen
+    tok2 = _tokenizer(cfg2)
+    batches2 = stream("ppt-v2", tok2, TRAIN_STEPS + 1)
+    params = masters(cfg2)
+    labels = trainable_mask(params, "v2")
+    tx = AdamW(TRAIN_LR["v2"], labels=labels)
+    state = init_train_state(params, tx)
+    step = make_train_step(L.make_v2_loss(cfg2, dtype=bf), tx,
+                           draw=functools.partial(L.draw, cfg2))
+    steps("v2", cfg2, "v2", state, step, batches2, TRAIN_STEPS,
+          {k for k, t in labels.items() if not t})
+    take()
+    del params, state, step
+    torch.cuda.empty_cache()
+
+    # ---- the train CLI in a subprocess, full width, then its LoRA served
+    cli_out = os.path.join(out_dir, "cli")
+    argv = [sys.executable, "-m", "powerpaint_tpu_torch.train.cli", "--mode",
+            "lora", "--steps", "2", "--batch_size", "1", "--out", cli_out,
+            "--log_every", "1", *TRAIN_CLI_ARGS]
+    t0 = time.perf_counter()
+    proc = sp.run(argv, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    log(train="cli", argv=argv[1:], rc=proc.returncode, seconds=secs,
+        stdout=proc.stdout.strip().splitlines()[-4:],
+        stderr=proc.stderr.strip().splitlines()[-3:])
+    check(proc.returncode == 0, f"train cli: exit code {proc.returncode}")
+    state0 = init_state(cfg1, torch.Generator(device=device).manual_seed(0),
+                        device=device, dtype=bf)
+    pipe = InpaintPipeline(cfg1, state0, tok1, dtype=bf, device=device)
+    unmatched = pipe.load_lora_weights(os.path.join(cli_out, "lora.npz"))
+    img = pipe(image, mask, prompt="a red bench in a park", seed=1,
+               num_inference_steps=STEPS, guidance_scale=GUIDANCE)
+    take()
+    check(unmatched == [], f"train cli lora: unmatched {unmatched}")
+    check(img.shape == (1, HW, HW, 3), f"train cli lora: image {img.shape}")
+    del pipe, state0
+    shutil.rmtree(out_dir)
+    torch.cuda.empty_cache()
+    return totals
+
+
+def tiny_train_reference(device) -> None:
+    """Phase 8's training: three steps of ``v1``, ``v2`` and ``lora`` at the
+    tiny configs in fp32 (TF32 off), 128^2, through the kernels on the
+    card and through the plain versions on the CPU, from the same weights,
+    batches and draws. Bounds: each step's loss within 1e-4 relative; the
+    first step's gradients within 3e-4 of the largest (the kernels and the
+    plain versions sum in other orders: 6e-5 of it seen; the CPU tests see
+    1e-5 of it between the port and JAX); the parameters after three steps within lr
+    per step of each other, at most 0.5% of them past 1e-2 of it (Adam's
+    normalisation amplifies a gradient's last bits where a moment sits
+    near 0)."""
+    from powerpaint_tpu_torch.io.weights import build_models, init_state
+    from powerpaint_tpu_torch.testing import tiny_v1_config, tiny_v2_config
+    from powerpaint_tpu_torch.text.tokenizer import (
+        HashTokenizer,
+        TokenizerWrapper,
+        add_task_tokens,
+    )
+    from powerpaint_tpu_torch.train import data
+    from powerpaint_tpu_torch.train import loss as L
+    from powerpaint_tpu_torch.train.lora import init_lora_tree
+    from powerpaint_tpu_torch.train.step import (
+        AdamW,
+        flatten,
+        init_train_state,
+        make_train_step,
+        trainable_mask,
+        with_leaves,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tok = TokenizerWrapper(HashTokenizer(994))
+    add_task_tokens(tok)
+    lr = 1e-3
+    for mode, cfg in (("v1", tiny_v1_config()), ("v2", tiny_v2_config()),
+                      ("lora", tiny_v1_config())):
+        version = "ppt-v2" if mode == "v2" else "ppt-v1"
+        it = data.batches(data.SyntheticSource(hw=128, seed=5), tok, 2,
+                          version=version, seed=5)
+        batches = [next(it) for _ in range(TRAIN_STEPS)]
+        draws = [L.draw(cfg, b, torch.Generator().manual_seed(i))
+                 for i, b in enumerate(batches)]
+        base = init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+        make = L.make_v2_loss if mode == "v2" else L.make_v1_loss
+        runs = {}
+        for dev in ("cpu", device):
+            # copies: a step updates its parameters in place
+            params = {f: {k: v.clone().to(dev) for k, v in sd.items()}
+                      for f, sd in base.items()}
+            if mode == "lora":
+                lora = init_lora_tree(build_models(cfg)["unet"], 4,
+                                      torch.Generator().manual_seed(1),
+                                      device="cpu")
+                tree = {m: {k: t.clone().to(dev) for k, t in f.items()}
+                        for m, f in lora.items()}
+                loss_fn = L.make_lora_loss(make(cfg), params)
+                tx = AdamW(lr)
+            else:
+                tree = params
+                loss_fn = make(cfg)
+                tx = AdamW(lr, labels=trainable_mask(params, mode))
+            state = init_train_state(tree, tx)
+            step = make_train_step(loss_fn, tx)
+            dev_draws = [{k: v.to(dev) for k, v in d.items()} for d in draws]
+            # the first step's gradients
+            families = loss_fn.families
+            leaves = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in flatten(tree if families is None else
+                                          {f: tree[f] for f in families}).items()}
+            loss, _ = loss_fn(with_leaves(tree, leaves), batches[0],
+                              dev_draws[0])
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            losses = []
+            for b, d in zip(batches, dev_draws):
+                _, m = step(state, b, d)
+                losses.append(float(m["loss"]))
+            runs[str(dev)] = dict(losses=losses,
+                                  grads={k: v.cpu() for k, v in grads.items()},
+                                  params={k: v.cpu() for k, v in
+                                          flatten(state.params).items()})
+        cpu, card = runs["cpu"], runs[str(device)]
+        loss_err = max(abs(a - b) / abs(a) for a, b in zip(cpu["losses"],
+                                                           card["losses"]))
+        gmax = max(float(g.abs().max()) for g in cpu["grads"].values())
+        grad_err = max(float((cpu["grads"][k] - card["grads"][k]).abs().max())
+                       for k in cpu["grads"])
+        far = total = 0
+        p_err = 0.0
+        for k, p in cpu["params"].items():
+            d = (p - card["params"][k]).abs()
+            p_err = max(p_err, float(d.max()))
+            far += int((d > 1e-2 * lr * TRAIN_STEPS).sum())
+            total += d.numel()
+        log(tiny_reference=f"train {mode}", losses_cpu=cpu["losses"],
+            losses_card=card["losses"], loss_max_rel_err=loss_err,
+            grad_max_abs_err=grad_err, grad_bound=3e-4 * gmax,
+            param_max_abs_err=p_err, param_bound=lr * TRAIN_STEPS,
+            params_past_hundredth_lr_steps=far, params=total)
+        check(loss_err <= 1e-4, f"tiny train {mode}: loss {loss_err}")
+        check(grad_err <= 3e-4 * gmax, f"tiny train {mode}: gradient {grad_err}")
+        check(p_err <= lr * TRAIN_STEPS and far <= 0.005 * total,
+              f"tiny train {mode}: params {p_err}, {far} of {total} far")
+    torch.backends.cudnn.allow_tf32 = True
+
+
 META = {
     "flash_attention": dict(
         route="cuda", source="powerpaint_tpu_torch/csrc/flash_attention.cu",
@@ -4499,6 +5094,7 @@ def main() -> None:
     # phase 2: kernels against their plain versions, and their times
     t0 = time.perf_counter()
     summary, timings = check_kernels(device)
+    grad_errs = grad_checks(device)
     log(phase="kernel checks", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
@@ -4519,7 +5115,8 @@ def main() -> None:
              ("call surface", run_call_surface_path),
              ("vae extras", run_vae_extras_path),
              ("adapters", run_adapter_path),
-             ("serving", lambda d: run_serving_path(d, refs["ppt-v1"])))
+             ("serving", lambda d: run_serving_path(d, refs["ppt-v1"])),
+             ("training", run_train_path))
     for label, run in paths:
         t0 = time.perf_counter()
         counts = run(device)
@@ -4531,6 +5128,7 @@ def main() -> None:
         log(phase="main path", path=label, seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     tiny_reference(device)
+    tiny_train_reference(device)
     log(phase="tiny reference", seconds=time.perf_counter() - t0)
 
     kernels = []
@@ -4547,6 +5145,8 @@ def main() -> None:
             **{k: head[k] for k in ("library_scope", "bf16_kernel_ms",
                                     "quantize_ms", "product_ms", "unfused_ms")
                if k in head}))
+        if name in grad_errs:  # its gradient's check (phase 2)
+            kernels[-1]["grad_max_abs_err"] = grad_errs[name]
         keys = ("shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
         if name == "flash_attention":  # the head dims past the UNet's
             kernels[-1]["head_dims"] = [

@@ -36,10 +36,17 @@ shapes. An IP-Adapter file sets ``config.unet.ip_adapter_dim`` and
 ``ip_adapter_tokens`` from its projection's shape and joins the base
 UNet's state (``io.convert.convert_ip_adapter``); an ``image_encoder/``
 sets ``config.image_encoder`` from its ``config.json`` and shapes
-(``io.convert.infer_clip_vision_config``). What the JAX loaders accept and
-the port cannot compute yet is refused with ``NotImplementedError`` naming
-its ROADMAP item: a native orbax directory (A19). ppt-v2 refuses an
-asymmetric VAE, which only the v1 pipeline decodes.
+(``io.convert.infer_clip_vision_config``). A native orbax directory (the
+JAX package's ``save_native``) is refused with ``NotImplementedError``:
+orbax and tensorstore are not on the card's host, so neither this package
+nor its train CLI reads or writes one. ppt-v2 refuses an asymmetric VAE,
+which only the v1 pipeline decodes.
+
+``save_native`` writes the train CLI's final weights in the reference
+layout instead (v1 as above without ``tokenizer/``; v2 in the flat layout,
+its task text encoder as ``PowerPaint_Brushnet/text_encoder/``), each
+family's ``*.safetensors`` with a ``config.json`` of its config: both
+packages' ``load_ppt_v1`` / ``load_ppt_v2`` read it.
 """
 
 from __future__ import annotations
@@ -110,8 +117,41 @@ def _refuse_native(root: str) -> None:
             and os.path.exists(os.path.join(root, "params"))):
         raise NotImplementedError(
             f"{root!r} is a native orbax checkpoint (the JAX package's "
-            "save_native / train CLI output), which the port does not read "
-            "yet (ROADMAP A19)")
+            "save_native / train CLI output): orbax and tensorstore are not "
+            "on the card's host, so the port cannot read it. The port's "
+            "train CLI writes the reference layout instead (unet/, "
+            "text_encoder/, vae/ safetensors; io.checkpoint.save_native)")
+
+
+def save_native(path: str, config: PowerPaintConfig, params: dict) -> None:
+    """Write a stack's weights (``{family: state dict}``, as trained: fp32)
+    under ``path`` in the reference checkpoint layout, with the port's
+    safetensors writer: ``unet/``, ``text_encoder/``, ``vae/``, and for
+    ppt-v2 ``PowerPaint_Brushnet/`` (the branch) and
+    ``PowerPaint_Brushnet/text_encoder/`` (its task tower); each with a
+    ``config.json`` of its config. ``load_ppt_v1`` / ``load_ppt_v2`` of
+    either package read it (the tiny configs need ``config=``)."""
+    from powerpaint_tpu_torch.io.safetensors import save_file
+
+    v2 = config.brushnet is not None
+    text_cfg = config.text_encoder
+    files = {"unet": ("unet", "diffusion_pytorch_model", config.unet),
+             "vae": ("vae", "diffusion_pytorch_model", config.vae),
+             "text_encoder": ("text_encoder", "model",
+                              text_cfg.replace(num_external_tokens=0)
+                              if v2 else text_cfg)}
+    if v2:
+        files["brushnet"] = ("PowerPaint_Brushnet", "diffusion_pytorch_model",
+                             config.brushnet)
+        files["text_encoder_brushnet"] = (
+            os.path.join("PowerPaint_Brushnet", "text_encoder"), "model",
+            text_cfg)
+    for family, (sub, stem, cfg) in files.items():
+        d = os.path.join(path, sub)
+        os.makedirs(d, exist_ok=True)
+        save_file(params[family], os.path.join(d, stem + ".safetensors"))
+        with open(os.path.join(d, "config.json"), "w", encoding="utf-8") as f:
+            f.write(cfg.to_json())
 
 
 def _vae_config(config: PowerPaintConfig, vae_sd) -> PowerPaintConfig:

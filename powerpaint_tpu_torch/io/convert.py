@@ -36,6 +36,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from powerpaint_tpu_torch.core.config import (
@@ -51,11 +52,15 @@ _EMB = "text_model.embeddings.token_embedding."
 
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A state dict from a ``.safetensors`` file (the port's own reader) or
-    a torch pickle (``.bin`` / ``.pth`` / ``.ckpt``, read with
-    ``weights_only``; a top-level ``state_dict`` entry is unwrapped)."""
+    """A state dict from a ``.safetensors`` file (the port's own reader), a
+    numpy ``.npz`` (the train CLI's ``lora.npz``; no pickles) or a torch
+    pickle (``.bin`` / ``.pth`` / ``.ckpt``, read with ``weights_only``; a
+    top-level ``state_dict`` entry is unwrapped)."""
     if path.endswith(".safetensors"):
         return safetensors.load_file(path)
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as z:
+            return {k: torch.from_numpy(z[k]) for k in z.files}
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]

@@ -395,6 +395,17 @@ def _annotator(tree: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _lora(tree: dict) -> Dict[str, Dict[str, np.ndarray]]:
+    """A JAX ``train/lora.py`` factor tree (flax paths, down (I, r), up (r,
+    O)) -> the port's (``train/lora.py``: module names, down (r, I), up (O,
+    r))."""
+    out = {}
+    for path, arr in _flatten(tree):
+        name = _torch_key(path[:-1] + ("kernel",))[:-len(".weight")]
+        out.setdefault(name, {})[path[-1]] = np.ascontiguousarray(arr.T)
+    return out
+
+
 def params_from_jax(tree, family: str, config=None, tokenizer=None):
     """JAX-package parameter tree of one family (``unet``, ``vae``,
     ``text_encoder``, ``brushnet``, ``text_encoder_brushnet``,
@@ -406,7 +417,16 @@ def params_from_jax(tree, family: str, config=None, tokenizer=None):
     takes its ``DPTConfig`` (the Intel/dpt-hybrid-midas one by default).
     A text tower's ``external_embedding`` rows split into one block per
     placeholder of ``tokenizer`` (the task tokens and any user token, in
-    registration order), or evenly over the task tokens without one."""
+    registration order), or evenly over the task tokens without one.
+
+    ``family="lora"`` carries a JAX LoRA factor tree across (``_lora``), and
+    ``family="stack"`` a JAX train state's parameters, ``{family: tree}``,
+    to ``{family: state dict}``."""
+    if family == "lora":
+        return _lora(tree)
+    if family == "stack":
+        return {f: params_from_jax(t, f, tokenizer=tokenizer)
+                for f, t in tree.items()}
     if family == "dpt":
         return _dpt(tree, config or dpt_hybrid_midas_config())
     if family in ("hed", "bodypose"):

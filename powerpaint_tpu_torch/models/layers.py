@@ -13,13 +13,16 @@ dict loads as it is.
 
 Norm parameters stay fp32 while linear and conv weights take the compute
 dtype (``cast_compute``), the JAX package's bf16-compute / fp32-statistics
-policy.
+policy. Inference casts the modules in place; training keeps fp32
+parameters and casts linear and conv ones where they are used
+(``cast_for_compute``, flax's ``dtype``), so gradients reach the fp32
+masters through the cast.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, FrozenSet, Optional
 
 import torch
 import torch.nn.functional as F
@@ -105,6 +108,8 @@ class Conv2D(nn.Conv2d):
         w = self.weight
         if w.is_contiguous(memory_format=torch.channels_last):
             return w
+        if w.requires_grad:  # a training call: a differentiable copy
+            return w.contiguous(memory_format=torch.channels_last)
         key = (w.data_ptr(), w._version, w.dtype, w.device)
         if getattr(self, "_packed_key", None) != key:
             self._packed = w.detach().contiguous(memory_format=torch.channels_last)
@@ -115,12 +120,30 @@ class Conv2D(nn.Conv2d):
 def cast_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Linear and conv parameters to ``dtype``, every other parameter (norms,
     embedding tables) to fp32, in place."""
-    for m in model.modules():
-        target = dtype if isinstance(m, (nn.Linear, nn.Conv2d)) else torch.float32
-        for p in m.parameters(recurse=False):
-            if p.dtype != target:
-                p.data = p.data.to(target)
+    names = compute_names(model)
+    for name, p in model.named_parameters():
+        target = dtype if name in names else torch.float32
+        if p.dtype != target:
+            p.data = p.data.to(target)
     return model
+
+
+def compute_names(model: nn.Module) -> FrozenSet[str]:
+    """The parameters that take the compute dtype: those of linear and conv
+    modules (the rest, norms and embedding tables, stay fp32)."""
+    return frozenset(
+        f"{mod_name}.{p_name}" if mod_name else p_name
+        for mod_name, m in model.named_modules()
+        if isinstance(m, (nn.Linear, nn.Conv2d))
+        for p_name, _ in m.named_parameters(recurse=False))
+
+
+def cast_for_compute(params: Dict[str, torch.Tensor], names: FrozenSet[str],
+                     dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The training form of ``cast_compute``: fp32 ``params`` (a state dict)
+    with those in ``names`` cast to ``dtype`` at use, a differentiable cast,
+    for ``torch.func.functional_call``; the rest as they are."""
+    return {k: v.to(dtype) if k in names else v for k, v in params.items()}
 
 
 def timestep_sinusoid(timesteps: torch.Tensor, dim: int, *,

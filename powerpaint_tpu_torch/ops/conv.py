@@ -19,6 +19,10 @@ conv weight in. For a CUDA tensor each wrapper launches the kernel or
 raises; for a CPU tensor it runs its ``*_plain`` version (GroupNorm then
 ``F.conv2d``), which is also the kernel's oracle.
 
+Both are differentiable: where an input requires a gradient the call goes
+through ``Conv3x3`` / ``Conv3x3GnSilu``, whose backward recomputes the
+plain version (``ops._grad``); the launch counters count forward launches.
+
 The static-scale int8 forms of both (``conv3x3_gn_silu_int8``,
 ``conv3x3_int8``, the JAX package's ``POWERPAINT_INT8`` path) quantise the
 activation with ``ops.norms`` and run a second kernel,
@@ -35,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from powerpaint_tpu_torch.ops import _build
+from powerpaint_tpu_torch.ops._grad import needs_grad, recompute_function
 from powerpaint_tpu_torch.ops.norms import (
     gn_silu_quantize_int8,
     gn_silu_quantize_int8_plain,
@@ -162,6 +167,12 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """conv3x3(x) + bias, stride 1, SAME: x (B, H, W, Cin), weight
     (Cout, Cin, 3, 3), bias (Cout,) -> (B, H, W, Cout) in x's dtype."""
+    if needs_grad(x, weight, bias):
+        return Conv3x3.apply({}, x, weight, bias)
+    return _conv3x3(x, weight, bias)
+
+
+def _conv3x3(x, weight, bias=None):
     if not x.is_cuda:
         return conv3x3_plain(x, weight, bias)
     _check("conv3x3", x, weight, bias)
@@ -176,6 +187,14 @@ def conv3x3_gn_silu(x: torch.Tensor, weight: torch.Tensor,
                     eps: float) -> torch.Tensor:
     """conv3x3(silu(group_norm(x))) + bias with per-(batch, group) fp32
     statistics; gamma and beta are (Cin,) fp32."""
+    if needs_grad(x, weight, bias, gamma, beta):
+        return Conv3x3GnSilu.apply(dict(num_groups=num_groups, eps=eps),
+                                   x, weight, bias, gamma, beta)
+    return _conv3x3_gn_silu(x, weight, bias, gamma, beta,
+                            num_groups=num_groups, eps=eps)
+
+
+def _conv3x3_gn_silu(x, weight, bias, gamma, beta, *, num_groups, eps):
     if not x.is_cuda:
         return conv3x3_gn_silu_plain(x, weight, bias, gamma, beta,
                                      num_groups=num_groups, eps=eps)
@@ -192,6 +211,9 @@ def conv3x3_gn_silu(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+Conv3x3 = recompute_function("Conv3x3", _conv3x3, conv3x3_plain)
+Conv3x3GnSilu = recompute_function("Conv3x3GnSilu", _conv3x3_gn_silu,
+                                   conv3x3_gn_silu_plain)
 conv3x3.launches = 0
 conv3x3_gn_silu.launches = 0
 

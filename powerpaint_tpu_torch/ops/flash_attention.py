@@ -6,7 +6,9 @@
 tensor it launches the kernel or raises; for a CPU tensor it runs
 ``flash_attention_plain``, the same function in plain PyTorch (the CPU path
 and the kernel's oracle). What bounds the kernel on the card and what its
-design does about it is written at the top of the ``.cu`` source.
+design does about it is written at the top of the ``.cu`` source. Where an
+input requires a gradient, the call goes through ``FlashAttention``, whose
+backward recomputes the plain version (``ops._grad``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 
 from powerpaint_tpu_torch.ops import _build
+from powerpaint_tpu_torch.ops._grad import needs_grad, recompute_function
 
 _LOG2E = math.log2(math.e)
 BF16_MAX_D = 1024  # the bf16 kernel's widest head (csrc/flash_attention.cu)
@@ -91,7 +94,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention over (B, S, N, D): q (B, Sq, N, D), k and v (B, Skv, N, D).
 
     CUDA tensors go to the kernel (fp32 or bf16, one dtype, last dim
-    contiguous, all on one device); CPU tensors to the plain version."""
+    contiguous, all on one device); CPU tensors to the plain version.
+    Differentiable in q, k and v."""
+    if needs_grad(q, k, v):
+        return FlashAttention.apply({"scale": scale}, q, k, v)
+    return _flash_attention(q, k, v, scale=scale)
+
+
+def _flash_attention(q, k, v, scale=None):
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -118,4 +128,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+FlashAttention = recompute_function("FlashAttention", _flash_attention,
+                                    flash_attention_plain)
 flash_attention.launches = 0

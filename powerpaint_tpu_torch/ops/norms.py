@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from powerpaint_tpu_torch.ops import _build
+from powerpaint_tpu_torch.ops._grad import needs_grad, recompute_function
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +269,13 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
                silu: bool = False) -> torch.Tensor:
     """GroupNorm over (B, ..., C), statistics per (batch, group) in fp32,
     then optional SiLU; output in x's dtype. gamma and beta (C,) fp32."""
+    kw = dict(num_groups=num_groups, eps=eps, silu=silu)
+    if needs_grad(x, gamma, beta):
+        return GroupNorm.apply(kw, x, gamma, beta)
+    return _group_norm(x, gamma, beta, **kw)
+
+
+def _group_norm(x, gamma, beta, *, num_groups, eps, silu):
     if not x.is_cuda:
         return group_norm_plain(x, gamma, beta, num_groups=num_groups,
                                 eps=eps, silu=silu)
@@ -367,6 +375,12 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     """LayerNorm over the last axis of a contiguous fp32 or bf16 x (C up to
     ``LN_MAX_C``), fp32 statistics, gamma and beta (C,) fp32; output in x's
     dtype."""
+    if needs_grad(x, gamma, beta):
+        return LayerNorm.apply({"eps": eps}, x, gamma, beta)
+    return _layer_norm(x, gamma, beta, eps=eps)
+
+
+def _layer_norm(x, gamma, beta, *, eps):
     if not x.is_cuda:
         return layer_norm_plain(x, gamma, beta, eps=eps)
     if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
@@ -389,6 +403,8 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     return out
 
 
+GroupNorm = recompute_function("GroupNorm", _group_norm, group_norm_plain)
+LayerNorm = recompute_function("LayerNorm", _layer_norm, layer_norm_plain)
 group_norm.launches = 0
 group_norm_stats.launches = 0
 gn_silu_quantize_int8.launches = 0

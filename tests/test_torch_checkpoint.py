@@ -492,7 +492,8 @@ def test_native_directory_is_refused(tmp_path, version):
     (tmp_path / "params").mkdir()
     (tmp_path / "config.json").write_text("{}")
     load = checkpoint.load_ppt_v1 if version == "ppt-v1" else checkpoint.load_ppt_v2
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+    with pytest.raises(NotImplementedError,
+                       match="orbax and tensorstore are not on the card's host"):
         load(str(tmp_path), device="cpu")
 
 

@@ -145,3 +145,21 @@ def test_the_serving_modules_are_covered_and_load_no_gradio():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_train_modules_are_covered_and_draw_masks_without_opencv():
+    """Training is checked like the rest, and draws its brush masks without
+    OpenCV, which the GPU host does not have."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {f"train/{m}.py" for m in ("__init__", "masks", "data", "loss",
+                                      "step", "lora", "trainer", "distill",
+                                      "cli")} | {"ops/_grad.py"} <= names
+    code = ("import sys\n"
+            "import numpy as np\n"
+            "import powerpaint_tpu_torch.train.cli\n"
+            "from powerpaint_tpu_torch.train import masks\n"
+            "masks.random_mask(np.random.RandomState(0), 64, 64, 'mix')\n"
+            "assert 'cv2' not in sys.modules\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

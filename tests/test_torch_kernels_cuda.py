@@ -799,3 +799,64 @@ def test_annotator_networks_on_the_card_match_the_cpu(dev, family):
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
     scale = float(outs[1].abs().max())
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-3 * scale
+
+
+def _grad_cases(dev):
+    x = _randn(dev, 2, 8, 8, 64, seed=11)
+    w = (_randn(dev, 32, 64, 3, 3, seed=12) / 24).contiguous(
+        memory_format=torch.channels_last)
+    b, g, be = (_randn(dev, n, seed=s) * 0.1 for n, s in ((32, 13), (64, 14),
+                                                          (64, 15)))
+    q, k, v = (_randn(dev, 2, 64, 2, 40, seed=s) for s in (16, 17, 18))
+    return {
+        "flash_attention": ((q, k, v), fa.flash_attention,
+                            fa.flash_attention_plain, "FlashAttentionBackward"),
+        "conv3x3": ((x, w, b), conv.conv3x3, conv.conv3x3_plain,
+                    "Conv3x3Backward"),
+        "conv3x3_gn_silu": (
+            (x, w, b, 1 + g, be),
+            lambda *a: conv.conv3x3_gn_silu(*a, num_groups=32, eps=1e-5),
+            lambda *a: conv.conv3x3_gn_silu_plain(*a, num_groups=32, eps=1e-5),
+            "Conv3x3GnSiluBackward"),
+        "group_norm": (
+            (x, 1 + g, be),
+            lambda *a: norms.group_norm(*a, num_groups=32, eps=1e-6, silu=True),
+            lambda *a: norms.group_norm_plain(*a, num_groups=32, eps=1e-6,
+                                              silu=True),
+            "GroupNormBackward"),
+        "layer_norm": ((x, 1 + g, be),
+                       lambda *a: norms.layer_norm(*a, eps=1e-5),
+                       lambda *a: norms.layer_norm_plain(*a, eps=1e-5),
+                       "LayerNormBackward"),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "conv3x3",
+                                  "conv3x3_gn_silu", "group_norm",
+                                  "layer_norm"])
+def test_kernel_wrappers_carry_their_gradient(dev, name):
+    """On a CUDA tensor that requires a gradient, the wrapper's output has
+    its Function's ``grad_fn`` (the kernel fills a fresh tensor, which
+    alone would cut the graph), the kernel launches once, and the gradient
+    is autograd of the plain version (the backward recomputes it): fp32,
+    the same arithmetic, within 1e-5."""
+    inputs, fn, plain, fn_name = _grad_cases(dev)[name]
+    counter = {"flash_attention": fa.flash_attention, "conv3x3": conv.conv3x3,
+               "conv3x3_gn_silu": conv.conv3x3_gn_silu,
+               "group_norm": norms.group_norm,
+               "layer_norm": norms.layer_norm}[name]
+    with torch.enable_grad():
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        refs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        before = counter.launches
+        out = fn(*leaves)
+        assert counter.launches == before + 1
+        assert type(out.grad_fn).__name__ == fn_name
+        want = plain(*refs)
+        cot = torch.randn_like(want)
+        got = torch.autograd.grad(out, leaves, cot)
+        ref = torch.autograd.grad(want, refs, cot)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1  # the backward launches no kernel
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-5)
