@@ -221,6 +221,18 @@ Phases, in order; any failure exits non-zero:
    (the serve CLI's ``--lora``) with nothing unmatched. The train CLI in a
    subprocess (``--mode lora --steps 2 --batch_size 1``), its
    ``lora.npz`` served the same way.
+   7j. The mesh (``run_mesh_path``): ppt-v1 at full width, 512^2, bf16,
+   over processes on this one card (``powerpaint_tpu_torch.parallel``).
+   Two gloo ranks on the card (NCCL refuses two ranks on one device):
+   (a) data 1 x model 2, a 4-step DDIM image within max 18 / mean 2.0
+   uint8 of the one-process call, the flash kernel at 4 of the 8 heads;
+   (b) data 2 x model 1, seeds 1 and 2, each image bitwise the
+   one-process call of its seed; each rank's B1-B5 launches; (c) a ZeRO-3
+   v1 train step at data 2 (global batch 2) against the one-process step:
+   loss to 1e-3, the task-token rows to the JAX post-Adam bound, the
+   large leaves' master, moments and EMA about half a rank at rest. (d)
+   One NCCL rank: the data-parallel and the ZeRO-3 step bitwise the plain
+   step. No scaling is measured: the ranks share one card.
 8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, each also
    with one other sampler: euler_a at strength 0.6, LCM on an LCM UNet,
    heun with a window; ppt-v1 with int8; ppt-v1 with the asymmetric VAE,
@@ -382,6 +394,10 @@ ATTN_SHAPES = [
 IP_ATTN_SHAPES = [(2, 4096, 4, 8, 40), (2, 1024, 4, 8, 80),
                   (2, 256, 4, 8, 160), (2, 64, 4, 8, 160)]
 ATTN_SHAPES += IP_ATTN_SHAPES
+# phase 7j's tensor-parallel ranks: the UNet's self-attention at its first
+# two levels with 4 of the 8 heads (tp = 2)
+TP_ATTN_SHAPES = [(2, 4096, 4096, 4, 40), (2, 1024, 1024, 4, 80)]
+ATTN_SHAPES += TP_ATTN_SHAPES
 # (shape (B, S, C), eps, silu): ResNet norms at each UNet level, the widest
 # up-block concat, the transformer input norm, and the VAE's largest maps.
 GN_SHAPES = [
@@ -5026,6 +5042,114 @@ def tiny_train_reference(device) -> None:
     torch.backends.cudnn.allow_tf32 = True
 
 
+# ---------------------------------------------------------------------------
+# phase 7j: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 4
+MESH_SEEDS = (1, 2)
+MESH_TRAIN_HW = 512
+MESH_KERNELS = ("flash_attention", "conv3x3_gn_silu", "conv3x3", "group_norm",
+                "group_norm_stats", "layer_norm")  # B1-B5 (B5: conv3x3)
+MESH_LAUNCHES = {}  # kernel -> {"tp": [per rank], "dp": [per rank]}
+MESH_U8 = (18, 2.0)  # max, mean: the batch-variance bound of phases 3-7
+MESH_LOSS_RTOL = 1e-3
+MESH_LR = 1e-3
+MESH_FULL = True  # the published widths (a CPU rehearsal sets False)
+
+
+def run_mesh_path(device):
+    """Phase 7j: ppt-v1 at full width over a mesh of processes on this one
+    card (``parallel.dryrun``'s rank functions). Two ranks share the card
+    over gloo (NCCL refuses two ranks on one device): (a) data 1 x model 2,
+    a one-image call within ``MESH_U8`` of the one-process call; (b) data
+    2 x model 1, a call of one image per seed, each image bitwise the
+    one-process call of its seed; the B1-B5 launches of each rank, and the
+    heads the flash kernel ran at; (c) a ZeRO-3 v1 train step at data 2
+    (global batch 2, bf16 compute over fp32 masters) against the
+    one-process step: the loss to ``MESH_LOSS_RTOL``, the task-token rows to
+    the JAX bound, the large leaves' bytes at rest about half. Then (d) one
+    rank over NCCL: the data-parallel and the ZeRO-3 step bitwise the
+    plain step. Every rank on the card; the parent launches nothing."""
+    from powerpaint_tpu_torch.parallel import dryrun
+    from powerpaint_tpu_torch.parallel.launch import spawn
+
+    cuda = device.type == "cuda"
+    dev = f"cuda:{device.index or 0}" if cuda else "cpu"
+    devices = [dev, dev]
+    t0 = time.perf_counter()
+    ranks = spawn(dryrun.card_rank, devices,
+                  (devices, MESH_STEPS, HW, MESH_SEEDS, MESH_TRAIN_HW, MESH_FULL),
+                  backend="gloo", timeout=900)
+    log(phase="mesh", part="(a)-(c) two gloo ranks on one card",
+        seconds=time.perf_counter() - t0, card=CARD[0])
+    for r, out in enumerate(ranks):
+        check(out["device"] == dev and out.get("current_device") ==
+              (device.index or 0 if cuda else None),
+              f"mesh rank {r} ran on {out['device']}")
+        for part in ("tp", "dp"):
+            got = out[part]
+            log(path="mesh", rank=r, part=part, max_uint8_diff=got["max"],
+                mean_uint8_diff=got["mean"], equal_images=got["equal_images"],
+                seconds=got["seconds"], launches=got["launches"],
+                attention_heads_dims=got["attention_shapes"])
+            for k in MESH_KERNELS:
+                check(got["launches"][k] > 0,
+                      f"mesh rank {r} ({part}): {k} was not launched")
+                MESH_LAUNCHES.setdefault(k, {}).setdefault(part, []).append(
+                    got["launches"][k])
+        tp, dp = out["tp"], out["dp"]
+        log(path="mesh", rank=r, part="one process, batched against alone",
+            max_uint8_diff=out["batch_vs_alone"]["max"],
+            mean_uint8_diff=out["batch_vs_alone"]["mean"])
+        check(tp["max"] <= MESH_U8[0] and tp["mean"] <= MESH_U8[1],
+              f"mesh rank {r} (a): data 1 x model 2 against one process: "
+              f"max {tp['max']}, mean {tp['mean']}")
+        check({(4, 40), (4, 80)} <= set(map(tuple, tp["attention_shapes"])),
+              f"mesh rank {r} (a): attention at {tp['attention_shapes']}, "
+              "not 4 of 8 heads")
+        check(all(dp["equal_images"]),
+              f"mesh rank {r} (b): the data-parallel images are not bitwise "
+              f"the one-process calls of their seeds: {dp['equal_images']}")
+        z = out["zero3"]
+        share = z["bytes_at_rest"] / z["whole_bytes"]
+        log(path="mesh", rank=r, part="zero3", loss=z["loss"],
+            one_process_loss=z["ref_loss"], grad_norm=z["grad_norm"],
+            one_process_grad_norm=z["ref_grad_norm"], update=z["update"],
+            bytes_at_rest=z["bytes_at_rest"], whole_bytes=z["whole_bytes"],
+            share_at_rest=share, peak_bytes=z["peak_bytes"],
+            one_process_peak_bytes=out.get("ref_peak_bytes"),
+            seconds=z["seconds"], card=CARD[0])
+        check(abs(z["loss"] - z["ref_loss"]) <= MESH_LOSS_RTOL * abs(z["ref_loss"]),
+              f"mesh rank {r} (c): ZeRO-3 loss {z['loss']} against "
+              f"{z['ref_loss']}")
+        check(z["update"]["max"] <= 2.1 * MESH_LR
+              and z["update"]["tight"] >= 0.99,
+              f"mesh rank {r} (c): task-token rows {z['update']}")
+        check(0.45 <= share <= 0.55 and z["layout_kept"]
+              and z["big_share"] == 0.5,
+              f"mesh rank {r} (c): {share} of the large leaves at rest, "
+              f"layout kept {z['layout_kept']}")
+    check(np.array_equal(ranks[0]["zero3"]["rows"], ranks[1]["zero3"]["rows"]),
+          "mesh (c): the ranks' replicated task-token rows differ")
+
+    t1 = time.perf_counter()
+    backend = "nccl" if cuda else "gloo"
+    one = spawn(dryrun.nccl_rank, [dev], ([dev], MESH_TRAIN_HW, 2, MESH_FULL,
+                                          backend),
+                backend=backend, timeout=600)[0]
+    log(phase="mesh", part="(d) one NCCL rank", seconds=time.perf_counter() - t1,
+        results={k: one[k] for k in ("dp", "zero3", "backend")})
+    for part in ("dp", "zero3"):
+        got = one[part]
+        check(one["backend"] == backend and got["loss_equal"]
+              and got["grad_norm_equal"] and got["params_equal"] == got["params"],
+              f"mesh (d): the {part} step over NCCL is not bitwise the plain "
+              f"step: {got}")
+    log(phase="mesh", seconds=time.perf_counter() - t0)
+    return {k: 0 for k in KERNELS}
+
+
 META = {
     "flash_attention": dict(
         route="cuda", source="powerpaint_tpu_torch/csrc/flash_attention.cu",
@@ -5116,7 +5240,8 @@ def main() -> None:
              ("vae extras", run_vae_extras_path),
              ("adapters", run_adapter_path),
              ("serving", lambda d: run_serving_path(d, refs["ppt-v1"])),
-             ("training", run_train_path))
+             ("training", run_train_path),
+             ("mesh", run_mesh_path))
     for label, run in paths:
         t0 = time.perf_counter()
         counts = run(device)
@@ -5147,6 +5272,8 @@ def main() -> None:
                if k in head}))
         if name in grad_errs:  # its gradient's check (phase 2)
             kernels[-1]["grad_max_abs_err"] = grad_errs[name]
+        if name in MESH_LAUNCHES:  # phase 7j's ranks, per rank
+            kernels[-1]["mesh_launches"] = MESH_LAUNCHES[name]
         keys = ("shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
         if name == "flash_attention":  # the head dims past the UNet's
             kernels[-1]["head_dims"] = [

@@ -24,7 +24,10 @@ modules in both packages and leaves the same ones unmatched.
 The merge updates each weight in place (``add_``), keeping its storage and
 its channels-last strides, and quantises a touched int8 conv again from the
 merged weight (the JAX package quantises from the current weights inside
-its program).
+its program). On a tensor-parallel model (``parallel.mesh.shard_model``) a
+delta is matched against the whole weight's shape and cut as the weight is
+(``local_piece``: GEGLU's interleave included), so each rank adds its piece
+of the one-process merge.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from torch import nn
 
 from powerpaint_tpu_torch.core.validation import InputValidationError
 from powerpaint_tpu_torch.ops.conv import quantize_weights_int8
+from powerpaint_tpu_torch.parallel.mesh import local_piece, whole_shape
 
 __all__ = ["parse_lora", "resolve_module", "lora_delta", "merge_lora",
            "LoraMixin"]
@@ -280,10 +284,10 @@ class _Plan:
                 continue
             module = models[target].get_submodule(
                 node["kernel"][: -len(".weight")])
-            if tuple(module.weight.shape) != _delta_shape(rec):
+            if whole_shape(module) != _delta_shape(rec):
                 raise ValueError(
                     f"{target}:{base}: LoRA delta shape {_delta_shape(rec)} "
-                    f"!= weight {tuple(module.weight.shape)}")
+                    f"!= weight {whole_shape(module)}")
             self.items.append((rec, module))
         if strict and self.unmatched:
             raise ValueError(f"unmatched LoRA modules: {self.unmatched}")
@@ -301,7 +305,8 @@ class _Plan:
     @torch.no_grad()
     def merge(self, scale: float) -> None:
         for rec, m in self.items:
-            m.weight.add_(lora_delta(rec, m.weight, scale).to(m.weight.dtype))
+            delta = local_piece(m, lora_delta(rec, m.weight, scale))
+            m.weight.add_(delta.to(m.weight.dtype))
             if getattr(m, "int8_x_scale", None) is not None:
                 w_q, w_scale = quantize_weights_int8(m.weight)
                 m.w_q.copy_(w_q)

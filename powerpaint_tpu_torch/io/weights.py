@@ -62,6 +62,7 @@ from powerpaint_tpu_torch.core.config import (
 from powerpaint_tpu_torch.io.convert import load_state_dict
 from powerpaint_tpu_torch.models.annotators import BodyPoseModel, HEDNetwork
 from powerpaint_tpu_torch.models.brushnet import BrushNetModel
+from powerpaint_tpu_torch.parallel.mesh import shard_model, shard_state
 from powerpaint_tpu_torch.models.clip_vision import (
     CLIPVisionModelWithProjection,
     StableDiffusionSafetyChecker,
@@ -463,7 +464,8 @@ def _quantize_resnets(model: nn.Module):
 
 def load_models(config: PowerPaintConfig, state: Dict[str, dict], *,
                 device, dtype: torch.dtype,
-                int8_x_scale: Optional[float] = None) -> Dict[str, nn.Module]:
+                int8_x_scale: Optional[float] = None,
+                tp=None) -> Dict[str, nn.Module]:
     """Build every family of ``config`` and assign ``state`` (state dicts
     of tensors or numpy arrays, strict names and shapes), on ``device``,
     with linear and conv weights in ``dtype``. Conv weights are stored
@@ -477,12 +479,17 @@ def load_models(config: PowerPaintConfig, state: Dict[str, dict], *,
     JAX package quantises), into non-persistent buffers (``Conv2D.set_int8``).
 
     ``state["controlnet"]``, one state dict or a list of them, gives a
-    ``ModuleList`` with one branch per state dict."""
+    ``ModuleList`` with one branch per state dict.
+
+    ``tp``, a model group (``parallel.mesh.Mesh.tp``), makes every model
+    tensor-parallel over it: the modules are split first
+    (``parallel.mesh.shard_model``), then each takes this rank's pieces of
+    the whole weights in ``state``. None (the default) loads them whole."""
     out = {}
     for family, model in build_models(config).items():
         if family != "controlnet":
             out[family] = _load(model, state[family], device, dtype,
-                                int8_x_scale)
+                                int8_x_scale, tp)
             continue
         branches = state[family]
         if isinstance(branches, dict):
@@ -491,15 +498,17 @@ def load_models(config: PowerPaintConfig, state: Dict[str, dict], *,
             models = [model] + [ControlNetModel(config.controlnet)
                                 for _ in branches[1:]]
         out[family] = nn.ModuleList([
-            _load(m, sd, device, dtype, int8_x_scale)
+            _load(m, sd, device, dtype, int8_x_scale, tp)
             for m, sd in zip(models, branches)])
     return out
 
 
 def _load(model: nn.Module, state: dict, device, dtype: torch.dtype,
-          int8_x_scale: Optional[float]) -> nn.Module:
+          int8_x_scale: Optional[float], tp=None) -> nn.Module:
     """``state`` assigned to ``model``, on ``device``, as ``load_models``
     says."""
+    if tp is not None:
+        state = shard_state(state, shard_model(model, tp), tp.index)
     sd = {k: v if torch.is_tensor(v)
           else torch.from_numpy(np.ascontiguousarray(v))
           for k, v in state.items()}

@@ -9,6 +9,11 @@ order, so the lookup is one gather from the concatenated table.
 
 The causal self-attention stays on plain tensor ops (fp32 logits and
 softmax), as the JAX package keeps it on einsum.
+
+Tensor parallelism (``parallel.mesh.shard_model``): a split attention holds
+``num_heads / tp`` heads of q/k/v and the matching input columns of
+``out_proj``, a split MLP a ``1 / tp`` block of ``fc1``'s rows and of
+``fc2``'s columns; ``tp`` (None when whole) sums the partial products.
 """
 
 from __future__ import annotations
@@ -21,6 +26,10 @@ from torch import nn
 
 from powerpaint_tpu_torch.core.config import CLIPTextConfig
 from powerpaint_tpu_torch.models.layers import LayerNorm
+from powerpaint_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    row_parallel_linear,
+)
 
 TASK_TOKEN_ORDER = ("P_ctxt", "P_shape", "P_obj")
 
@@ -83,10 +92,13 @@ class CLIPTextEmbeddings(nn.Module):
 
 
 class CLIPAttention(nn.Module):
+    tp = None  # the model group of a tensor-parallel module
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         c = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
+        self.head_dim = c // cfg.num_attention_heads
         self.q_proj = nn.Linear(c, c)
         self.k_proj = nn.Linear(c, c)
         self.v_proj = nn.Linear(c, c)
@@ -94,8 +106,9 @@ class CLIPAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, causal_mask: torch.Tensor) -> torch.Tensor:
         b, s, c = x.shape
-        n = self.num_heads
-        d = c // n
+        n, d = self.num_heads, self.head_dim
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
         q = self.q_proj(x).view(b, s, n, d)
         k = self.k_proj(x).view(b, s, n, d)
         v = self.v_proj(x).view(b, s, n, d)
@@ -103,10 +116,15 @@ class CLIPAttention(nn.Module):
         logits = logits * d ** -0.5 + causal_mask
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float())
-        return self.out_proj(out.to(x.dtype).reshape(b, s, c))
+        out = out.to(x.dtype).reshape(b, s, n * d)
+        if self.tp is not None:
+            return row_parallel_linear(self.out_proj, out, self.tp)
+        return self.out_proj(out)
 
 
 class CLIPMLP(nn.Module):
+    tp = None  # the model group of a tensor-parallel module
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.act = quick_gelu if cfg.hidden_act == "quick_gelu" else F.gelu
@@ -114,6 +132,9 @@ class CLIPMLP(nn.Module):
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            h = self.act(self.fc1(copy_to_model(x, self.tp)))
+            return row_parallel_linear(self.fc2, h, self.tp)
         return self.fc2(self.act(self.fc1(x)))
 
 

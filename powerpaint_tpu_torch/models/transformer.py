@@ -8,7 +8,17 @@ IP-Adapter (diffusers ``IPAdapterAttnProcessor``, as the JAX package's
 n > 0 holds n bias-free ``to_k_ip`` / ``to_v_ip`` pairs; each adapter's
 image context attends the same queries, and its result, times that
 adapter's scale, is added before ``to_out``. Only ``attn2`` of a block
-takes an image context."""
+takes an image context.
+
+Tensor parallelism (``parallel.mesh.shard_model``): a split ``Attention``
+holds ``num_heads / tp`` heads of q/k/v (and of each ``to_k_ip`` /
+``to_v_ip``) and the matching input columns of ``to_out.0``, and a split
+``FeedForward`` the same rows of GEGLU's h and gate and the matching
+columns of ``net.2``; the module's ``tp`` (a ``parallel.collectives.Comm``,
+None when whole) sums the row-parallel partial products over the model
+group (``row_parallel_linear``), and its input passes ``copy_to_model``
+(whose backward sums the input gradient). A whole module runs exactly as
+before."""
 
 from __future__ import annotations
 
@@ -20,6 +30,10 @@ from torch import nn
 
 from powerpaint_tpu_torch.models.layers import Conv2D, GroupNorm, LayerNorm
 from powerpaint_tpu_torch.ops.attention import attention
+from powerpaint_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    row_parallel_linear,
+)
 
 
 ImageContext = Union[torch.Tensor, Sequence[torch.Tensor], None]
@@ -30,6 +44,8 @@ class Attention(nn.Module):
     """q/k/v projections without bias, output projection with bias;
     ``ip_adapters`` decoupled image K/V pairs (``to_k_ip.<a>``,
     ``to_v_ip.<a>``) from ``context_dim``."""
+
+    tp = None  # the model group of a tensor-parallel module
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  context_dim: Optional[int] = None, ip_adapters: int = 0):
@@ -57,6 +73,14 @@ class Attention(nn.Module):
         """``ip_context``: the projected image tokens (B, T, context_dim),
         or one such tensor per adapter (the first ones of a stack);
         ``ip_scale`` a float or one per adapter."""
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
+            if context is not None:
+                context = copy_to_model(context, self.tp)
+            if ip_context is not None:
+                ip_context = [copy_to_model(c, self.tp) for c in (
+                    ip_context if isinstance(ip_context, (tuple, list))
+                    else [ip_context])]
         ctx = x if context is None else context
         b, s, _ = x.shape
         skv = ctx.shape[1]
@@ -78,6 +102,9 @@ class Attention(nn.Module):
                 # a sum each rounded, as the JAX package's ``sc * out_ip``
                 sc = float(torch.tensor(float(sc)).to(out.dtype))
                 out = out + attention(q, k_ip, v_ip) * sc
+        if self.tp is not None:
+            return row_parallel_linear(self.to_out[0], out.reshape(b, s, n * d),
+                                       self.tp)
         return self.to_out[0](out.reshape(b, s, n * d))
 
 
@@ -95,6 +122,8 @@ class FeedForward(nn.Module):
     """GEGLU feed-forward; ``net.1`` is the (parameter-free) dropout slot
     of the diffusers module list."""
 
+    tp = None  # the model group of a tensor-parallel module
+
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([
@@ -102,6 +131,9 @@ class FeedForward(nn.Module):
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            h = self.net[0](copy_to_model(x, self.tp))
+            return row_parallel_linear(self.net[2], h, self.tp)
         for m in self.net:
             x = m(x)
         return x

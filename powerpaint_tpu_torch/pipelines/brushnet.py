@@ -69,10 +69,12 @@ from powerpaint_tpu_torch.io.lora import LoraMixin
 from powerpaint_tpu_torch.io.weights import load_models
 from powerpaint_tpu_torch.pipelines.async_dispatch import AsyncDispatchMixin, finish
 from powerpaint_tpu_torch.pipelines.common import (
+    MeshMixin,
     StepCallbackMixin,
     apply_target_hw,
     as_list,
     batch_inputs,
+    cfg_rows,
     cond_scale_table,
     draw_noise,
     embeds_rows,
@@ -80,8 +82,11 @@ from powerpaint_tpu_torch.pipelines.common import (
     make_sampler,
     norm_embeds,
     per_iteration,
+    pipeline_device,
+    refuse_sequence_parallel,
     resolve_seeds,
     resolve_timesteps,
+    rows,
     sampler_step,
     step_timesteps,
     table_row,
@@ -96,7 +101,7 @@ from powerpaint_tpu_torch.text.prompts import TaskPrompts, add_task, v2_prompt_s
 
 
 class BrushNetPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
-                       StepCallbackMixin):
+                       MeshMixin, StepCallbackMixin):
     """``BrushNetPipeline(config, state, tokenizer)(image, mask, prompt)``.
 
     ``state`` holds one diffusers / transformers named state dict per family
@@ -111,22 +116,27 @@ class BrushNetPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
     ``int8=True`` runs the ResNet units the JAX package quantises as the
     static-scale int8 W8A8 kernel (``pipelines.common.int8_x_scale``;
     ``None`` reads ``POWERPAINT_INT8`` here, once). ``submit(...)`` and
-    ``aot_dump`` / ``aot_load`` as on the ppt-v1 pipeline.
+    ``aot_dump`` / ``aot_load`` as on the ppt-v1 pipeline; ``mesh`` and
+    ``sequence_parallel`` as there.
     """
 
     def __init__(self, config: PowerPaintConfig, state: Dict[str, dict],
                  tokenizer, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda", int8: Optional[bool] = None):
+                 device=None, int8: Optional[bool] = None, mesh=None,
+                 sequence_parallel: bool = False):
         if config.brushnet is None:
             raise ValueError("BrushNetPipeline needs a config with a brushnet "
                              "(ppt_v2_config)")
+        refuse_sequence_parallel(sequence_parallel)
         self.config = config
         self.tokenizer = tokenizer
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = pipeline_device(device, mesh)
         self.int8_x_scale = int8_x_scale(int8)
         models = load_models(config, state, device=self.device, dtype=dtype,
-                             int8_x_scale=self.int8_x_scale)
+                             int8_x_scale=self.int8_x_scale,
+                             tp=None if mesh is None else mesh.tp)
         self.unet = models["unet"]
         self.vae = models["vae"]
         self.brushnet = models["brushnet"]
@@ -446,6 +456,20 @@ class BrushNetPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
         scales = per_iteration(mod, cond_scale_table(
             num_inference_steps, float(brushnet_conditioning_scale),
             control_guidance_start, control_guidance_end))
+        prompt_embeds = embeds_rows(norm_embeds(prompt_embeds), b, self.device)
+        negative_prompt_embeds = embeds_rows(
+            norm_embeds(negative_prompt_embeds), b, self.device)
+        share = self._share(b)
+        if share is not None:  # this rank's images (MeshMixin)
+            if len(ids_task) == b:
+                ids_task, ids_plain = ids_task[share], ids_plain[share]
+                fittings = fittings[share]
+            img_b, mask_b = img_b[share], mask_b[share]
+            guidances, seeds = guidances[share], seeds[share]
+            latents = rows(latents, share, b)
+            prompt_embeds = rows(prompt_embeds, share, b)
+            negative_prompt_embeds = rows(negative_prompt_embeds, share, b)
+            ip_embeds = cfg_rows(ip_embeds, share, b)
         _, sched = make_sampler(scheduler, self.config.scheduler,
                                 num_inference_steps, custom_timesteps=custom_ts)
         n_draws = sched.num_steps if takes_step_noise(mod) else 0
@@ -456,7 +480,7 @@ class BrushNetPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
         self._set_step_callback(callback, callback_steps)
         telemetry.reset_stages()
         with telemetry.stage("generate"):
-            out = finish(self._generate(
+            out = finish(self._gather(self._generate(
                 to_device(ids_task, dev, torch.long),
                 to_device(ids_plain, dev, torch.long),
                 to_device(np.asarray(fittings, np.float32), dev),
@@ -470,10 +494,9 @@ class BrushNetPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
                 clip_skip=int(clip_skip), scheduler=scheduler,
                 timesteps=custom_ts,
                 branch_cache_interval=int(branch_cache_interval),
-                prompt_embeds=embeds_rows(norm_embeds(prompt_embeds), b, dev),
-                negative_prompt_embeds=embeds_rows(
-                    norm_embeds(negative_prompt_embeds), b, dev),
-                ip_embeds=ip_embeds, ip_scale=ip_adapter_scale))
+                prompt_embeds=prompt_embeds,
+                negative_prompt_embeds=negative_prompt_embeds,
+                ip_embeds=ip_embeds, ip_scale=ip_adapter_scale)))
         self._calls += 1
         telemetry.count("images", b)
         telemetry.count("denoise_steps", num_inference_steps)

@@ -196,6 +196,62 @@ def apply_target_hw(image, mask, height, width, multi: bool):
                      int(height), int(width))
 
 
+def pipeline_device(device, mesh) -> torch.device:
+    """A pipeline's device: the card unless the caller asks for another;
+    on a mesh, the rank's device (``device``, when given, must be it)."""
+    if mesh is None:
+        return torch.device(device or "cuda")
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device!r} on a mesh rank whose device is "
+                         f"{mesh.device}")
+    return mesh.device
+
+
+def refuse_sequence_parallel(sequence_parallel: bool) -> None:
+    if sequence_parallel:
+        raise ValueError(
+            "sequence_parallel=True (latent rows over the data axis, ring "
+            "attention) is not in the port yet: ROADMAP A18c")
+
+
+class MeshMixin:
+    """A pipeline over a ``parallel.mesh.Mesh`` (``mesh``; None: one
+    process). Every rank makes the same call with the same arguments
+    (SPMD). The models are tensor-parallel over the rank's model group
+    (``io.weights.load_models(tp=)``); the images of a call are split over
+    its data group, each rank runs its share (its seeds' draws, its CFG
+    pairs) and the shares are all-gathered, so every rank returns the whole
+    batch. The data axis must divide the batch."""
+
+    mesh = None
+
+    def _share(self, b: int) -> Optional[slice]:
+        """This rank's rows of a batch of ``b`` (None: one process)."""
+        return None if self.mesh is None else self.mesh.data_share(b)
+
+    def _gather(self, out: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a result, in batch order."""
+        return out if self.mesh is None else self.mesh.data.all_gather(out, 0)
+
+
+def rows(x, share: slice, b: int):
+    """``x``'s rows ``share`` where it has one per image (``b`` leading),
+    else ``x`` (None, one row for all)."""
+    if x is None or len(x) != b:
+        return x
+    return x[share]
+
+
+def cfg_rows(pair, share: slice, b: int):
+    """The rows ``share`` of both halves of a CFG pair (2B, ...) [uncond |
+    cond], or of each pair of a list."""
+    if pair is None:
+        return None
+    if isinstance(pair, (list, tuple)):
+        return [cfg_rows(p, share, b) for p in pair]
+    return torch.cat([pair[:b][share], pair[b:][share]])
+
+
 class StepCallbackMixin:
     """The per-call step callback, the reference's ``callback`` /
     ``callback_steps``: observation only. ``callback(i, latents)`` runs on

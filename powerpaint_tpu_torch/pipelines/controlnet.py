@@ -81,13 +81,15 @@ class ControlNetPipeline(InpaintPipeline):
 
     def __init__(self, config: PowerPaintConfig, state: Dict[str, dict],
                  tokenizer, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda", int8: Optional[bool] = None,
-                 step_callback: Optional[Callable] = None):
+                 device=None, int8: Optional[bool] = None,
+                 step_callback: Optional[Callable] = None, mesh=None,
+                 sequence_parallel: bool = False):
         if config.controlnet is None:
             raise ValueError("ControlNetPipeline needs a config with a "
                              "controlnet (ppt_v1_controlnet_config)")
         super().__init__(config, state, tokenizer, dtype=dtype, device=device,
-                         int8=int8, step_callback=step_callback)
+                         int8=int8, step_callback=step_callback, mesh=mesh,
+                         sequence_parallel=sequence_parallel)
 
     @classmethod
     def from_pipeline(cls, pipe: InpaintPipeline, controlnet,

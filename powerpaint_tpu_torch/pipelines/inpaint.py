@@ -48,6 +48,7 @@ from powerpaint_tpu_torch.io.lora import LoraMixin
 from powerpaint_tpu_torch.io.weights import load_models
 from powerpaint_tpu_torch.pipelines.async_dispatch import AsyncDispatchMixin, finish
 from powerpaint_tpu_torch.pipelines.common import (
+    MeshMixin,
     StepCallbackMixin,
     apply_target_hw,
     as_list,
@@ -57,7 +58,10 @@ from powerpaint_tpu_torch.pipelines.common import (
     int8_x_scale,
     make_sampler,
     norm_embeds,
+    pipeline_device,
+    refuse_sequence_parallel,
     resolve_seeds,
+    rows,
     sampler_step,
     step_timesteps,
     takes_step_noise,
@@ -82,7 +86,7 @@ class Request(NamedTuple):
 
 
 class InpaintPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
-                      StepCallbackMixin):
+                      MeshMixin, StepCallbackMixin):
     """``InpaintPipeline(config, state, tokenizer)(image, mask, prompt)``.
 
     ``state`` holds one diffusers / transformers named state dict per family
@@ -93,20 +97,27 @@ class InpaintPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
     static-scale int8 W8A8 kernel (``pipelines.common.int8_x_scale``;
     ``None`` reads ``POWERPAINT_INT8`` here, once). ``step_callback`` is the
     callback of every call that passes none (``StepCallbackMixin``).
+    ``mesh``: a ``parallel.mesh.Mesh`` to run over, every rank making the
+    same calls (``MeshMixin``); ``sequence_parallel`` is refused (ROADMAP
+    A18c).
     """
 
     def __init__(self, config: PowerPaintConfig, state: Dict[str, dict],
                  tokenizer, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda", int8: Optional[bool] = None,
-                 step_callback: Optional[Callable] = None):
+                 device=None, int8: Optional[bool] = None,
+                 step_callback: Optional[Callable] = None, mesh=None,
+                 sequence_parallel: bool = False):
+        refuse_sequence_parallel(sequence_parallel)
         self.config = config
         self.step_callback = step_callback
         self.tokenizer = tokenizer
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = pipeline_device(device, mesh)
         self.int8_x_scale = int8_x_scale(int8)
         models = load_models(config, state, device=self.device, dtype=dtype,
-                             int8_x_scale=self.int8_x_scale)
+                             int8_x_scale=self.int8_x_scale,
+                             tp=None if mesh is None else mesh.tp)
         self.unet = models["unet"]
         self.vae = models["vae"]
         self.text_encoder = models["text_encoder"]
@@ -356,8 +367,12 @@ class InpaintPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
              **extra) -> np.ndarray:
         """Draw the noise, run ``_generate`` (with ``extra``, the keyword
         arguments a subclass's ``_generate`` adds) and ``finish`` under the
-        telemetry stage ``generate``, and count the images and steps."""
-        _, h, w, _ = req.images.shape
+        telemetry stage ``generate``, and count the images and steps. On a
+        mesh this rank runs its share of the images (``MeshMixin``)."""
+        b, h, w, _ = req.images.shape
+        share = self._share(b)
+        if share is not None:
+            req, latents, extra = self._shard(req, latents, extra, share)
         mod, sched = make_sampler(req.scheduler, self.config.scheduler,
                                   num_inference_steps, req.strength_steps)
         n_draws = sched.num_steps if takes_step_noise(mod, float(eta)) else 0
@@ -367,7 +382,7 @@ class InpaintPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
         dev = self.device
         telemetry.reset_stages()
         with telemetry.stage("generate"):
-            out = finish(self._generate(
+            out = finish(self._gather(self._generate(
                 to_device(req.ids, dev, torch.long),
                 to_device(np.asarray(req.fittings, np.float32), dev),
                 to_device(req.images, dev),
@@ -379,8 +394,28 @@ class InpaintPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
                 eta=float(eta),
                 latents_in=None if latents is None else to_device(latents, dev),
                 clip_skip=int(clip_skip), scheduler=req.scheduler,
-                **extra))
+                **extra)))
         self._calls += 1
-        telemetry.count("images", req.images.shape[0])
+        telemetry.count("images", b)
         telemetry.count("denoise_steps", req.strength_steps)
         return out
+
+    @staticmethod
+    def _shard(req: Request, latents, extra: dict, share: slice):
+        """A request's rows ``share`` (``MeshMixin``): its images, masks,
+        guidances and seeds, its prompts where it has one per image, the
+        caller's latents and embeddings, and the ControlNet's control
+        images (N, B, ...)."""
+        b = req.images.shape[0]
+        per_image = len(req.ids) == b
+        req = req._replace(
+            images=req.images[share], masks=req.masks[share],
+            ids=req.ids[share] if per_image else req.ids,
+            fittings=req.fittings[share] if per_image else req.fittings,
+            guidances=req.guidances[share], seeds=req.seeds[share])
+        extra = dict(extra)
+        for k in ("prompt_embeds", "negative_prompt_embeds"):
+            extra[k] = rows(extra.get(k), share, b)
+        if extra.get("control_u8") is not None:
+            extra["control_u8"] = extra["control_u8"][:, share]
+        return req, rows(latents, share, b), extra

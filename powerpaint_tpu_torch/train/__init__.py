@@ -13,7 +13,9 @@ with exact resume, and the command line.
 - bf16 compute with fp32 master parameters (``models.layers.
   cast_for_compute``); the hand kernels' gradients recompute their plain
   versions (``ops._grad``).
-- One device; data-parallel and ZeRO-3 placement are ROADMAP A18.
+- One process, or a mesh of them (``train.step.replicate_state``,
+  ``fsdp_state``; ``--mesh N [--fsdp]`` on the command line): data
+  parallel, ZeRO-3, or tensor parallel.
 """
 
 from powerpaint_tpu_torch.train.data import (  # noqa: F401

@@ -18,9 +18,17 @@ Without --checkpoint_dir a random-init stack is used (smoke runs); without
 (``--device cuda``) unless asked for the CPU. The final weights go to
 ``<out>/weights`` in the reference checkpoint layout (serve them with
 ``--checkpoint_dir <out>/weights``), or to ``<out>/lora.npz`` (serve with
-``--lora``). ``--mesh`` and ``--fsdp`` (data-parallel and ZeRO-3 training)
-are ROADMAP A18 and refused; so is ``POWERPAINT_INT8=1``, since the int8
-units quantise their weights with a rounding that has no gradient.
+``--lora``). ``POWERPAINT_INT8=1`` is refused, since the int8 units
+quantise their weights with a rounding that has no gradient.
+
+``--mesh N`` trains data-parallel over N ranks that this command starts
+itself (``parallel.launch.spawn``): ``cuda:0`` .. ``cuda:N-1`` over NCCL,
+or N gloo processes on the CPU under ``--device cpu``; N above the
+host's card count is refused. ``--batch_size`` is the global batch, which
+N must divide. ``--fsdp`` with it places the state ZeRO-3
+(``train.step.fsdp_state``); without ``--mesh`` it is ignored, as in the
+JAX package. Rank 0 logs and writes everything, gathered whole, so the
+files are those of a one-process run.
 """
 
 from __future__ import annotations
@@ -73,11 +81,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_every", type=int, default=25)
     p.add_argument("--ckpt_every", type=int, default=250)
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel over N devices (0 = single device): "
-                        "not in the port yet (ROADMAP A18)")
+                   help="data-parallel over N ranks, one process each, "
+                        "started by this command (0 = one process)")
     p.add_argument("--fsdp", action="store_true",
-                   help="with --mesh: ZeRO-3 placement; not in the port yet "
-                        "(ROADMAP A18)")
+                   help="with --mesh: fully shard params/optimizer/EMA "
+                        "over the data axis (ZeRO-3) instead of "
+                        "replicating — ~1/N state bytes per rank")
     p.add_argument("--tiny", action="store_true",
                    help="tiny config smoke run (CPU-friendly)")
     p.add_argument("--weight_dtype", default="float32",
@@ -90,13 +99,39 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh or args.fsdp:
-        raise SystemExit("--mesh / --fsdp (data-parallel and ZeRO-3 "
-                         "training) are not in the port yet: ROADMAP A18")
     if os.environ.get("POWERPAINT_INT8", "0") == "1":
         raise SystemExit("POWERPAINT_INT8=1 is inference only: the int8 "
                          "units round their weights, which has no gradient")
+    if not args.mesh:
+        return train(args)
 
+    import torch
+
+    from powerpaint_tpu_torch.parallel.launch import cpu_threads, spawn
+
+    n = args.mesh
+    if args.device == "cpu":
+        devices, threads = ["cpu"] * n, cpu_threads(n)
+    else:
+        cards = torch.cuda.device_count()
+        if n > cards:
+            raise SystemExit(f"--mesh {n} needs {n} cards, one per rank; "
+                             f"this host has {cards}")
+        devices, threads = [f"cuda:{r}" for r in range(n)], None
+    spawn(_train_rank, devices, (args, devices), threads=threads)
+    return 0
+
+
+def _train_rank(rank: int, args, devices) -> None:
+    """One rank of ``--mesh``: the mesh over ``devices``, then ``train``."""
+    from powerpaint_tpu_torch.parallel.mesh import build_mesh
+
+    train(args, build_mesh(devices))
+
+
+def train(args, mesh=None) -> int:
+    """The run ``args`` asks for, in this process: alone, or as one rank of
+    ``mesh`` (``--fsdp``: ZeRO-3)."""
     import torch
 
     from powerpaint_tpu_torch.io.checkpoint import save_native
@@ -121,15 +156,19 @@ def main(argv=None) -> int:
     from powerpaint_tpu_torch.train.lora import init_lora_tree, save_lora_npz
     from powerpaint_tpu_torch.train.step import (
         AdamW,
+        fsdp_state,
+        gather_state,
         init_train_state,
         make_train_step,
+        replicate_state,
         trainable_mask,
     )
     from powerpaint_tpu_torch.train.trainer import Trainer, load_train_state
 
     version = args.version or ("ppt-v2" if args.mode == "v2" else "ppt-v1")
     dtype = torch.bfloat16 if args.weight_dtype == "bfloat16" else torch.float32
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
 
     # ---- model stack (fp32 masters on the device)
     if args.checkpoint_dir:
@@ -208,7 +247,13 @@ def main(argv=None) -> int:
     ckpt = os.path.join(args.out, "state.npz")
     if args.resume:
         state = load_train_state(ckpt, state)
-        print(f"resumed from {ckpt} at step {state.step}")
+        if writer:
+            print(f"resumed from {ckpt} at step {state.step}")
+    if mesh is not None:
+        if args.fsdp:
+            state, _ = fsdp_state(mesh, state)
+        else:
+            state = replicate_state(mesh, state)
 
     step_fn = make_train_step(loss_fn, tx, ema_decay=args.ema, draw=draw)
     metrics_path = os.path.join(args.out, "metrics.jsonl")
@@ -218,12 +263,14 @@ def main(argv=None) -> int:
         with open(metrics_path, "a") as fh:
             fh.write(json.dumps(m) + "\n")
 
-    trainer = Trainer(step_fn, state, data, seed=args.seed)
+    trainer = Trainer(step_fn, state, data, seed=args.seed, mesh=mesh)
     trainer.fit(args.steps, log_every=args.log_every, ckpt_path=ckpt,
                 ckpt_every=args.ckpt_every, on_log=on_log)
 
     # ---- final artifacts
-    final = final_params(trainer.state)
+    final = final_params(gather_state(trainer.state))
+    if not writer:
+        return 0
     if args.mode in ("lora", "lcm_distill"):
         out = os.path.join(args.out, "lora.npz")
         save_lora_npz(out, final)

@@ -27,7 +27,9 @@ dict. ``draws`` holds every random number of the step, explicitly (the
 JAX package draws them from its key inside the loss, and threefry cannot
 be matched): ``lat`` and ``mlat`` (the two latent samples' normals), ``t``
 (B,) and ``eps``; ``draw`` makes them from a ``torch.Generator``.
-``loss_fn.families`` names the families it differentiates.
+``loss_fn.families`` names the families it differentiates, and
+``loss_fn.models`` holds its modules (``{family: module}``, on the meta
+device), which ``train.step.replicate_state(tensor_parallel=True)`` splits.
 """
 
 from __future__ import annotations
@@ -142,6 +144,11 @@ def build_stack(config: PowerPaintConfig, dtype: torch.dtype) -> dict:
     return out
 
 
+def stack_models(stack: dict) -> Dict[str, nn.Module]:
+    """The modules of a ``build_stack``, by family."""
+    return {k: w.model.m for k, w in stack.items() if k != "vae_encode"}
+
+
 def make_v1_loss(config: PowerPaintConfig, *,
                  dtype: torch.dtype = torch.float32,
                  snr_gamma: Optional[float] = None) -> Callable:
@@ -177,6 +184,7 @@ def make_v1_loss(config: PowerPaintConfig, *,
         return loss, {"loss": loss, "mse": torch.mean(per)}
 
     loss_fn.families = ("unet", "text_encoder")
+    loss_fn.models = stack_models(m)
     return loss_fn
 
 
@@ -227,6 +235,7 @@ def make_v2_loss(config: PowerPaintConfig, *,
 
     loss_fn.families = ("unet", "text_encoder", "brushnet",
                         "text_encoder_brushnet")
+    loss_fn.models = stack_models(m)
     return loss_fn
 
 

@@ -8,6 +8,12 @@ a metric back to the host only on a log step. The checkpoint is one
 ``opt/<mu|nu|acc>/<leaf>``, ``ema/<leaf>``), restored into a template
 state of the same configuration: exact resume, no pickle. Final model
 weights go through ``io.checkpoint.save_native`` for serving.
+
+On a mesh (``Trainer(mesh=)``) only rank 0 logs and writes: a placed
+state (ZeRO-3 or tensor-parallel pieces) is gathered whole first, every
+rank taking part, into the same file one process writes; loading cuts
+each rank's pieces from it. So a mesh run resumes in one process and the
+other way round.
 """
 
 from __future__ import annotations
@@ -20,7 +26,12 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from powerpaint_tpu_torch.train.step import TrainState, flatten
+from powerpaint_tpu_torch.train.step import (
+    TrainState,
+    cut_leaf,
+    flatten,
+    gather_state,
+)
 
 _SCALARS = ("count", "mini_step", "gradient_step")
 
@@ -37,6 +48,13 @@ def _tensors(state: TrainState) -> dict:
 
 
 def save_train_state(path: str, state: TrainState) -> None:
+    """Write ``state`` (gathered whole first on a mesh, where every rank
+    calls this and rank 0 writes)."""
+    if state.mesh is not None:
+        rank = state.mesh.rank
+        state = gather_state(state)
+        if rank != 0:
+            return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp.npz"  # np.savez appends .npz unless present
     arrays = {k: t.detach().cpu().numpy() for k, t in _tensors(state).items()}
@@ -49,7 +67,8 @@ def save_train_state(path: str, state: TrainState) -> None:
 def load_train_state(path: str, template: TrainState) -> TrainState:
     """Restore into ``template`` (same model/optimizer config), in place:
     every tensor of the template is overwritten, on its device and in its
-    dtype; names and shapes must match."""
+    dtype; names and shapes must match (a placed template's pieces take
+    their cut of the whole tensors)."""
     want = _tensors(template)
     names = set(want) | {"step"} | {f"opt/{k}" for k in _SCALARS}
     with np.load(path) as z:
@@ -60,12 +79,14 @@ def load_train_state(path: str, template: TrainState) -> TrainState:
                              f"missing {missing}, unexpected {extra} — "
                              "model/optimizer config mismatch")
         for k, t in want.items():
-            arr = z[k]
+            # a placed template holds its rank's piece of the leaf
+            leaf = k.split("/", 2 if k.startswith("opt/") else 1)[-1]
+            arr = cut_leaf(template, leaf, torch.from_numpy(z[k]))
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"{k}: checkpoint shape {arr.shape} != "
                                  f"state {tuple(t.shape)}")
             with torch.no_grad():
-                t.copy_(torch.from_numpy(arr))
+                t.copy_(arr)
         template.step = int(z["step"])
         for k in _SCALARS:
             template.opt_state[k] = int(z[f"opt/{k}"])
@@ -76,12 +97,15 @@ def load_train_state(path: str, template: TrainState) -> TrainState:
 class Trainer:
     """Minimal production loop: metrics history, periodic checkpoints,
     exact resume. ``step_fn`` comes from ``train.step.make_train_step``
-    (with its ``draw``); ``data`` yields ``train.data.batches`` dicts."""
+    (with its ``draw``); ``data`` yields ``train.data.batches`` dicts (on
+    a mesh, every rank the same global batches). ``mesh``: only its rank
+    0 logs (``on_log``) and writes the checkpoint."""
 
     step_fn: Callable
     state: TrainState
     data: Iterator[Dict[str, np.ndarray]]
     seed: int = 0
+    mesh: Optional[object] = None
 
     def fit(
         self,
@@ -103,7 +127,7 @@ class Trainer:
                 m["step"] = step
                 m["wall_s"] = round(time.time() - t0, 2)
                 history.append(m)
-                if on_log:
+                if on_log and (self.mesh is None or self.mesh.rank == 0):
                     on_log(step, m)
             if ckpt_path and ckpt_every and step % ckpt_every == 0:
                 save_train_state(ckpt_path, self.state)

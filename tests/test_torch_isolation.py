@@ -163,3 +163,18 @@ def test_the_train_modules_are_covered_and_draw_masks_without_opencv():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_parallel_modules_are_covered_and_start_nothing_on_import():
+    """The mesh modules are checked like the rest, and importing them
+    joins no process group."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {f"parallel/{m}.py" for m in ("__init__", "mesh", "collectives",
+                                         "launch", "dryrun")} <= names
+    code = ("import torch.distributed as dist\n"
+            "import powerpaint_tpu_torch.parallel.dryrun\n"
+            "import powerpaint_tpu_torch.parallel.launch\n"
+            "assert not dist.is_initialized()\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -9,12 +9,18 @@
   package's ``export_lora_sd`` lays one out, merged by both packages'
   ``io/lora`` with nothing unmatched, and by the port's serve CLI
   (``--lora``); ppt-v2's weights read back by the port's ``load_ppt_v2``;
-- ``--mesh`` / ``--fsdp`` refused naming A18, ``POWERPAINT_INT8=1``
-  refused.
+- ``--mesh`` above the host's card count refused, ``--fsdp`` without
+  ``--mesh`` run as one process (as the JAX CLI ignores it),
+  ``POWERPAINT_INT8=1`` refused;
+- ``--mesh 2 --fsdp`` on two gloo CPU processes: its losses within the
+  data-parallel bound of the one-process run's, and its ``state.npz``
+  (gathered on rank 0) loaded into a one-process template, within the
+  post-Adam bound of the one-process state.
 
 No JAX compile: the JAX side only loads and merges.
 """
 
+import json
 import os
 
 import jax
@@ -210,10 +216,37 @@ def test_v2_weights_round_trip(tmp_path):
             assert torch.equal(got[k], v), (family, k)
 
 
-def test_cli_refuses_the_multi_device_modes_and_int8(monkeypatch):
-    for argv in (["--mesh", "2"], ["--fsdp"]):
-        with pytest.raises(SystemExit, match="A18"):
-            cli.main(["--tiny", "--device", "cpu"] + argv)
+def test_cli_refuses_the_multi_device_modes_and_int8(monkeypatch, tmp_path):
+    with pytest.raises(SystemExit, match="needs 2 cards, one per rank"):
+        cli.main(["--tiny", "--mesh", "2"])  # on the card; this host has none
+    _run(tmp_path / "fsdp", "--mode", "task_tokens", "--fsdp")  # no mesh
     monkeypatch.setenv("POWERPAINT_INT8", "1")
     with pytest.raises(SystemExit, match="no gradient"):
         cli.main(["--tiny", "--device", "cpu"])
+
+
+def test_cli_mesh_fsdp_matches_one_process(tmp_path):
+    lr = 1e-5  # the v1 default
+    one, mesh = tmp_path / "one", tmp_path / "mesh"
+    _run(one, "--mode", "v1")
+    _run(mesh, "--mode", "v1", "--mesh", "2", "--fsdp")
+
+    def losses(out):
+        return [json.loads(ln)["loss"]
+                for ln in (out / "metrics.jsonl").read_text().splitlines()]
+
+    np.testing.assert_allclose(losses(mesh), losses(one), rtol=1e-4)
+    # the gathered state loads into the one-process template ...
+    cfg = tiny_v1_config()
+    params = init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tx = AdamW(lr, labels=trainable_mask(params, "v1"))
+    state = load_train_state(str(mesh / "state.npz"),
+                             init_train_state(params, tx))
+    assert state.step == 2 and state.opt_state["count"] == 2
+    # ... within the post-Adam bound of the one-process run: 2 lr + slack
+    # a step, two steps
+    trained_one, trained_mesh = _trained(one), _trained(mesh)
+    for family, sd in trained_one.items():
+        for k, v in sd.items():
+            d = np.abs(trained_mesh[family][k] - v)
+            assert d.max() <= 2 * 2.1 * lr, (family, k, d.max())
