@@ -19,7 +19,15 @@ Phases, in order; any failure exits non-zero:
    main paths' shapes (LayerNorm also at a ragged C on misaligned rows;
    GroupNorm at every BiT shape of the DPT forward and LayerNorm at the
    safety checker's rows, in fp32, the annotator path's type; every kernel
-   also at a 768 x 512 image's shapes, where H != W),
+   also at a 768 x 512 image's shapes, where H != W; the modes sequence
+   parallelism adds at a rank's half of a 1024^2 canvas: the flash
+   kernel's log-sum-exp mode (its fp32 output to 2^-14 (fp32) or 2^-7
+   (bf16) of its largest value and of its 2-norm, the
+   log-sum-exp to 1e-5 (fp32) or 1e-3 (bf16) relative, beside ATen's flash
+   or memory-efficient op, which return one too), GroupNorm's moments
+   mode (mean and M2, to 1e-5 of the plain two-pass moments, beside
+   ``torch.var_mean``) and its apply and quantise modes from given
+   statistics (the apply to B3's bound, the quantiser bitwise)),
    in fp32 (TF32 off for matmuls and convs) and in bf16, and timed beside
    the plain version, one PyTorch library call of the same function (or
    the chain of calls named), and the data-sheet bound. The int8 units and the quantising modes must be bitwise equal to
@@ -232,7 +240,17 @@ Phases, in order; any failure exits non-zero:
    loss to 1e-3, the task-token rows to the JAX post-Adam bound, the
    large leaves' master, moments and EMA about half a rank at rest. (d)
    One NCCL rank: the data-parallel and the ZeRO-3 step bitwise the plain
-   step. No scaling is measured: the ranks share one card.
+   step. (e) Sequence parallelism: ppt-v1 on one 1024^2 canvas whose rows
+   the two ranks split (``sequence_parallel=True``, ``sp_min_seq`` 2048:
+   the UNet's levels 0 and 1 and the VAE's mid attention ride the ring,
+   level 2 gathers K and V), 4 DDIM steps, within max 18 / mean 2.0
+   uint8 of the one-process call, each rank launching the ring's flash
+   mode, GroupNorm's moments mode, B2 and B5; seconds and peak bytes a
+   rank against the one-process call, the copies staged through pinned
+   memory; the ring alone at the canvas's level-0, level-1 and VAE
+   attention against one flash launch over the whole K/V, to 2^-7 of the
+   output's largest value and of its 2-norm. No scaling
+   is measured: the ranks share one card.
 8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, each also
    with one other sampler: euler_a at strength 0.6, LCM on an LCM UNet,
    heun with a window; ppt-v1 with int8; ppt-v1 with the asymmetric VAE,
@@ -273,7 +291,12 @@ HW = 512
 TASKS = ("text-guided", "object-removal", "shape-guided", "image-outpainting")
 
 
+START = time.perf_counter()
+
+
 def log(**fields) -> None:
+    """One JSON line; ``at_s``: seconds since the script started."""
+    fields["at_s"] = round(time.perf_counter() - START, 2)
     print(json.dumps(fields), flush=True)
 
 
@@ -412,6 +435,56 @@ GN_SHAPES = [
     ((1, 262144, 192), 1e-6, True), ((1, 262144, 384), 1e-6, True),
     ((1, 65536, 768), 1e-6, True), ((1, 4096, 768), 1e-6, False),
 ]
+# The log-sum-exp mode of the flash kernel at a ring hop's shapes on a
+# 1024^2 canvas split two ways (phase 7j (e)): the UNet's level-0 and
+# level-1 self-attention (half the 16384 or 4096 queries against a rank's
+# block of keys; D = 40 and 80 are separate instantiations) and the VAE's
+# one-head mid attention. The log-sum-exp's relative bound: fp32 logits
+# summed in another order (fp32), the bf16 kernel's q rounded to bf16
+# after the scale (bf16).
+LSE_ATTN_SHAPES = [(2, 8192, 8192, 8, 40), (2, 2048, 2048, 8, 80),
+                   (1, 8192, 8192, 1, 512)]
+LSE_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+# The mode's fp32 output, held to its own size with no floor: the largest
+# |difference| over the largest |output|, and the difference's 2-norm over
+# the output's, each within the bound. fp32: the same arithmetic in
+# another order. bf16: the kernel rounds q * scale and the probabilities
+# to bf16 (2^-9 each, the logits' error scaled by their size of a few);
+# emulating those roundings on the CPU at the level-0, level-1 and VAE
+# shapes gives 0.0023-0.0035 of the largest output and 0.0023-0.0024 of
+# the 2-norm, so 2^-7 (0.0078). There a softmax scale off by a tenth
+# gives 0.24-0.57 and 0.15-0.16, and half the keys left out about 1.
+LSE_OUT_RTOL = {torch.float32: 2.0 ** -14, torch.bfloat16: 2.0 ** -7}
+# GroupNorm's sequence-parallel modes at a rank's rows of that canvas: the
+# UNet's first level (ResNet and transformer norms), its widest concat,
+# the VAE's largest map and its mid block
+SP_GN_SHAPES = [((2, 8192, 320), 1e-5, True), ((2, 8192, 960), 1e-5, True),
+                ((1, 524288, 128), 1e-6, True), ((1, 8192, 512), 1e-6, False)]
+
+
+def library_lse_ms(qt, kt, vt):
+    """(ms, name) of one ATen call that returns attention's output and its
+    log-sum-exp for (B, N, S, D) inputs: the flash backend's op where it
+    takes the head dim, else the memory-efficient one's; (None, reason)
+    where neither does."""
+    aten = torch.ops.aten
+    calls = (("aten._scaled_dot_product_flash_attention",
+              lambda: aten._scaled_dot_product_flash_attention(qt, kt, vt)),
+             ("aten._scaled_dot_product_efficient_attention",
+              lambda: aten._scaled_dot_product_efficient_attention(
+                  qt, kt, vt, None, True)))
+    refused = []
+    for name, fn in calls:
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            refused.append(f"{name}: {str(e).splitlines()[0][:80]}")
+            continue
+        return graph_ms(fn), name
+    return None, "; ".join(refused)
+
+
 # (B, H, W, Cin, Cout, groups): ResNet units (conv3x3_gn_silu) of the UNet
 # and the BrushNet at a 512x512 image under CFG (the first level, the
 # widest up-block concats, the deep levels) and of the VAE at its largest
@@ -501,6 +574,7 @@ def check_kernels(device) -> list:
     from powerpaint_tpu_torch.ops import conv
     from powerpaint_tpu_torch.ops import flash_attention as fa
     from powerpaint_tpu_torch.ops import norms
+    from powerpaint_tpu_torch.parallel.dryrun import attention_errors
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -555,6 +629,51 @@ def check_kernels(device) -> list:
                 library_backend=sdpa_backend(qt, kt, vt),
                 bound=bound_ms(flops, nbytes)))
     log(phase="kernel checks", kernel="flash_attention",
+        seconds=time.perf_counter() - t0)
+
+    # ---- kernel 1, its log-sum-exp mode (ring attention's hops): the fp32
+    # output to LSE_OUT_RTOL, the log-sum-exp to LSE_RTOL of the plain one
+    t0 = time.perf_counter()
+    for (b, sq, skv, n, d) in LSE_ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(b, sq, n, d, dtype=dtype)
+            k = randn(b, skv, n, d, dtype=dtype)
+            v = randn(b, skv, n, d, dtype=dtype)
+            got, lse = fa.flash_attention_lse(q, k, v)
+            torch.cuda.synchronize()
+            want, want_lse = fa.flash_attention_lse_plain(q, k, v)
+            errs = attention_errors(got, want)
+            rtol = LSE_OUT_RTOL[dtype]
+            lse_err = float(((lse - want_lse) / want_lse.abs()).abs().max())
+            check(got.dtype == lse.dtype == torch.float32,
+                  f"flash_attention_lse: {got.dtype} out, {lse.dtype} lse")
+            record("flash_attention_lse", (b, sq, skv, n, d), dtype,
+                   errs.pop("max_abs_err"),
+                   rtol * float(want.abs().max()),
+                   ok=max(errs.values()) <= rtol and lse_err <= LSE_RTOL[dtype],
+                   **errs, rtol=rtol, lse_max_rel_err=lse_err,
+                   lse_rtol=LSE_RTOL[dtype])
+            del want, want_lse
+            if dtype != torch.bfloat16:
+                continue
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            flops = 4.0 * b * n * sq * skv * d
+            # q, k, v read in bf16; the fp32 output and log-sum-exp written
+            nbytes = 2.0 * (b * sq * n * d + 2 * b * skv * n * d) + \
+                4.0 * (b * sq * n * d + b * n * sq)
+            lib_ms, lib_name = library_lse_ms(qt, kt, vt)
+            timings.setdefault("flash_attention_lse", []).append(dict(
+                shape=[b, sq, skv, n, d],
+                exp2_floor_ms=exp2_floor_ms(b * n * sq * skv),
+                ms=graph_ms(lambda: fa.flash_attention_lse(q, k, v)),
+                stream_ms=cuda_ms(lambda: fa.flash_attention_lse(q, k, v)),
+                host_ms=host_ms(lambda: fa.flash_attention_lse(q, k, v)),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_lse_plain(q, k, v),
+                                 iters=3),
+                library_ms=lib_ms, library_scope=lib_name,
+                bound=bound_ms(flops, nbytes)))
+            torch.cuda.empty_cache()
+    log(phase="kernel checks", kernel="flash_attention_lse",
         seconds=time.perf_counter() - t0)
 
     # ---- kernel 2: GroupNorm in its four modes (csrc/group_norm.cu)
@@ -647,6 +766,75 @@ def check_kernels(device) -> list:
                     library_ms=gt(lib), library_scope=scope,
                     bound=bound_ms(0.0, nbytes)))
     log(phase="kernel checks", kernel="group_norm",
+        seconds=time.perf_counter() - t0)
+
+    # ---- GroupNorm's sequence-parallel modes at the rows a rank holds of a
+    # 1024^2 canvas split two ways: the moments (mean, M2) against the plain
+    # two-pass moments to 1e-5, the apply and the quantiser from given
+    # statistics against their plain versions (the apply to B3's bound,
+    # the quantiser bitwise)
+    t0 = time.perf_counter()
+    for shape, eps, silu in SP_GN_SHAPES:
+        b, sz, c = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (randn(*shape) * 2 - 0.3).to(dtype)
+            w = 1 + 0.1 * randn(c)
+            bb = 0.1 * randn(c)
+            mean, m2 = norms.group_norm_moments(x, 32)
+            torch.cuda.synchronize()
+            p_mean, p_m2 = norms.group_norm_moments_plain(x, 32)
+            err = max(float(((mean - p_mean).abs() / (p_mean.abs() + 1.0)).max()),
+                      float(((m2 - p_m2) / p_m2).abs().max()))
+            record("group_norm_moments", shape, dtype, err, 1e-5)
+            stats = (p_mean, 1.0 / torch.sqrt(p_m2 / (sz * (c // 32)) + eps))
+            kw = dict(num_groups=32, eps=eps, silu=silu)
+            got = norms.group_norm(x, w, bb, stats=stats, **kw)
+            torch.cuda.synchronize()
+            want = norms.group_norm_plain(x, w, bb, stats=stats, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            record("group_norm", shape, dtype, err, tolerance(dtype, want),
+                   given_statistics=True)
+            qkw = dict(num_groups=32, eps=eps, x_scale=X_SCALE, stats=stats)
+            q = norms.gn_silu_quantize_int8(x, w, bb, **qkw)
+            want_q = norms.gn_silu_quantize_int8_plain(x, w, bb, **qkw)
+            record("gn_silu_quantize_int8", shape, dtype,
+                   float((q.float() - want_q.float()).abs().max()), 0.0,
+                   ok=torch.equal(q, want_q), given_statistics=True,
+                   levels_differing=int((q != want_q).sum()))
+            if dtype != torch.bfloat16:
+                continue
+            xg = x.reshape(b, -1, 32, c // 32)
+            n_el = float(x.numel())
+            iters = 5 if x.numel() >= 2 ** 24 else 20
+            fn = lambda x=x: norms.group_norm_moments(x, 32)  # noqa: E731
+            timings.setdefault("group_norm_moments", []).append(dict(
+                shape=list(shape), ms=graph_ms(fn, iters=iters),
+                stream_ms=cuda_ms(fn, iters=iters),
+                host_ms=host_ms(fn, iters=iters),
+                plain_ms=cuda_ms(lambda x=x: norms.group_norm_moments_plain(
+                    x, 32), iters=iters),
+                library_ms=graph_ms(lambda xg=xg: torch.var_mean(
+                    xg, dim=(1, 3), correction=0), iters=iters),
+                library_scope="torch.var_mean over the groups (variance "
+                              "and mean, not M2)",
+                bound=bound_ms(0.0, 2.0 * n_el)))
+            for name, fn, ref in (
+                    ("group_norm", lambda x=x, w=w, bb=bb, kw=kw: norms.group_norm(
+                        x, w, bb, stats=stats, **kw),
+                     lambda x=x, w=w, bb=bb, kw=kw: norms.group_norm_plain(
+                        x, w, bb, stats=stats, **kw)),
+                    ("gn_silu_quantize_int8",
+                     lambda x=x, w=w, bb=bb, qkw=qkw: norms.gn_silu_quantize_int8(
+                        x, w, bb, **qkw),
+                     lambda x=x, w=w, bb=bb, qkw=qkw: norms.gn_silu_quantize_int8_plain(
+                        x, w, bb, **qkw))):
+                timings.setdefault(name + " (given statistics)", []).append(dict(
+                    shape=list(shape), given_statistics=True,
+                    ms=graph_ms(fn, iters=iters),
+                    plain_ms=cuda_ms(ref, iters=iters),
+                    bound=bound_ms(0.0, (4.0 if name == "group_norm" else 3.0)
+                                   * n_el)))
+    log(phase="kernel checks", kernel="group_norm sequence-parallel modes",
         seconds=time.perf_counter() - t0)
 
     # ---- kernel 3: LayerNorm (csrc/layer_norm.cu)
@@ -1061,7 +1249,8 @@ def batch_invariance(device) -> None:
 # phases 3 to 7: the main paths
 # ---------------------------------------------------------------------------
 
-KERNELS = ("flash_attention", "group_norm", "group_norm_stats",
+KERNELS = ("flash_attention", "flash_attention_lse", "group_norm_moments",
+           "group_norm", "group_norm_stats",
            "gn_silu_quantize_int8", "quantize_int8", "layer_norm",
            "conv3x3_gn_silu", "conv3x3", "conv3x3_gn_silu_int8", "conv3x3_int8")
 
@@ -1307,9 +1496,15 @@ def expected_launches_cn(cfg, steps: int, branches: int = 1,
 
 def counters():
     from powerpaint_tpu_torch.ops import conv, norms
-    from powerpaint_tpu_torch.ops.flash_attention import flash_attention
+    from powerpaint_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_lse,
+    )
 
-    return {"flash_attention": flash_attention, "group_norm": norms.group_norm,
+    return {"flash_attention": flash_attention,
+            "flash_attention_lse": flash_attention_lse,
+            "group_norm_moments": norms.group_norm_moments,
+            "group_norm": norms.group_norm,
             "group_norm_stats": norms.group_norm_stats,
             "gn_silu_quantize_int8": norms.gn_silu_quantize_int8,
             "quantize_int8": norms.quantize_int8,
@@ -1857,8 +2052,7 @@ def denoise_device_ms(pipe, run):
 
     def profiled(*args, **kw):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = inner(*args, **kw)
             torch.cuda.synchronize()
         box["us"] = sum(e.self_device_time_total for e in prof.key_averages()
@@ -3161,7 +3355,7 @@ def device_ms(fn, families: dict = None, top: list = None) -> float:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [(e.key, e.self_device_time_total, e.count)
@@ -4262,7 +4456,11 @@ def profile_call(label: str, run_call) -> None:
     """One 20-step call under ``torch.profiler``: device time by kernel
     family and the top kernels, and the device's busy share of the call's
     wall time, against the profiled call and against the same call
-    unprofiled (the profiler slows the host side)."""
+    unprofiled (the profiler slows the host side). Every profiled call of
+    the script records the card's activity alone (CUPTI's kernel records,
+    of which the device times are made): recording each CPU op as well cost
+    15-35 s of the profiler's own processing a 20-step call, about a third
+    of the script's time."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
@@ -4273,7 +4471,7 @@ def profile_call(label: str, run_call) -> None:
         return (time.perf_counter() - t0) * 1e6
 
     plain_wall_us = run()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_us = run()
     kernels = [(e.key, e.self_device_time_total, e.count)
                for e in prof.key_averages()
@@ -5051,11 +5249,15 @@ MESH_SEEDS = (1, 2)
 MESH_TRAIN_HW = 512
 MESH_KERNELS = ("flash_attention", "conv3x3_gn_silu", "conv3x3", "group_norm",
                 "group_norm_stats", "layer_norm")  # B1-B5 (B5: conv3x3)
-MESH_LAUNCHES = {}  # kernel -> {"tp": [per rank], "dp": [per rank]}
+MESH_LAUNCHES = {}  # kernel -> {"tp" | "dp" | "sp": [per rank]}
 MESH_U8 = (18, 2.0)  # max, mean: the batch-variance bound of phases 3-7
 MESH_LOSS_RTOL = 1e-3
 MESH_LR = 1e-3
 MESH_FULL = True  # the published widths (a CPU rehearsal sets False)
+# part (e): one canvas's rows over the two ranks (sequence parallelism)
+SP_HW = 1024
+SP_KERNELS = ("flash_attention_lse", "group_norm_moments", "conv3x3_gn_silu",
+              "conv3x3")  # B1's ring hops, B3's moments, B2, B5
 
 
 def run_mesh_path(device):
@@ -5070,7 +5272,14 @@ def run_mesh_path(device):
     one-process step: the loss to ``MESH_LOSS_RTOL``, the task-token rows to
     the JAX bound, the large leaves' bytes at rest about half. Then (d) one
     rank over NCCL: the data-parallel and the ZeRO-3 step bitwise the
-    plain step. Every rank on the card; the parent launches nothing."""
+    plain step. (e) Sequence parallelism at data 2 on one ``SP_HW``^2
+    canvas (``dryrun.sp_card_check``): the image within ``MESH_U8`` of the
+    one-process call, each rank's launches of the ring's flash mode, the
+    moments mode, B2 and B5, its seconds and peak bytes against the one
+    process's, the copies it staged through pinned memory; the ring alone
+    against one flash launch over the whole K/V. Every rank on the card;
+    the parent launches nothing, so the path's launches are the ranks'
+    in (a), (b) and (e), summed (per rank and part in ``MESH_LAUNCHES``)."""
     from powerpaint_tpu_torch.parallel import dryrun
     from powerpaint_tpu_torch.parallel.launch import spawn
 
@@ -5079,9 +5288,10 @@ def run_mesh_path(device):
     devices = [dev, dev]
     t0 = time.perf_counter()
     ranks = spawn(dryrun.card_rank, devices,
-                  (devices, MESH_STEPS, HW, MESH_SEEDS, MESH_TRAIN_HW, MESH_FULL),
+                  (devices, MESH_STEPS, HW, MESH_SEEDS, MESH_TRAIN_HW, MESH_FULL,
+                   SP_HW),
                   backend="gloo", timeout=900)
-    log(phase="mesh", part="(a)-(c) two gloo ranks on one card",
+    log(phase="mesh", part="(a)-(c), (e) two gloo ranks on one card",
         seconds=time.perf_counter() - t0, card=CARD[0])
     for r, out in enumerate(ranks):
         check(out["device"] == dev and out.get("current_device") ==
@@ -5096,6 +5306,7 @@ def run_mesh_path(device):
             for k in MESH_KERNELS:
                 check(got["launches"][k] > 0,
                       f"mesh rank {r} ({part}): {k} was not launched")
+            for k in KERNELS:
                 MESH_LAUNCHES.setdefault(k, {}).setdefault(part, []).append(
                     got["launches"][k])
         tp, dp = out["tp"], out["dp"]
@@ -5132,6 +5343,32 @@ def run_mesh_path(device):
               f"layout kept {z['layout_kept']}")
     check(np.array_equal(ranks[0]["zero3"]["rows"], ranks[1]["zero3"]["rows"]),
           "mesh (c): the ranks' replicated task-token rows differ")
+    one = ranks[0]["sp"]
+    for r, out in enumerate(ranks):
+        sp = out["sp"]
+        log(path="mesh", rank=r, part="(e) sequence parallel", hw=SP_HW,
+            steps=MESH_STEPS, max_uint8_diff=sp["max"],
+            mean_uint8_diff=sp["mean"], shape=sp["shape"],
+            seconds=sp["seconds"], one_process_seconds=one["one_process_seconds"],
+            peak_bytes=sp["peak_bytes"],
+            one_process_peak_bytes=one["one_process_peak_bytes"],
+            launches=sp["launches"], staged=sp["staged"], ring=sp["ring"],
+            card=CARD[0])
+        check(sp["shape"] == [1, SP_HW, SP_HW, 3],
+              f"mesh rank {r} (e): an image of {sp['shape']}")
+        check(sp["max"] <= MESH_U8[0] and sp["mean"] <= MESH_U8[1],
+              f"mesh rank {r} (e): sequence parallel against one process: "
+              f"max {sp['max']}, mean {sp['mean']}")
+        for k in SP_KERNELS:
+            check(sp["launches"][k] > 0,
+                  f"mesh rank {r} (e): {k} was not launched")
+        for k in KERNELS:
+            MESH_LAUNCHES.setdefault(k, {}).setdefault("sp", []).append(
+                sp["launches"][k])
+        for ring in sp["ring"]:
+            check(ring["ok"], f"mesh rank {r} (e): the ring at {ring['shape']}: "
+                  f"{ring['max_rel_err']} of the largest output, "
+                  f"{ring['norm_rel_err']} of the 2-norm, beyond {ring['rtol']}")
 
     t1 = time.perf_counter()
     backend = "nccl" if cuda else "gloo"
@@ -5147,13 +5384,20 @@ def run_mesh_path(device):
               f"mesh (d): the {part} step over NCCL is not bitwise the plain "
               f"step: {got}")
     log(phase="mesh", seconds=time.perf_counter() - t0)
-    return {k: 0 for k in KERNELS}
+    return {k: sum(sum(ns) for ns in MESH_LAUNCHES.get(k, {}).values())
+            for k in KERNELS}
 
 
 META = {
     "flash_attention": dict(
         route="cuda", source="powerpaint_tpu_torch/csrc/flash_attention.cu",
         replaces="powerpaint_tpu/ops/flash_attention.py:28"),
+    "flash_attention_lse": dict(
+        route="cuda", source="powerpaint_tpu_torch/csrc/flash_attention.cu",
+        replaces="powerpaint_tpu/ops/flash_attention.py:28"),
+    "group_norm_moments": dict(
+        route="cuda", source="powerpaint_tpu_torch/csrc/group_norm.cu",
+        replaces="powerpaint_tpu/ops/norms_pallas.py:78"),
     "group_norm": dict(
         route="cuda", source="powerpaint_tpu_torch/csrc/group_norm.cu",
         replaces="powerpaint_tpu/ops/norms_pallas.py:78"),
@@ -5272,8 +5516,12 @@ def main() -> None:
                if k in head}))
         if name in grad_errs:  # its gradient's check (phase 2)
             kernels[-1]["grad_max_abs_err"] = grad_errs[name]
-        if name in MESH_LAUNCHES:  # phase 7j's ranks, per rank
+        if name in MESH_LAUNCHES:  # phase 7j's ranks, per part and rank
             kernels[-1]["mesh_launches"] = MESH_LAUNCHES[name]
+        for r in timings.get(name + " (given statistics)", []):
+            kernels[-1].setdefault("given_statistics", []).append(
+                {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                   "bound_by")})
         keys = ("shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
         if name == "flash_attention":  # the head dims past the UNet's
             kernels[-1]["head_dims"] = [

@@ -57,6 +57,15 @@
 // work from overlapping the products as designed, and each block re-reads
 // all of k and v from L2 for 128 q rows.
 //
+// The log-sum-exp mode (ppt_flash_attention_lse; ring attention's hops,
+// ops/ring_attention.py): the same kernels, with the output written in fp32
+// (the bf16 kernel's accumulator times 1/l, unrounded, so that the ring's
+// merges of partial results round to bf16 once, at the end) and each query
+// row's log-sum-exp, (m + log2 l) * ln 2 of the base-2 running state, into
+// a (B, N, Sq) fp32 tensor; of a head dim split into column slices, slice 0
+// writes it. Without it the kernels write what they wrote before, in the
+// same order.
+//
 // fp32 (checks and the CPU-comparable reference): flash_f32_kernel does all
 // arithmetic as fp32 FMA on the CUDA cores (67 TFLOP/s on an H100 SXM), a
 // 4x8 register tile of scores per thread fed from shared memory in
@@ -75,6 +84,7 @@ constexpr int BQ = 64;        // fp32: q rows per block
 constexpr int BK = 64;        // fp32: kv rows per tile
 constexpr int THREADS = 128;  // fp32: 4 warps
 constexpr float NEG_BIG = -1e30f;
+constexpr float LN2 = 0.693147180559945309f;  // the log-sum-exp from base 2 to e
 
 struct Strides {
   long long b, s, n;
@@ -97,7 +107,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int N,
                  int Sq, int Skv, int D, Strides qs, Strides ks, Strides vs,
-                 Strides os, float scale_log2) {
+                 Strides os, float scale_log2, float* __restrict__ lse) {
   constexpr int DO = 8 * NC;  // output columns of this block
   extern __shared__ float smem_f32[];
   float* Qs = smem_f32;            // [BQ][DC + 1]
@@ -225,6 +235,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= Sq) continue;
+    if (lse != nullptr && tx == 0 && blockIdx.z == 0)  // one column slice writes it
+      lse[(long long)blockIdx.y * Sq + row] = (m[i] + log2f(l[i])) * LN2;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 1.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -263,7 +275,9 @@ __device__ __forceinline__ Pack8 load8_scalar(const bf16* base, long long stride
 
 struct BfParams {
   const bf16 *q, *k, *v;
-  bf16* o;
+  bf16* o;      // the bf16 output, or null when o32 is written instead
+  float* o32;   // the fp32 output of the log-sum-exp mode, or null
+  float* lse;   // (B, N, Sq) fp32 log-sum-exp in natural-log units, or null
   int N, Sq, Skv, D;
   Strides qs, ks, vs, os;
   float scale_log2;
@@ -566,6 +580,25 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
   const int row0 = q0 + wq * 16 + g;
   const int row1 = row0 + 8;
+  if (p.lse != nullptr && blockIdx.z == 0 && t4 == 0) {  // one slice writes it
+    float* lb = p.lse + (long long)blockIdx.y * p.Sq;
+    if (row0 < p.Sq) lb[row0] = (m0 + log2f(l0)) * LN2;
+    if (row1 < p.Sq) lb[row1] = (m1 + log2f(l1)) * LN2;
+  }
+  if (p.o32 != nullptr) {  // the fp32 output: no rounding to bf16
+    float* of = p.o32 + b * p.os.b + h * p.os.n;
+#pragma unroll
+    for (int i = 0; i < DO / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = d0 + i * 8 + 2 * t4 + e;
+        if (col >= p.D) continue;
+        if (row0 < p.Sq) of[row0 * p.os.s + col] = o[4 * i + e] * inv0;
+        if (row1 < p.Sq) of[row1 * p.os.s + col] = o[4 * i + 2 + e] * inv1;
+      }
+    }
+    return;
+  }
   bf16* ob = p.o + b * p.os.b + h * p.os.n;
 #pragma unroll
   for (int i = 0; i < DO / 8; ++i) {
@@ -593,7 +626,8 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 
 struct Args {
   const void *q, *k, *v;
-  void* o;
+  void* o;     // the output: q's type, or fp32 where lse is written
+  float* lse;  // (B, N, Sq) fp32, or null
   int B, N, Sq, Skv, D;
   Strides qs, ks, vs, os;
   float scale_log2;
@@ -611,7 +645,7 @@ cudaError_t launch_f32(const Args& a) {
   kernel<<<grid, THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.N, a.Sq,
-      a.Skv, a.D, a.qs, a.ks, a.vs, a.os, a.scale_log2);
+      a.Skv, a.D, a.qs, a.ks, a.vs, a.os, a.scale_log2, a.lse);
   return cudaGetLastError();
 }
 
@@ -657,8 +691,11 @@ cudaError_t launch_bf16(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  const bool f32_out = a.lse != nullptr;  // the log-sum-exp mode writes fp32
   const BfParams p{static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-                   static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
+                   static_cast<const bf16*>(a.v),
+                   f32_out ? nullptr : static_cast<bf16*>(a.o),
+                   f32_out ? static_cast<float*>(a.o) : nullptr, a.lse,
                    a.N, a.Sq, a.Skv, a.D, a.qs, a.ks, a.vs, a.os, a.scale_log2, vec};
   const dim3 grid((a.Sq + 64 * NWG - 1) / (64 * NWG), a.B * a.N, (a.D + DO - 1) / DO);
   kernel<<<grid, 128 * (NWG + 1), smem, a.stream>>>(p);
@@ -732,7 +769,27 @@ extern "C" int ppt_flash_attention(const void* q, const void* k, const void* v,
                                    float scale_log2, void* stream) {
   if (B <= 0 || N <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || B * N > 65535)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, B, N, Sq, Skv, D,
+  const Args a{q, k, v, o, nullptr, B, N, Sq, Skv, D,
+               Strides{strides[0], strides[1], strides[2]},
+               Strides{strides[3], strides[4], strides[5]},
+               Strides{strides[6], strides[7], strides[8]},
+               Strides{strides[9], strides[10], strides[11]},
+               scale_log2, static_cast<cudaStream_t>(stream)};
+  return (int)(is_bf16 != 0 ? dispatch_bf16(a) : dispatch_f32(a));
+}
+
+// The log-sum-exp mode (ring attention's hops): as ppt_flash_attention,
+// but o is fp32 whatever the inputs' type (a bf16 kernel keeps its fp32
+// accumulator unrounded), and lse, (B, N, Sq) fp32 contiguous, receives
+// each query row's log(sum(exp(scale * q k^T))) in natural-log units.
+extern "C" int ppt_flash_attention_lse(const void* q, const void* k, const void* v,
+                                       float* o, float* lse, int is_bf16, int B, int N,
+                                       int Sq, int Skv, int D, const long long* strides,
+                                       float scale_log2, void* stream) {
+  if (B <= 0 || N <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || B * N > 65535 ||
+      lse == nullptr || o == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, o, lse, B, N, Sq, Skv, D,
                Strides{strides[0], strides[1], strides[2]},
                Strides{strides[3], strides[4], strides[5]},
                Strides{strides[6], strides[7], strides[8]},

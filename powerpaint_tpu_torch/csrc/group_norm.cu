@@ -14,6 +14,14 @@
 //   QUANT  the statistics, then GroupNorm + SiLU + the quantiser, int8;
 //   and the quantiser of x alone (quantize_kernel).
 // Every mode with statistics writes its (B, G) mean and rstd.
+// For a canvas whose rows are split over ranks (sequence parallelism):
+//   MOMENTS (STATS with `moments` set) writes each (batch, group)'s mean
+//   and M2 (the sum of squared deviations) over this rank's rows instead of
+//   mean and rstd: the values the streamed form's chunks merge, which the
+//   caller gathers over the ranks and merges (Chan) in rank order;
+//   APPLY and QUANT with `given` statistics take (2, B, G) mean and rstd
+//   from the caller and compute none: one launch of the streamed form's
+//   apply kernel (gn_finish_kernel), which reads x once and writes once.
 //
 // What bounds it: bytes. At (2, 4096, 320) bf16 a read and a write of x is
 // 10.5 MB, 0.0031 ms at 3.35 TB/s; the arithmetic is a few operations an
@@ -175,10 +183,12 @@ struct Args {
   int8_t* q;           // quantise: (B, S, C) int8
   float* stats;        // (2, B, G): mean, then 1 / sqrt(var + eps)
   float* part;         // streamed: (B, chunks, G, 2) chunk mean and M2
+  const float* given;  // apply, quantise: (2, B, G) mean and rstd to use, or null
   float eps, inv_x_scale;
   int B, S, C, G;
   int silu;            // apply: SiLU after the norm
   int vec;             // 16-byte accesses: rows and spans whole vectors, tensors aligned
+  int moments;         // statistics: write M2 in place of rstd
   Plan pl;
 };
 
@@ -489,7 +499,7 @@ __global__ void __launch_bounds__(THREADS) gn_resident_kernel(const __grid_const
     if (rank == 0) {
       const int gi = b * a.G + sp * k + g;
       a.stats[gi] = mean;
-      a.stats[a.B * a.G + gi] = rstd;
+      a.stats[a.B * a.G + gi] = a.moments ? m2 : rstd;
     }
   }
   if (MODE != STATS) {
@@ -539,8 +549,9 @@ __global__ void __launch_bounds__(THREADS) gn_partial_kernel(const __grid_consta
 }
 
 // Streamed form, launch 2. Grid (chunks, B), or (1, B) for the statistics
-// alone: each block merges its image's chunk partials in chunk order and
-// applies its chunk.
+// alone: each block merges its image's chunk partials in chunk order (or
+// takes the given statistics: then it is the only launch) and applies its
+// chunk.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS) gn_finish_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -549,18 +560,23 @@ __global__ void __launch_bounds__(THREADS) gn_finish_kernel(const __grid_constan
   float* f = reinterpret_cast<float*>(smem);
   float *bet = f, *ca = f + C, *cb = f + 2 * C, *smean = f + 3 * C, *srstd = smean + G;
   for (int g = threadIdx.x; g < G; g += THREADS) {
-    float cnt = 0.f, mean = 0.f, m2 = 0.f;
-    for (int c = 0; c < pl.chunks; ++c) {
-      const int rr = max(0, min(pl.rows, a.S - c * pl.rows));
-      const float* p = a.part + (((long long)b * pl.chunks + c) * G + g) * 2;
-      chan_merge(cnt, mean, m2, (float)(rr * gs), p[0], p[1]);
+    float cnt = 0.f, mean = 0.f, m2 = 0.f, rstd;
+    if (a.given != nullptr) {
+      mean = a.given[b * G + g];
+      rstd = a.given[a.B * G + b * G + g];
+    } else {
+      for (int c = 0; c < pl.chunks; ++c) {
+        const int rr = max(0, min(pl.rows, a.S - c * pl.rows));
+        const float* p = a.part + (((long long)b * pl.chunks + c) * G + g) * 2;
+        chan_merge(cnt, mean, m2, (float)(rr * gs), p[0], p[1]);
+      }
+      rstd = rstd_of(cnt, m2, a.eps);
     }
-    const float rstd = rstd_of(cnt, m2, a.eps);
     smean[g] = mean;
     srstd[g] = rstd;
     if (chunk == 0) {
       a.stats[b * G + g] = mean;
-      a.stats[a.B * G + b * G + g] = rstd;
+      a.stats[a.B * G + b * G + g] = a.moments ? m2 : rstd;
     }
   }
   if (MODE == STATS) return;
@@ -679,8 +695,25 @@ cudaError_t launch_streamed(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// Given statistics: the apply kernel alone, a block per (chunk of rows,
+// image).
+template <typename T, int MODE>
+cudaError_t launch_given(const Args& a, cudaStream_t s) {
+  auto finish = gn_finish_kernel<T, MODE>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = configure(finish, false);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  finish<<<dim3(a.pl.chunks, a.B), THREADS, (size_t)a.pl.smem2, s>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const Args& a, int mode, cudaStream_t s) {
+  if (a.given != nullptr)
+    return mode == APPLY ? launch_given<T, APPLY>(a, s) : launch_given<T, QUANT>(a, s);
   if (a.pl.resident) {
     if (mode == STATS) return launch_resident<T, STATS>(a, s);
     if (mode == APPLY) return launch_resident<T, APPLY>(a, s);
@@ -714,32 +747,47 @@ extern "C" long long ppt_group_norm_workspace(int B, int S, int C, int G, int is
 // int8. gamma, beta: (C) fp32 (null for mode 0). stats: (2, B, G) fp32,
 // written in every mode. part: ppt_group_norm_workspace floats, or null
 // when it is 0. G at most 256. cluster: 0 for the plan's cluster size, else
-// that size (a size the card cannot hold is refused). Returns the CUDA
+// that size (a size the card cannot hold is refused). given (modes 1 and
+// 2): (2, B, G) fp32 mean and rstd to apply, computing none; null
+// otherwise. moments (mode 0): write M2 in place of rstd. Returns the CUDA
 // error code.
 extern "C" int ppt_group_norm(const void* x, const float* gamma, const float* beta, void* out,
                               int8_t* q, float* stats, float* part, float eps, float inv_x_scale,
                               int mode, int silu, int is_bf16, int B, int S, int C, int G,
-                              int cluster, void* stream) {
+                              int cluster, const float* given, int moments, void* stream) {
   if (B <= 0 || S <= 0 || C <= 0 || G <= 0 || G > THREADS || C % G != 0 || B > 65535 || mode < 0 ||
       mode > 2 || x == nullptr || stats == nullptr ||
       (mode != STATS && (gamma == nullptr || beta == nullptr)) ||
-      (mode == APPLY && out == nullptr) || (mode == QUANT && q == nullptr))
+      (mode == APPLY && out == nullptr) || (mode == QUANT && q == nullptr) ||
+      (given != nullptr && (mode == STATS || cluster > 0)) || (moments && mode != STATS))
     return (int)cudaErrorInvalidValue;
   const int esize = is_bf16 ? 2 : 4;
   Plan pl = plan_gn(S, C, G, esize, hopper::sm_count());
+  if (given != nullptr) {  // the apply kernel alone over chunks of rows
+    pl = Plan{};
+    pl.span = C;
+    pl.spans = 1;
+    pl.k = G;
+    pl.cluster = 1;
+    pl.chunks = std::min(STREAM_CHUNKS, S);
+    pl.rows = (S + pl.chunks - 1) / pl.chunks;
+    pl.smem2 = 4LL * (3 * C + 2 * G);
+  }
   if (cluster > 0) {
     if (!pl.resident) return (int)cudaErrorInvalidValue;
     pl.cluster = pl.chunks = cluster;
     pl.rows = (S + cluster - 1) / cluster;
     pl.smem = resident_smem(pl.rows, pl.span, pl.k, esize);
   }
-  if (pl.smem > MAX_SMEM || pl.smem2 > MAX_SMEM || (!pl.resident && part == nullptr) ||
+  if (pl.smem > MAX_SMEM || pl.smem2 > MAX_SMEM ||
+      (!pl.resident && given == nullptr && part == nullptr) ||
       (long long)pl.spans * pl.cluster > 2147483647LL || (long long)S * C > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const int vec_bytes = mode == QUANT ? 16 / esize : 16;  // bytes of one output vector
   const bool vec = (pl.span * esize) % 16 == 0 && (C * esize) % 16 == 0 && aligned(x, 16) &&
                    (mode != APPLY || aligned(out, 16)) && (mode != QUANT || aligned(q, vec_bytes));
-  Args a{x, gamma, beta, out, q, stats, part, eps, inv_x_scale, B, S, C, G, silu, vec ? 1 : 0, pl};
+  Args a{x,    gamma, beta, out,  q,          stats, part, given, eps, inv_x_scale,
+         B,    S,     C,    G,    silu, vec ? 1 : 0, moments ? 1 : 0, pl};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? launch<bf16>(a, mode, s) : launch<float>(a, mode, s));
 }

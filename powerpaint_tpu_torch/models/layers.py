@@ -34,6 +34,7 @@ from powerpaint_tpu_torch.ops.conv import (
     int8_site,
 )
 from powerpaint_tpu_torch.ops.norms import group_norm, layer_norm
+from powerpaint_tpu_torch.parallel import sequence
 
 
 class GroupNorm(nn.Module):
@@ -67,20 +68,28 @@ class Conv2D(nn.Conv2d):
     SAME conv, and the pair runs as ``ops.conv.conv3x3_gn_silu``; the
     parameters stay where they are, so state-dict keys do not change.
     After ``set_int8`` the pair runs as ``ops.conv.conv3x3_gn_silu_int8``
-    wherever ``ops.conv.int8_site`` admits the call's shape."""
+    wherever ``ops.conv.int8_site`` admits the call's shape (the canvas's
+    shape under sequence parallelism). Under the row context
+    (``parallel.sequence``) a conv that reads across rows takes the
+    neighbouring ranks' rows: the hand kernels in ``ops.conv``, the convs
+    left on cuDNN through ``sequence.conv_rows``."""
 
     int8_x_scale: Optional[float] = None
 
     def forward(self, x: torch.Tensor,
                 gn: Optional[GroupNorm] = None) -> torch.Tensor:
         if gn is None:
+            if sequence.current() is not None and (
+                    self.kernel_size[0] > 1 or self.stride[0] > 1):
+                return sequence.conv_rows(x, self, self.padding[0],
+                                          self.padding[0])
             return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         if self.kernel_size != (3, 3) or self.stride != (1, 1) or \
                 self.padding != (1, 1):
             raise ValueError("a GroupNorm prologue needs a 3x3 stride-1 SAME conv")
         _, h, w, cin = x.shape
-        if self.int8_x_scale is not None and int8_site(h, w, cin,
-                                                       self.out_channels):
+        if self.int8_x_scale is not None and int8_site(
+                sequence.global_rows(h), w, cin, self.out_channels):
             return conv3x3_gn_silu_int8(
                 x.contiguous(), self.w_q, self.w_scale, self.bias_fp32,
                 gn.weight, gn.bias, x_scale=self.int8_x_scale,

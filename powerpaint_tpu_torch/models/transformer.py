@@ -1,7 +1,9 @@
 """Spatial transformer (self + cross attention) for the UNet on NHWC
 activations (diffusers ``Transformer2DModel`` / ``BasicTransformerBlock``
 parameter names). Self- and cross-attention both go through
-``ops.attention``, which launches the flash-attention kernel on the card.
+``ops.attention``, which launches the flash-attention kernel on the card;
+self-attention (``context`` None) says so, which under sequence
+parallelism puts it on the ring.
 
 IP-Adapter (diffusers ``IPAdapterAttnProcessor``, as the JAX package's
 ``Attention`` computes it): a cross-attention built with ``ip_adapters``
@@ -88,7 +90,7 @@ class Attention(nn.Module):
         q = self.to_q(x).view(b, s, n, d)
         k = self.to_k(ctx).view(b, skv, n, d)
         v = self.to_v(ctx).view(b, skv, n, d)
-        out = attention(q, k, v)
+        out = attention(q, k, v, self_attention=context is None)
         if ip_context is not None:
             contexts = (list(ip_context) if isinstance(ip_context, (tuple, list))
                         else [ip_context])

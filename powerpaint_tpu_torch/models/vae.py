@@ -26,6 +26,7 @@ from powerpaint_tpu_torch.core.config import VAEConfig
 from powerpaint_tpu_torch.models.layers import Conv2D, GroupNorm
 from powerpaint_tpu_torch.models.resnet import ResnetBlock2D, Upsample2D
 from powerpaint_tpu_torch.ops.attention import attention
+from powerpaint_tpu_torch.parallel import sequence
 
 
 class VAEAttention(nn.Module):
@@ -40,7 +41,8 @@ class VAEAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         y = self.group_norm(x).reshape(b, h * w, 1, c)
-        out = attention(self.to_q(y), self.to_k(y), self.to_v(y))
+        out = attention(self.to_q(y), self.to_k(y), self.to_v(y),
+                        self_attention=True)
         return self.to_out[0](out).reshape(b, h, w, c) + x
 
 
@@ -53,7 +55,11 @@ class VAEDownsample2D(nn.Module):
         self.conv = Conv2D(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))  # NHWC: W right, H bottom
+        if sequence.current() is None:
+            return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))  # NHWC: W right, H bottom
+        # this rank's rows: the row below from the next rank, the zero row
+        # at the canvas's bottom on the last
+        return sequence.conv_rows(F.pad(x, (0, 0, 0, 1)), self.conv, 0, 1)
 
 
 class VAEMidBlock(nn.Module):

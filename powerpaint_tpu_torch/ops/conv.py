@@ -27,6 +27,17 @@ The static-scale int8 forms of both (``conv3x3_gn_silu_int8``,
 ``conv3x3_int8``, the JAX package's ``POWERPAINT_INT8`` path) quantise the
 activation with ``ops.norms`` and run a second kernel,
 ``csrc/conv3x3_int8.cu``; they are described below.
+
+Under the row context of sequence parallelism (``parallel.sequence``) all
+four run on this rank's rows of a canvas: the GroupNorm statistics are the
+whole canvas's, taken from this rank's own rows (``ops.norms``), x gains
+one row of each neighbouring rank (``sequence.with_halo``, a torch copy),
+the unchanged kernel runs on it (its prologue normalises the halo rows
+with the same statistics; it pads zeros only at the canvas's edge, where
+no neighbour is), and the output rows of the halo are dropped. The plans
+take the odd heights (h + 1, h + 2) as they are: ``bf16_plan`` and
+``int8_plan`` count 8 x 8 tiles with ragged edges, and the kernels mask
+the rows past H.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from powerpaint_tpu_torch.ops.norms import (
     quantize_int8,
     quantize_int8_plain,
 )
+from powerpaint_tpu_torch.parallel import sequence
 
 
 def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -60,10 +72,11 @@ def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
 def conv3x3_gn_silu_plain(x: torch.Tensor, weight: torch.Tensor,
                           bias: Optional[torch.Tensor], gamma: torch.Tensor,
                           beta: torch.Tensor, *, num_groups: int,
-                          eps: float) -> torch.Tensor:
-    """GroupNorm + SiLU in fp32, rounded to x's dtype, then the conv."""
+                          eps: float, stats=None) -> torch.Tensor:
+    """GroupNorm + SiLU in fp32 (with the given (mean, rstd) ``stats``
+    where given), rounded to x's dtype, then the conv."""
     h = group_norm_plain(x, gamma, beta, num_groups=num_groups, eps=eps,
-                         silu=True)
+                         silu=True, stats=stats)
     return conv3x3_plain(h, weight, bias)
 
 
@@ -167,6 +180,8 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """conv3x3(x) + bias, stride 1, SAME: x (B, H, W, Cin), weight
     (Cout, Cin, 3, 3), bias (Cout,) -> (B, H, W, Cout) in x's dtype."""
+    if sequence.current() is not None:
+        return sequence.with_halo(x, lambda xe: _conv3x3(xe, weight, bias))
     if needs_grad(x, weight, bias):
         return Conv3x3.apply({}, x, weight, bias)
     return _conv3x3(x, weight, bias)
@@ -187,6 +202,11 @@ def conv3x3_gn_silu(x: torch.Tensor, weight: torch.Tensor,
                     eps: float) -> torch.Tensor:
     """conv3x3(silu(group_norm(x))) + bias with per-(batch, group) fp32
     statistics; gamma and beta are (Cin,) fp32."""
+    if sequence.current() is not None:
+        stats = group_norm_stats(x, num_groups, eps)  # the canvas's
+        return sequence.with_halo(x, lambda xe: _conv3x3_gn_silu(
+            xe, weight, bias, gamma, beta, num_groups=num_groups, eps=eps,
+            stats=stats))
     if needs_grad(x, weight, bias, gamma, beta):
         return Conv3x3GnSilu.apply(dict(num_groups=num_groups, eps=eps),
                                    x, weight, bias, gamma, beta)
@@ -194,10 +214,12 @@ def conv3x3_gn_silu(x: torch.Tensor, weight: torch.Tensor,
                             num_groups=num_groups, eps=eps)
 
 
-def _conv3x3_gn_silu(x, weight, bias, gamma, beta, *, num_groups, eps):
+def _conv3x3_gn_silu(x, weight, bias, gamma, beta, *, num_groups, eps,
+                     stats=None):
     if not x.is_cuda:
         return conv3x3_gn_silu_plain(x, weight, bias, gamma, beta,
-                                     num_groups=num_groups, eps=eps)
+                                     num_groups=num_groups, eps=eps,
+                                     stats=stats)
     _check("conv3x3_gn_silu", x, weight, bias)
     cin = x.shape[-1]
     for t in (gamma, beta):
@@ -205,7 +227,8 @@ def _conv3x3_gn_silu(x, weight, bias, gamma, beta, *, num_groups, eps):
                 t.device != x.device or not t.is_contiguous():
             raise ValueError(f"conv3x3_gn_silu: gamma/beta must be ({cin},) "
                              f"fp32 on {x.device}")
-    mean, rstd = group_norm_stats(x, num_groups, eps)
+    mean, rstd = stats if stats is not None else group_norm_stats(
+        x, num_groups, eps)
     out = _launch(x, weight, bias, (mean, rstd, gamma, beta))
     conv3x3_gn_silu.launches += 1
     return out
@@ -274,10 +297,10 @@ def conv3x3_gn_silu_int8_plain(x: torch.Tensor, w_q: torch.Tensor,
                                bias: Optional[torch.Tensor],
                                gamma: torch.Tensor, beta: torch.Tensor, *,
                                x_scale: float, num_groups: int,
-                               eps: float) -> torch.Tensor:
+                               eps: float, stats=None) -> torch.Tensor:
     """``conv3x3_gn_silu_int8`` in plain PyTorch."""
     q = gn_silu_quantize_int8_plain(x, gamma, beta, num_groups=num_groups,
-                                    eps=eps, x_scale=x_scale)
+                                    eps=eps, x_scale=x_scale, stats=stats)
     return _int8_product_plain(q, w_q, w_scale, bias, x_scale, x.dtype)
 
 
@@ -377,6 +400,13 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     """conv3x3(quantise(x)) with int8 products: x (B, H, W, Cin) fp32 or
     bf16, w_q int8 (Cout, 3, 3, Cin), w_scale and bias fp32 (Cout,) ->
     (B, H, W, Cout) in x's dtype."""
+    if sequence.current() is not None:
+        return sequence.with_halo(x, lambda xe: _conv3x3_int8(
+            xe, w_q, w_scale, bias, x_scale=x_scale))
+    return _conv3x3_int8(x, w_q, w_scale, bias, x_scale=x_scale)
+
+
+def _conv3x3_int8(x, w_q, w_scale, bias, *, x_scale):
     if not x.is_cuda:
         return conv3x3_int8_plain(x, w_q, w_scale, bias, x_scale=x_scale)
     _check_int8("conv3x3_int8", x, w_q, w_scale, bias)
@@ -393,10 +423,20 @@ def conv3x3_gn_silu_int8(x: torch.Tensor, w_q: torch.Tensor,
                          eps: float) -> torch.Tensor:
     """conv3x3(quantise(silu(group_norm(x)))) with int8 products; gamma and
     beta are (Cin,) fp32, the other arguments as ``conv3x3_int8``."""
+    kw = dict(x_scale=x_scale, num_groups=num_groups, eps=eps)
+    if sequence.current() is not None:
+        stats = group_norm_stats(x, num_groups, eps)  # the canvas's
+        return sequence.with_halo(x, lambda xe: _conv3x3_gn_silu_int8(
+            xe, w_q, w_scale, bias, gamma, beta, stats=stats, **kw))
+    return _conv3x3_gn_silu_int8(x, w_q, w_scale, bias, gamma, beta, **kw)
+
+
+def _conv3x3_gn_silu_int8(x, w_q, w_scale, bias, gamma, beta, *, x_scale,
+                          num_groups, eps, stats=None):
     if not x.is_cuda:
         return conv3x3_gn_silu_int8_plain(
             x, w_q, w_scale, bias, gamma, beta, x_scale=x_scale,
-            num_groups=num_groups, eps=eps)
+            num_groups=num_groups, eps=eps, stats=stats)
     _check_int8("conv3x3_gn_silu_int8", x, w_q, w_scale, bias)
     cin = x.shape[-1]
     for t in (gamma, beta):
@@ -405,7 +445,7 @@ def conv3x3_gn_silu_int8(x: torch.Tensor, w_q: torch.Tensor,
             raise ValueError(f"conv3x3_gn_silu_int8: gamma/beta must be "
                              f"({cin},) fp32 on {x.device}")
     q = gn_silu_quantize_int8(x, gamma, beta, num_groups=num_groups, eps=eps,
-                              x_scale=x_scale)
+                              x_scale=x_scale, stats=stats)
     out = int8_product(q, w_q, w_scale, bias, x_scale, x.dtype)
     conv3x3_gn_silu_int8.launches += 1
     return out

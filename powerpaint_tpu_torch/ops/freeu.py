@@ -6,6 +6,11 @@ skip connection's lowest frequencies by s1 / s2, before they are
 concatenated. The JAX package filters in Fourier space with ``jnp.fft``
 (XLA), not a Pallas kernel; here ``torch.fft`` (cuFFT on the card), in
 fp32, returning the input's dtype.
+
+The filter transforms over the whole map, so under the row context of
+sequence parallelism (``parallel.sequence``) each rank gathers the skip's
+rows (up blocks 0 and 1, the two smallest maps), filters the whole map
+and keeps its own rows, as GSPMD does.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from powerpaint_tpu_torch.parallel import sequence
 
 
 class FreeUConfig(NamedTuple):
@@ -47,4 +54,9 @@ def apply_freeu(resolution_idx: int, hidden: torch.Tensor, skip: torch.Tensor,
     n = hidden.shape[-1] // 2
     factor = torch.full((), b, dtype=hidden.dtype, device=hidden.device)
     hidden = torch.cat([hidden[..., :n] * factor, hidden[..., n:]], dim=-1)
-    return hidden, fourier_filter(skip, threshold=1, scale=s)
+    rows = sequence.current()
+    if rows is None:
+        return hidden, fourier_filter(skip, threshold=1, scale=s)
+    whole = rows.comm.all_gather(skip, 1)
+    filtered = fourier_filter(whole, threshold=1, scale=s)
+    return hidden, sequence.share_rows(filtered, rows.comm).contiguous()

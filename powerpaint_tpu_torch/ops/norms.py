@@ -21,6 +21,15 @@ bits in every mode for one tensor, so ``gn_silu_quantize_int8`` quantises
 exactly what its plain version (``group_norm_stats``, then PyTorch's fp32
 operations) quantises.
 
+Sequence parallelism (a canvas's rows split over the ranks of a data
+group, ``parallel.sequence``): under the row context the GroupNorm family
+normalises with the statistics of the whole canvas. Each rank takes the
+moments (mean and M2) of its own rows (``group_norm_moments``, the
+kernel's moments mode), the (2, B, G) moments are all-gathered over the
+group and Chan-merged in rank order on the device (``merge_moments``), so
+every rank holds the same statistics bit for bit, and the apply and the
+quantiser take them as given (``stats=``) instead of computing their own.
+
 ``layer_norm`` is ``csrc/layer_norm.cu``, replacing
 ``norms_pallas.py::_ln_kernel`` (``layer_norm_fused``): each row in the
 registers of a group of threads (lanes of one warp, or whole warps for a
@@ -43,6 +52,7 @@ import torch
 
 from powerpaint_tpu_torch.ops import _build
 from powerpaint_tpu_torch.ops._grad import needs_grad, recompute_function
+from powerpaint_tpu_torch.parallel import sequence
 
 
 # ---------------------------------------------------------------------------
@@ -52,15 +62,21 @@ from powerpaint_tpu_torch.ops._grad import needs_grad, recompute_function
 
 def group_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                      *, num_groups: int = 32, eps: float = 1e-6,
-                     silu: bool = False) -> torch.Tensor:
-    """Two-pass fp32 GroupNorm over (B, ..., C) per (batch, group)."""
+                     silu: bool = False, stats=None) -> torch.Tensor:
+    """Two-pass fp32 GroupNorm over (B, ..., C) per (batch, group);
+    ``stats``, a given (mean, rstd) pair of (B, G), replaces the statistics
+    of x."""
     b, c = x.shape[0], x.shape[-1]
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
     xf = x.float().reshape(b, -1, num_groups, c // num_groups)
-    mean = xf.mean(dim=(1, 3), keepdim=True)
-    var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
-    out = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    if stats is None:
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+    else:
+        mean, rstd = (t.reshape(b, 1, num_groups, 1) for t in stats)
+    out = ((xf - mean) * rstd).reshape(x.shape)
     out = out * gamma.float() + beta.float()
     if silu:
         out = out * torch.sigmoid(out)
@@ -90,6 +106,35 @@ def group_norm_stats_plain(x: torch.Tensor, num_groups: int,
     return mean, torch.rsqrt(var + eps)
 
 
+def group_norm_moments_plain(x: torch.Tensor, num_groups: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-pass fp32 mean and M2 (the sum of squared deviations from it)
+    per (batch, group) of (B, ..., C), each (B, G)."""
+    b, c = x.shape[0], x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    xf = x.float().reshape(b, -1, num_groups, c // num_groups)
+    mean = xf.mean(dim=(1, 3))
+    return mean, (xf - mean[:, None, :, None]).square().sum(dim=(1, 3))
+
+
+def merge_moments(means: torch.Tensor, m2s: torch.Tensor,
+                  count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chan's merge of n parts' (mean, M2), each (n, ...) of ``count``
+    elements a part, in part order (the kernel's ``chan_merge``, one fp32
+    operation at a time): the (mean, M2) of the whole."""
+    n_a = float(count)
+    mean, m2 = means[0], m2s[0]
+    for r in range(1, means.shape[0]):
+        n_ab = n_a + count
+        frac = count / n_ab
+        d = means[r] - mean
+        mean = mean + d * frac
+        m2 = (m2 + m2s[r]) + (d * d) * (n_a * frac)
+        n_a = n_ab
+    return mean, m2
+
+
 def inv_scale(x_scale: float) -> float:
     """1 / x_scale rounded once to fp32: the quantiser multiplies by it, as
     the TPU kernels' inv_x_scale."""
@@ -97,13 +142,15 @@ def inv_scale(x_scale: float) -> float:
 
 
 def gn_silu_fp32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
-                 num_groups: int, eps: float) -> torch.Tensor:
+                 num_groups: int, eps: float, stats=None) -> torch.Tensor:
     """The int8 units' activation before quantisation: GroupNorm with
-    ``group_norm_stats`` statistics, ``(x - mean) * (rstd * gamma) + beta``,
-    then ``y * sigmoid(y)``, kept in fp32 (the bf16 path rounds it to x's
-    dtype; the quantiser does not)."""
+    ``group_norm_stats`` statistics (or the given (mean, rstd) ``stats``),
+    ``(x - mean) * (rstd * gamma) + beta``, then ``y * sigmoid(y)``, kept
+    in fp32 (the bf16 path rounds it to x's dtype; the quantiser does
+    not)."""
     c = x.shape[-1]
-    mean, rstd = group_norm_stats(x, num_groups, eps)
+    mean, rstd = stats if stats is not None else group_norm_stats(
+        x, num_groups, eps)
     rep = c // num_groups
     view = (x.shape[0],) + (1,) * (x.dim() - 2) + (c,)
     mean = mean.repeat_interleave(rep, dim=1).reshape(view)
@@ -123,10 +170,11 @@ def quantize_int8_plain(x: torch.Tensor, *, x_scale: float) -> torch.Tensor:
 
 def gn_silu_quantize_int8_plain(x: torch.Tensor, gamma: torch.Tensor,
                                 beta: torch.Tensor, *, num_groups: int,
-                                eps: float, x_scale: float) -> torch.Tensor:
+                                eps: float, x_scale: float,
+                                stats=None) -> torch.Tensor:
     """``gn_silu_fp32`` then the quantiser, int8 in x's shape."""
     return _quantize_plain(gn_silu_fp32(x, gamma, beta, num_groups=num_groups,
-                                        eps=eps), x_scale)
+                                        eps=eps, stats=stats), x_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +254,8 @@ def _gn_lib():
     fn = lib.ppt_group_norm
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p])
     ws = lib.ppt_group_norm_workspace
     ws.restype = ctypes.c_longlong
     ws.argtypes = [ctypes.c_int] * 5
@@ -233,10 +282,12 @@ def _check_affine(x, gamma, beta, name):
 
 
 def _launch_gn(x, gamma, beta, num_groups, eps, mode, *, silu=False,
-               x_scale=None, cluster=0):
+               x_scale=None, cluster=0, stats=None, moments=False):
     """One call of ``ppt_group_norm``: returns (output or None, (2, B, G)
     statistics). ``cluster`` > 0 forces the resident form's cluster size
-    (the card tests' refusal check)."""
+    (the card tests' refusal check). ``stats``: a given (mean, rstd) pair
+    that the apply and quantise modes take instead of computing theirs;
+    ``moments``: the statistics mode writes (mean, M2)."""
     b, c = x.shape[0], x.shape[-1]
     s = x.numel() // (b * c)
     if c % num_groups or not 0 < num_groups <= 256:
@@ -244,7 +295,7 @@ def _launch_gn(x, gamma, beta, num_groups, eps, mode, *, silu=False,
                          "groups (1 to 256)")
     fn, ws, _ = _gn_lib()
     is_bf16 = int(x.dtype == torch.bfloat16)
-    stats = torch.empty((2, b, num_groups), dtype=torch.float32, device=x.device)
+    stat = torch.empty((2, b, num_groups), dtype=torch.float32, device=x.device)
     n_part = ws(b, s, c, num_groups, is_bf16)
     part = (torch.empty(n_part, dtype=torch.float32, device=x.device)
             if n_part else None)
@@ -253,35 +304,46 @@ def _launch_gn(x, gamma, beta, num_groups, eps, mode, *, silu=False,
         out = torch.empty_like(x)
     elif mode == _QUANT:
         q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    given = None
+    if stats is not None:
+        given = torch.stack([t.to(device=x.device, dtype=torch.float32)
+                             .reshape(b, num_groups) for t in stats]).contiguous()
     ptr = (lambda t: None if t is None else t.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), ptr(gamma), ptr(beta), ptr(out), ptr(q),
-             stats.data_ptr(), ptr(part), float(eps),
+             stat.data_ptr(), ptr(part), float(eps),
              inv_scale(x_scale) if x_scale is not None else 0.0, mode,
-             int(silu), is_bf16, b, s, c, num_groups, int(cluster), stream)
+             int(silu), is_bf16, b, s, c, num_groups, int(cluster), ptr(given),
+             int(moments), stream)
     if err != 0:
         raise RuntimeError(f"group_norm kernel launch failed: CUDA error {err}")
-    return (out if mode == _APPLY else q), stats
+    return (out if mode == _APPLY else q), stat
 
 
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
                num_groups: int = 32, eps: float = 1e-6,
-               silu: bool = False) -> torch.Tensor:
+               silu: bool = False, stats=None) -> torch.Tensor:
     """GroupNorm over (B, ..., C), statistics per (batch, group) in fp32,
-    then optional SiLU; output in x's dtype. gamma and beta (C,) fp32."""
+    then optional SiLU; output in x's dtype. gamma and beta (C,) fp32.
+    ``stats``: a given (mean, rstd) pair of (B, G) fp32 to apply instead;
+    under the row context (``parallel.sequence``) the whole canvas's
+    (``global_group_stats``). Differentiable without either."""
     kw = dict(num_groups=num_groups, eps=eps, silu=silu)
-    if needs_grad(x, gamma, beta):
+    if stats is None and sequence.current() is not None:
+        stats = global_group_stats(x, num_groups, eps)
+    if stats is None and needs_grad(x, gamma, beta):
         return GroupNorm.apply(kw, x, gamma, beta)
-    return _group_norm(x, gamma, beta, **kw)
+    return _group_norm(x, gamma, beta, stats=stats, **kw)
 
 
-def _group_norm(x, gamma, beta, *, num_groups, eps, silu):
+def _group_norm(x, gamma, beta, *, num_groups, eps, silu, stats=None):
     if not x.is_cuda:
         return group_norm_plain(x, gamma, beta, num_groups=num_groups,
-                                eps=eps, silu=silu)
+                                eps=eps, silu=silu, stats=stats)
     _check_x(x, "group_norm")
     _check_affine(x, gamma, beta, "group_norm")
-    out, _ = _launch_gn(x, gamma, beta, num_groups, eps, _APPLY, silu=silu)
+    out, _ = _launch_gn(x, gamma, beta, num_groups, eps, _APPLY, silu=silu,
+                        stats=stats)
     group_norm.launches += 1
     return out
 
@@ -290,7 +352,10 @@ def group_norm_stats(x: torch.Tensor, num_groups: int,
                      eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(batch, group) fp32 mean and 1/sqrt(var + eps) of (B, ..., C),
     each (B, G), for a consumer that applies the norm itself (the bf16
-    conv's GroupNorm+SiLU prologue, the int8 units' plain version)."""
+    conv's GroupNorm+SiLU prologue, the int8 units' plain version); under
+    the row context, the whole canvas's (``global_group_stats``)."""
+    if sequence.current() is not None:
+        return global_group_stats(x, num_groups, eps)
     if not x.is_cuda:
         return group_norm_stats_plain(x, num_groups, eps)
     _check_x(x, "group_norm_stats")
@@ -299,18 +364,51 @@ def group_norm_stats(x: torch.Tensor, num_groups: int,
     return stats[0], stats[1]
 
 
+def group_norm_moments(x: torch.Tensor,
+                       num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, group) fp32 mean and M2 (the sum of squared deviations
+    from the mean) of (B, ..., C), each (B, G): the kernel's moments mode,
+    or ``group_norm_moments_plain`` for a CPU tensor."""
+    if not x.is_cuda:
+        return group_norm_moments_plain(x, num_groups)
+    _check_x(x, "group_norm_moments")
+    _, stats = _launch_gn(x, None, None, num_groups, 0.0, _STATS, moments=True)
+    group_norm_moments.launches += 1
+    return stats[0], stats[1]
+
+
+def global_group_stats(x: torch.Tensor, num_groups: int,
+                       eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Under the row context: the (mean, rstd) of the whole canvas whose
+    rows this rank's x holds. This rank's moments (``group_norm_moments``)
+    are all-gathered over the data group (2 B G floats a rank) and merged
+    in rank order (``merge_moments``), the same operations on the same
+    values on every rank, so every rank holds the same bits."""
+    comm = sequence.current().comm
+    mean, m2 = group_norm_moments(x, num_groups)
+    parts = comm.all_gather(torch.stack([mean, m2])[None], 0)
+    count = x.numel() // (x.shape[0] * num_groups)
+    mean, m2 = merge_moments(parts[:, 0], parts[:, 1], count)
+    return mean, 1.0 / torch.sqrt(m2 / float(count * parts.shape[0]) + eps)
+
+
 def gn_silu_quantize_int8(x: torch.Tensor, gamma: torch.Tensor,
                           beta: torch.Tensor, *, num_groups: int, eps: float,
-                          x_scale: float) -> torch.Tensor:
+                          x_scale: float, stats=None) -> torch.Tensor:
     """The int8 units' activation: ``clip(round_half_even(silu(GN(x)) *
     (1 / x_scale)), -127, 127)`` with fp32 statistics, int8 in x's shape;
-    bitwise ``gn_silu_quantize_int8_plain``. gamma and beta (C,) fp32."""
+    bitwise ``gn_silu_quantize_int8_plain``. gamma and beta (C,) fp32.
+    ``stats``: a given (mean, rstd) pair to quantise with; under the row
+    context, the whole canvas's."""
+    if stats is None and sequence.current() is not None:
+        stats = global_group_stats(x, num_groups, eps)
     if not x.is_cuda:
         return gn_silu_quantize_int8_plain(x, gamma, beta, num_groups=num_groups,
-                                           eps=eps, x_scale=x_scale)
+                                           eps=eps, x_scale=x_scale, stats=stats)
     _check_x(x, "gn_silu_quantize_int8")
     _check_affine(x, gamma, beta, "gn_silu_quantize_int8")
-    q, _ = _launch_gn(x, gamma, beta, num_groups, eps, _QUANT, x_scale=x_scale)
+    q, _ = _launch_gn(x, gamma, beta, num_groups, eps, _QUANT, x_scale=x_scale,
+                      stats=stats)
     gn_silu_quantize_int8.launches += 1
     return q
 
@@ -407,6 +505,7 @@ GroupNorm = recompute_function("GroupNorm", _group_norm, group_norm_plain)
 LayerNorm = recompute_function("LayerNorm", _layer_norm, layer_norm_plain)
 group_norm.launches = 0
 group_norm_stats.launches = 0
+group_norm_moments.launches = 0
 gn_silu_quantize_int8.launches = 0
 quantize_int8.launches = 0
 layer_norm.launches = 0

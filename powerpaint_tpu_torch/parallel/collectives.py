@@ -2,7 +2,9 @@
 
 A ``Comm`` is one subgroup of the mesh (a data row's model group, or a
 model column's data group) with ``all_reduce``, ``all_gather`` and
-``reduce_scatter``; ``copy_to_model`` / ``reduce_from_model`` are
+``reduce_scatter``, and the two point-to-point exchanges of sequence
+parallelism, ``shift`` (round the ring) and ``halo_rows`` (the edge rows
+of the neighbouring ranks); ``copy_to_model`` / ``reduce_from_model`` are
 Megatron's *f* / *g* pair for tensor parallelism (identity forward and
 all-reduce backward, and the reverse), and ``row_parallel_linear`` is a
 row-parallel linear built on *g*.
@@ -17,6 +19,9 @@ Backends (``parallel.mesh.build_mesh`` chooses; nothing here falls back):
   until that copy has run). The staging waits for the card. gloo's
   reduce-scatter is an all-reduce and a slice, and its gather a list
   gather, forms every torch version's gloo takes.
+
+The point-to-point exchanges post every send and receive of a rank as one
+batch (``batch_isend_irecv``), so no order of the ranks deadlocks them.
 
 Reductions run in fp32 whatever the input type (a bf16 sum rounds at
 every addition, which the one-device path does not), and the result comes
@@ -36,6 +41,10 @@ from torch import nn
 # alias, ``reduce_scatter_single``, and warn on the old one)
 _reduce_scatter_tensor = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
+
+# copies through pinned host memory this process has made (gloo ranks on a
+# card), down and up, and their bytes: what a call costs in staging
+STAGED = {"copies": 0, "bytes": 0}
 
 
 class Comm:
@@ -61,10 +70,14 @@ class Comm:
     def _down(x: torch.Tensor) -> torch.Tensor:
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         host.copy_(x)
+        STAGED["copies"] += 1
+        STAGED["bytes"] += host.numel() * host.element_size()
         return host
 
     @staticmethod
     def _up(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+        STAGED["copies"] += 1
+        STAGED["bytes"] += host.numel() * host.element_size()
         return host.to(device, non_blocking=True)
 
     # ------------------------------------------------------------ operations
@@ -81,6 +94,8 @@ class Comm:
             host = self._down(flat)
             dist.all_reduce(host, group=self.group)
             flat.copy_(host)
+            STAGED["copies"] += 1
+            STAGED["bytes"] += host.numel() * host.element_size()
         else:
             dist.all_reduce(flat, group=self.group)
         if op == "mean":
@@ -105,6 +120,57 @@ class Comm:
                               dtype=moved.dtype, device=moved.device)
             dist.all_gather_into_tensor(out, moved, group=self.group)
         return out.movedim(0, dim)
+
+    def _exchange(self, sends, recvs, device) -> list:
+        """Point to point: ``sends`` [(tensor, group index)] go out and
+        ``recvs`` [(shape, dtype, group index)] come in, all posted as one
+        batch; returns the received tensors on ``device``, in order."""
+        staged = self.backend == "gloo" and torch.device(device).type == "cuda"
+        ops, got = [], []
+        for x, peer in sends:
+            x = x.detach().contiguous()
+            x = self._down(x) if staged else x
+            ops.append(dist.P2POp(dist.isend, x, self.ranks[peer], self.group))
+        for shape, dtype, peer in recvs:
+            buf = (torch.empty(shape, dtype=dtype, pin_memory=True) if staged
+                   else torch.empty(shape, dtype=dtype, device=device))
+            ops.append(dist.P2POp(dist.irecv, buf, self.ranks[peer], self.group))
+            got.append(buf)
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return [self._up(t, device) for t in got] if staged else got
+
+    def shift(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` of the previous rank of the ring (index - 1, the last
+        rank's on the first): every rank sends its ``x`` to index + 1, as
+        ``jax.lax.ppermute`` with the ring permutation. Every rank's ``x``
+        has one shape and type."""
+        if self.size == 1:
+            return x
+        nxt, prev = (self.index + 1) % self.size, (self.index - 1) % self.size
+        return self._exchange([(x, nxt)], [(x.shape, x.dtype, prev)],
+                              x.device)[0]
+
+    def halo_rows(self, x: torch.Tensor, up: int, down: int):
+        """(above, below): the last ``up`` rows (dim 1) of the rank before
+        this one and the first ``down`` rows of the rank after it, for a
+        (B, h, ...) tensor whose rows are split over the group in index
+        order; None where there is no such rank (the first rank gets
+        nothing above, the last nothing below) or no row is asked for."""
+        i, n = self.index, self.size
+        sends, recvs, which = [], [], []
+        if up and i + 1 < n:
+            sends.append((x[:, x.shape[1] - up:], i + 1))
+        if down and i > 0:
+            sends.append((x[:, :down], i - 1))
+        for rows, peer, name in ((up, i - 1, "above"), (down, i + 1, "below")):
+            if rows and 0 <= peer < n:
+                recvs.append(((x.shape[0], rows) + tuple(x.shape[2:]),
+                              x.dtype, peer))
+                which.append(name)
+        got = dict(zip(which, self._exchange(sends, recvs, x.device)))
+        return got.get("above"), got.get("below")
 
     def reduce_scatter(self, x: torch.Tensor, dim: int = 0,
                        op: str = "sum") -> torch.Tensor:

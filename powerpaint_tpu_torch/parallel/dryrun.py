@@ -12,6 +12,12 @@ plain numbers; the caller holds them to the bounds. The rank functions
 live here, in the package, because ``parallel.launch.spawn`` pickles them
 by name and its children import their module.
 
+Sequence parallelism (``sp_checks``, ``card_rank``'s part (e)): the ring
+attention, the row-split ops and the tiny UNet on each rank's rows of one
+canvas, and the three pipelines with ``sequence_parallel=True``, each rank
+returning the whole output for its caller to hold to the one-process call
+(or, in the tests, to the JAX package).
+
 Bounds (the JAX dry run's, ``__graft_entry__._dryrun_impl``): an image
 within 2 uint8 levels of the one-process image; a loss within 1e-4
 (relative); after one AdamW step at lr 1e-3, the task-token rows within
@@ -38,10 +44,20 @@ from powerpaint_tpu_torch.core.config import (
     ppt_v1_controlnet_config,
     ppt_v2_config,
 )
-from powerpaint_tpu_torch.io.weights import init_state
+from powerpaint_tpu_torch.core.validation import InputValidationError
+from powerpaint_tpu_torch.io.weights import init_state, load_models
 from powerpaint_tpu_torch.models import transformer
+from powerpaint_tpu_torch.models.layers import Conv2D
+from powerpaint_tpu_torch.models.resnet import Downsample2D
+from powerpaint_tpu_torch.models.vae import VAEDownsample2D
 from powerpaint_tpu_torch.ops import conv, norms
-from powerpaint_tpu_torch.ops.flash_attention import flash_attention
+from powerpaint_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_lse,
+)
+from powerpaint_tpu_torch.ops.freeu import FreeUConfig
+from powerpaint_tpu_torch.ops.ring_attention import ring_self_attention
+from powerpaint_tpu_torch.parallel import collectives, sequence
 from powerpaint_tpu_torch.parallel.launch import cpu_threads, spawn
 from powerpaint_tpu_torch.parallel.mesh import (
     build_mesh,
@@ -141,10 +157,11 @@ def edges(hw: int, seed: int = 0) -> np.ndarray:
     return np.repeat(e[..., None], 3, -1).astype(np.uint8) * 255
 
 
-def pipeline(kind: str, cfg, state, tok, dtype, mesh=None, device=None):
+def pipeline(kind: str, cfg, state, tok, dtype, mesh=None, device=None,
+             **kw):
     cls = {"v1": InpaintPipeline, "v2": BrushNetPipeline,
            "cn": ControlNetPipeline}[kind]
-    return cls(cfg, state, tok, dtype=dtype, device=device, mesh=mesh)
+    return cls(cfg, state, tok, dtype=dtype, device=device, mesh=mesh, **kw)
 
 
 def u8_diff(a: np.ndarray, b: np.ndarray) -> dict:
@@ -175,13 +192,20 @@ class AttentionShapes:
 
 
 def launch_counts() -> Dict[str, int]:
-    """The hand kernels' launch counters (B1-B5) of this process."""
+    """Every hand kernel's launch counter (B1-B6, and the modes sequence
+    parallelism adds) of this process."""
     return {"flash_attention": flash_attention.launches,
+            "flash_attention_lse": flash_attention_lse.launches,
+            "group_norm_moments": norms.group_norm_moments.launches,
             "conv3x3_gn_silu": conv.conv3x3_gn_silu.launches,
             "conv3x3": conv.conv3x3.launches,
             "group_norm": norms.group_norm.launches,
             "group_norm_stats": norms.group_norm_stats.launches,
-            "layer_norm": norms.layer_norm.launches}
+            "gn_silu_quantize_int8": norms.gn_silu_quantize_int8.launches,
+            "quantize_int8": norms.quantize_int8.launches,
+            "layer_norm": norms.layer_norm.launches,
+            "conv3x3_gn_silu_int8": conv.conv3x3_gn_silu_int8.launches,
+            "conv3x3_int8": conv.conv3x3_int8.launches}
 
 
 def _sync(device) -> None:
@@ -425,17 +449,182 @@ def single_step(device, *, full: bool = False, hw: int = 32, batch: int,
 
 
 # ---------------------------------------------------------------------------
+# sequence parallelism
+# ---------------------------------------------------------------------------
+
+
+def _whole(x: torch.Tensor, comm, fn) -> np.ndarray:
+    """``fn`` on this rank's rows of ``x`` under the row context of
+    ``comm``, the rows gathered back: numpy fp32."""
+    with sequence.row_context(comm, min_seq=0):
+        y = fn(sequence.share_rows(x, comm).contiguous())
+        return comm.all_gather(y, 1).float().numpy()
+
+
+def ring_check(comm, qkv: Sequence[np.ndarray]) -> np.ndarray:
+    """``ops.ring_attention`` over ``comm`` on whole (B, S, N, D) q, k, v:
+    this rank's tokens in, every rank's out gathered."""
+    q, k, v = (torch.from_numpy(np.asarray(t, np.float32)) for t in qkv)
+    out = ring_self_attention(*(sequence.share_rows(t, comm).contiguous()
+                                for t in (q, k, v)), comm)
+    return comm.all_gather(out, 1).numpy()
+
+
+def ops_check(comm, seed: int = 5) -> dict:
+    """GroupNorm, the fused and plain 3x3 convs, and the cuDNN convs (a 3x3
+    SAME conv, the UNet's stride-2 pad-1 and the VAE's bottom-padded
+    stride-2 downsample, the asymmetric decoder's 4x4 stride-2 pad-1) on
+    this rank's rows, against the same op on the whole tensor: max |d|
+    each, fp32. And one int8 unit's inputs and outputs (SP and whole) for
+    the caller's flip bound."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 16, 8, 64, generator=g)
+    gamma = 1 + 0.1 * torch.randn(64, generator=g)
+    beta = 0.5 + 0.1 * torch.randn(64, generator=g)
+    w = torch.randn(48, 64, 3, 3, generator=g) / 24.0
+    b = 0.1 * torch.randn(48, generator=g)
+    gn = dict(num_groups=32, eps=1e-5)
+    cases = {
+        "group_norm": lambda t: norms.group_norm(t, gamma, beta, silu=True, **gn),
+        "conv3x3_gn_silu": lambda t: conv.conv3x3_gn_silu(t, w, b, gamma, beta,
+                                                          **gn),
+        "conv3x3": lambda t: conv.conv3x3(t, w, b),
+    }
+    torch.manual_seed(seed)  # the same modules on every rank
+    cases.update(conv2d_3x3=Conv2D(64, 48, 3, padding=1),
+                 downsample_pad1=Downsample2D(64),
+                 vae_downsample=VAEDownsample2D(64),
+                 conv2d_4x4_s2=Conv2D(64, 48, 4, stride=2, padding=1))
+    out = {}
+    with torch.no_grad():
+        for name, fn in cases.items():
+            want = fn(x).numpy()
+            got = _whole(x, comm, fn)
+            out[name] = float(np.abs(got - want).max())
+        w_q, w_s = conv.quantize_weights_int8(w)
+        unit = lambda t: conv.conv3x3_gn_silu_int8(  # noqa: E731
+            t, w_q, w_s, b, gamma, beta, x_scale=8.0 / 127.0, **gn)
+        out["int8"] = dict(x=x.numpy(), w_q=w_q.numpy(), w_s=w_s.numpy(),
+                           bias=b.numpy(), gamma=gamma.numpy(),
+                           beta=beta.numpy(), got=_whole(x, comm, unit),
+                           want=unit(x).numpy())
+    return out
+
+
+def unet_check(comm, sample: np.ndarray, t: np.ndarray, ctx: np.ndarray,
+               min_seq: int = 64) -> np.ndarray:
+    """The tiny v1 UNet (``stack("v1")``'s weights, fp32) on this rank's
+    rows of ``sample`` under the row context (self-attention of at least
+    ``min_seq`` canvas tokens on the ring), the rows gathered."""
+    cfg, state, _ = stack("v1", "cpu")
+    unet = load_models(cfg, state, device="cpu",
+                       dtype=torch.float32)["unet"]
+    x = sequence.share_rows(torch.from_numpy(sample), comm).contiguous()
+    with torch.no_grad(), sequence.row_context(comm, min_seq=min_seq):
+        y = unet(x, torch.from_numpy(t), torch.from_numpy(ctx))
+    return comm.all_gather(y, 1).numpy()
+
+
+def _sp_call(kind: str, device, hw: int):
+    """``kind``'s tiny fp32 stack, a ``hw``^2 image and mask, and the call's
+    keywords (2 steps; ControlNet's control image)."""
+    cfg, state, tok = stack(kind, device)
+    img, mask = inputs(hw)
+    kw = dict(prompt="a cat", num_inference_steps=2, seed=1)
+    if kind == "cn":
+        kw["control_image"] = edges(hw)
+    return (cfg, state, tok), (img, mask), kw
+
+
+def sp_pipeline_check(mesh, kind: str, *, hw: int, freeu: bool = False,
+                      submit: bool = False) -> dict:
+    """One call of ``kind``'s tiny pipeline in fp32 with
+    ``sequence_parallel=True`` over ``mesh`` (``sp_min_seq`` 16, so every
+    level's self-attention of a 128^2 or 256^2 canvas but the deepest
+    rides the ring): its image and the launches of the call on this rank;
+    with ``submit``, whether ``submit()`` gave the call's images; and that
+    a canvas whose latent levels do not split is refused."""
+    (cfg, state, tok), (img, mask), kw = _sp_call(kind, mesh.device, hw)
+    pipe = pipeline(kind, cfg, state, tok, torch.float32, mesh=mesh,
+                    sequence_parallel=True, sp_min_seq=16)
+    if freeu:
+        pipe.unet.freeu = SP_FREEU
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(img, mask, **kw)
+    seconds = time.perf_counter() - t0
+    after = launch_counts()
+    result = dict(image=out, seconds=seconds,
+                  launches={k: after[k] - before[k] for k in after})
+    if submit:
+        result["submit_equal"] = bool(np.array_equal(
+            pipe.submit(img, mask, **kw).result(), out))
+    small = 8 << len(cfg.unet.block_out_channels) - 1  # deepest level: 1 row
+    small_kw = dict(kw, control_image=edges(small)) if kind == "cn" else kw
+    try:
+        pipe(*inputs(small), **small_kw)
+        result["refused"] = None
+    except InputValidationError as e:
+        result["refused"] = str(e)
+    return result
+
+
+def sp_reference(kind: str, device, *, hw: int, freeu: bool = False):
+    """The call ``sp_pipeline_check`` makes, in this process alone."""
+    (cfg, state, tok), (img, mask), kw = _sp_call(kind, device, hw)
+    single = pipeline(kind, cfg, state, tok, torch.float32, device=device)
+    if freeu:
+        single.unet.freeu = SP_FREEU
+    return single(img, mask, **kw)
+
+
+SP_FREEU = FreeUConfig(1.5, 1.6, 0.9, 0.2)
+# sp_checks' pipeline calls: (kind, on the model mesh, canvas, FreeU)
+SP_CALLS = {"v1": ("v1", False, 256, False), "v2": ("v2", False, 256, False),
+            "cn": ("cn", False, 256, False), "tp": ("v1", True, 128, True)}
+
+
+def sp_checks(mesh_data, mesh_model, ring_inputs, unet_inputs) -> dict:
+    """The sequence-parallel checks of the CPU world test: ring attention
+    at data 4 (``ring_inputs[:2]``) and at data 2 x model 2
+    (``ring_inputs[2]``), the row-split ops, the tiny UNet (``unet_inputs``:
+    sample, t, context), v1, v2 and ControlNet at 256^2 on the data mesh,
+    and v1 with FreeU at 128^2 on data 2 x model 2 (``SP_CALLS``, each
+    ``sp_pipeline_check``; the ppt-v1 call's ``submit()``). Then rank r
+    runs the one-process reference of the r-th of those four calls, every
+    rank at once (a reference between the calls would hold the other
+    ranks at the next call's first collective), and its uint8
+    difference."""
+    rank = dist.get_rank()
+    out = {"ring": [ring_check(mesh_data.data, qkv) for qkv in ring_inputs[:2]]}
+    out["ring_tp"] = ring_check(mesh_model.data, ring_inputs[2])
+    out["ops"] = ops_check(mesh_data.data)
+    out["unet"] = unet_check(mesh_data.data, *unet_inputs)
+    for name, (kind, tp, hw, freeu) in SP_CALLS.items():
+        out["sp_" + name] = sp_pipeline_check(
+            mesh_model if tp else mesh_data, kind, hw=hw, freeu=freeu,
+            submit=name == "v1")
+    name = list(SP_CALLS)[rank]
+    kind, _, hw, freeu = SP_CALLS[name]
+    mine = out["sp_" + name]
+    mine["reference"] = sp_reference(kind, mesh_data.device, hw=hw, freeu=freeu)
+    mine.update(u8_diff(mine["image"], mine["reference"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the rank functions
 # ---------------------------------------------------------------------------
 
 
 def world_rank(rank: int, devices: Sequence[str], backend: str,
-               workdir: str) -> dict:
+               workdir: str, ring_inputs, unet_inputs) -> dict:
     """Every check of the CPU world test, on 4 ranks: v1, v2 and ControlNet
     at data 2 x model 2, a LoRA merged on that mesh, a data-parallel v1
     step at data 4, a ZeRO-3 step at data 4 against it (its state saved
-    whole under ``workdir`` and loaded back into a placed one), and a
-    tensor-parallel step at data 2 x model 2 (the same)."""
+    whole under ``workdir`` and loaded back into a placed one), a
+    tensor-parallel step at data 2 x model 2 (the same), and the
+    sequence-parallel checks on the caller's inputs (``sp_checks``)."""
     mesh22 = build_mesh(devices, model_parallel=2, backend=backend)
     mesh41 = build_mesh(devices, model_parallel=1, backend=backend)
     out = {kind: pipeline_check(mesh22, kind, batch=2, steps=2, hw=32)
@@ -448,6 +637,7 @@ def world_rank(rank: int, devices: Sequence[str], backend: str,
     out["tp"] = train_check(mesh22, "tp", batch=4, reference=ref,
                             checkpoint=f"{workdir}/tp.npz")
     out["zero3"]["vs_dp"] = update_diff(out["dp"]["rows"], out["zero3"]["rows"])
+    out.update(sp_checks(mesh41, mesh22, ring_inputs, unet_inputs))
     return out
 
 
@@ -478,16 +668,108 @@ def _peak(device, reset: bool = False) -> Optional[int]:
     return int(torch.cuda.max_memory_allocated())
 
 
+# The ring against one launch over the whole K/V, both bf16: each rounds
+# the output to bf16 once, from fp32 values that differ far less than a
+# bf16 step (the hops round their probabilities to bf16 against each
+# block's row maximum, the one launch against the whole row's), so an
+# output differs by at most one step, which is at most 2^-7 of its size:
+# within 2^-7 of the largest output, and of the output's 2-norm. No floor:
+# a dropped hop or a merge with its weights swapped misses both bounds by
+# 7 times or more (two CPU ranks, bf16 plain versions).
+RING_RTOL = 2.0 ** -7
+
+
+def attention_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """``got`` against ``want``: the largest |difference|, it over the
+    largest |want|, and the difference's 2-norm over ``want``'s (fp32)."""
+    d, w = got.float() - want.float(), want.float()
+    return dict(max_abs_err=float(d.abs().max()),
+                max_rel_err=float(d.abs().max() / w.abs().max()),
+                norm_rel_err=float(d.norm() / w.norm()))
+
+
+def ring_against_one_launch(comm, device, shape, seed: int = 17) -> dict:
+    """``ring_self_attention`` over ``comm`` on this rank's share of the
+    tokens of seeded bf16 (B, S, N, D) q, k, v against one flash launch of
+    the rank's q over the whole k and v: ``attention_errors``, the bound
+    ``RING_RTOL`` and whether both relative errors are within it."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    mine = sequence.share_rows(q, comm).contiguous()
+    got = ring_self_attention(mine, *(sequence.share_rows(t, comm).contiguous()
+                                      for t in (k, v)), comm)
+    err = attention_errors(got, flash_attention(mine, k, v))
+    return dict(shape=list(shape), **err, rtol=RING_RTOL,
+                ok=max(err["max_rel_err"], err["norm_rel_err"]) <= RING_RTOL)
+
+
+def sp_card_check(mesh, cfg, state, tok, *, hw: int, steps: int,
+                  seed: int) -> dict:
+    """Part (e) of ``card_rank``: ppt-v1 with ``sequence_parallel=True``
+    (``sp_min_seq`` 2048) over ``mesh``'s data group on one ``hw``^2
+    canvas, bf16, against the one-process call, which rank 0 runs alone
+    first (its seconds and peak bytes; the image broadcast). Each call is
+    made twice, the second measured: seconds, peak bytes, launches, the
+    copies staged through pinned memory on this rank. Then the ring alone
+    at the canvas's level-0 and level-1 self-attention and the VAE's mid
+    attention (``ring_against_one_launch``)."""
+    dev, bf16 = mesh.device, torch.bfloat16
+    img, mask = inputs(hw)
+    kw = dict(prompt="a cat", num_inference_steps=steps, seed=seed)
+    out, ref = {}, [None]
+    if mesh.rank == 0:
+        single = pipeline("v1", cfg, state, tok, bf16, device=dev)
+        single(img, mask, **kw)
+        _empty_cache(dev)
+        _peak(dev, reset=True)
+        _sync(dev)
+        t0 = time.perf_counter()
+        ref[0] = single(img, mask, **kw)
+        _sync(dev)
+        out.update(one_process_seconds=time.perf_counter() - t0,
+                   one_process_peak_bytes=_peak(dev))
+        del single
+        _empty_cache(dev)
+    dist.broadcast_object_list(ref, src=0)
+    pipe = pipeline("v1", cfg, state, tok, bf16, mesh=mesh,
+                    sequence_parallel=True)
+    pipe(img, mask, **kw)
+    _empty_cache(dev)
+    _peak(dev, reset=True)
+    before, staged = launch_counts(), dict(collectives.STAGED)
+    _sync(dev)
+    t0 = time.perf_counter()
+    got = pipe(img, mask, **kw)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    after = launch_counts()
+    out.update(u8_diff(got, ref[0]), seconds=seconds, peak_bytes=_peak(dev),
+               launches={k: after[k] - before[k] for k in after},
+               staged={k: collectives.STAGED[k] - staged[k] for k in staged})
+    del pipe
+    _empty_cache(dev)
+    # the ring at the canvas's levels 0 and 1 and the VAE's mid attention
+    out["ring"] = [ring_against_one_launch(mesh.data, dev, shape) for shape in (
+        (2, (hw // 8) ** 2, 8, 40), (2, (hw // 16) ** 2, 8, 80),
+        (1, (hw // 8) ** 2, 1, 512))]
+    _empty_cache(dev)
+    return out
+
+
 def card_rank(rank: int, devices: Sequence[str], steps: int, hw: int,
-              seeds: Sequence[int], train_hw: int, full: bool = True) -> dict:
+              seeds: Sequence[int], train_hw: int, full: bool,
+              sp_hw: int) -> dict:
     """The full-width checks of two ranks sharing one card over gloo
     (ppt-v1 at ``hw``, bf16): (a) a one-image call at data 1 x model 2,
     (b) a call of one image per seed at data 2 x model 1, each against
     this rank's one-process calls of the same seeds, with the launches and
     attention shapes of each mesh call, and the one-process batch of the
-    seeds against the same calls alone; (c) a ZeRO-3 v1 step at data 2
-    (global batch 2 at ``train_hw``, bf16 compute over fp32 masters)
-    against the one-process step, which rank 0 runs alone first."""
+    seeds against the same calls alone; (e) sequence parallelism at data
+    2 on one ``sp_hw``^2 canvas (``sp_card_check``);
+    (c) a ZeRO-3 v1 step at data 2 (global batch 2 at ``train_hw``, bf16
+    compute over fp32 masters) against the one-process step, which rank 0
+    runs alone first."""
 
     tp = build_mesh(devices, model_parallel=2, backend="gloo")
     dp = build_mesh(devices, model_parallel=1, backend="gloo")
@@ -525,6 +807,9 @@ def card_rank(rank: int, devices: Sequence[str], steps: int, hw: int,
                          equal_images=[bool(np.array_equal(g, w))
                                        for g, w in zip(got, want)])
         del pipe
+    _empty_cache(dev)
+    out["sp"] = sp_card_check(dp, cfg, state, tok, hw=sp_hw, steps=steps,
+                              seed=seeds[0])
     del state
     _empty_cache(dev)
 
@@ -649,3 +934,4 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     sys.exit(main())
+

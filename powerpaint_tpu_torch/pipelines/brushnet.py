@@ -83,7 +83,6 @@ from powerpaint_tpu_torch.pipelines.common import (
     norm_embeds,
     per_iteration,
     pipeline_device,
-    refuse_sequence_parallel,
     resolve_seeds,
     resolve_timesteps,
     rows,
@@ -116,19 +115,22 @@ class BrushNetPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
     ``int8=True`` runs the ResNet units the JAX package quantises as the
     static-scale int8 W8A8 kernel (``pipelines.common.int8_x_scale``;
     ``None`` reads ``POWERPAINT_INT8`` here, once). ``submit(...)`` and
-    ``aot_dump`` / ``aot_load`` as on the ppt-v1 pipeline; ``mesh`` and
-    ``sequence_parallel`` as there.
+    ``aot_dump`` / ``aot_load`` as on the ppt-v1 pipeline; ``mesh``,
+    ``sequence_parallel`` and ``sp_min_seq`` as there (under sequence
+    parallelism the BrushNet branch and the base UNet run on each rank's
+    rows, and the IP-Adapter's image tower whole).
     """
 
     def __init__(self, config: PowerPaintConfig, state: Dict[str, dict],
                  tokenizer, dtype: torch.dtype = torch.bfloat16,
                  device=None, int8: Optional[bool] = None, mesh=None,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False, sp_min_seq: int = 2048):
         if config.brushnet is None:
             raise ValueError("BrushNetPipeline needs a config with a brushnet "
                              "(ppt_v2_config)")
-        refuse_sequence_parallel(sequence_parallel)
         self.config = config
+        self.sequence_parallel = bool(sequence_parallel)
+        self.sp_min_seq = int(sp_min_seq)
         self.tokenizer = tokenizer
         self.dtype = dtype
         self.mesh = mesh
@@ -439,6 +441,7 @@ class BrushNetPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
         img_b, mask_b = batch_inputs(
             image, mask, multi, len(prompts) if multi else num_images_per_prompt)
         b, h, w, _ = img_b.shape
+        self._check_rows(h)
         if len(guidances) != b:
             guidances = [guidances[0]] * b
         seeds = resolve_seeds(seed, b)
@@ -475,28 +478,36 @@ class BrushNetPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
         n_draws = sched.num_steps if takes_step_noise(mod) else 0
         noise0, vae_noise, *step_noise = draw_noise(
             self.device, seeds, (h // 8, w // 8, 4), 2 + n_draws)
+        if self._sp:  # each image's rows, its noise drawn whole then cut
+            img_b, mask_b, latents = (self._rows(x)
+                                      for x in (img_b, mask_b, latents))
+            noise0, vae_noise = self._rows(noise0), self._rows(vae_noise)
+            step_noise = [self._rows(t) for t in step_noise]
 
         dev = self.device
         self._set_step_callback(callback, callback_steps)
         telemetry.reset_stages()
         with telemetry.stage("generate"):
-            out = finish(self._gather(self._generate(
-                to_device(ids_task, dev, torch.long),
-                to_device(ids_plain, dev, torch.long),
-                to_device(np.asarray(fittings, np.float32), dev),
-                to_device(img_b, dev),
-                to_device(mask_b, dev),
-                to_device(np.asarray(guidances, np.float32), dev),
-                scales, noise0, vae_noise, step_noise or None,
-                num_steps=num_inference_steps, output_type=output_type,
-                guess_mode=bool(guess_mode),
-                latents_in=None if latents is None else to_device(latents, dev),
-                clip_skip=int(clip_skip), scheduler=scheduler,
-                timesteps=custom_ts,
-                branch_cache_interval=int(branch_cache_interval),
-                prompt_embeds=prompt_embeds,
-                negative_prompt_embeds=negative_prompt_embeds,
-                ip_embeds=ip_embeds, ip_scale=ip_adapter_scale)))
+            with self._sp_scope():
+                out = self._generate(
+                    to_device(ids_task, dev, torch.long),
+                    to_device(ids_plain, dev, torch.long),
+                    to_device(np.asarray(fittings, np.float32), dev),
+                    to_device(img_b, dev),
+                    to_device(mask_b, dev),
+                    to_device(np.asarray(guidances, np.float32), dev),
+                    scales, noise0, vae_noise, step_noise or None,
+                    num_steps=num_inference_steps, output_type=output_type,
+                    guess_mode=bool(guess_mode),
+                    latents_in=(None if latents is None
+                                else to_device(latents, dev)),
+                    clip_skip=int(clip_skip), scheduler=scheduler,
+                    timesteps=custom_ts,
+                    branch_cache_interval=int(branch_cache_interval),
+                    prompt_embeds=prompt_embeds,
+                    negative_prompt_embeds=negative_prompt_embeds,
+                    ip_embeds=ip_embeds, ip_scale=ip_adapter_scale)
+            out = finish(self._gather(out))
         self._calls += 1
         telemetry.count("images", b)
         telemetry.count("denoise_steps", num_inference_steps)

@@ -26,6 +26,7 @@ draws as tensors, so a test can hand both packages the same noise.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import List, Optional, Sequence, Tuple
 
@@ -37,6 +38,7 @@ from powerpaint_tpu_torch.core.validation import (
     InputValidationError,
     check_image_mask,
 )
+from powerpaint_tpu_torch.parallel import sequence
 from powerpaint_tpu_torch.schedulers import ddim, unipc
 from powerpaint_tpu_torch.schedulers.common import custom_timesteps_array
 from powerpaint_tpu_torch.tasks.preprocess import (
@@ -207,13 +209,6 @@ def pipeline_device(device, mesh) -> torch.device:
     return mesh.device
 
 
-def refuse_sequence_parallel(sequence_parallel: bool) -> None:
-    if sequence_parallel:
-        raise ValueError(
-            "sequence_parallel=True (latent rows over the data axis, ring "
-            "attention) is not in the port yet: ROADMAP A18c")
-
-
 class MeshMixin:
     """A pipeline over a ``parallel.mesh.Mesh`` (``mesh``; None: one
     process). Every rank makes the same call with the same arguments
@@ -221,17 +216,63 @@ class MeshMixin:
     (``io.weights.load_models(tp=)``); the images of a call are split over
     its data group, each rank runs its share (its seeds' draws, its CFG
     pairs) and the shares are all-gathered, so every rank returns the whole
-    batch. The data axis must divide the batch."""
+    batch. The data axis must divide the batch.
+
+    ``sequence_parallel=True`` on a mesh (the JAX package's
+    ``_generate_fn_sp``: one huge canvas): the batch stays whole and each
+    rank of the data group holds 1/n of every image's rows (its share of
+    the image, the mask, the control images and of the noise, which is
+    drawn whole from each seed and then cut) through every model, under
+    ``parallel.sequence.row_context`` with ``sp_min_seq`` as the ring's
+    threshold; the output's rows are all-gathered, so every rank returns
+    the whole images. The image height must split evenly over the data
+    group at every latent level (``sequence.check_height``). Without a mesh
+    the option does nothing, as in the JAX package."""
 
     mesh = None
+    sequence_parallel = False
+    sp_min_seq = 2048
+
+    @property
+    def _sp(self) -> bool:
+        return self.mesh is not None and bool(self.sequence_parallel)
 
     def _share(self, b: int) -> Optional[slice]:
-        """This rank's rows of a batch of ``b`` (None: one process)."""
-        return None if self.mesh is None else self.mesh.data_share(b)
+        """This rank's images of a batch of ``b`` (None: every image, in
+        one process or under sequence parallelism)."""
+        if self.mesh is None or self._sp:
+            return None
+        return self.mesh.data_share(b)
 
     def _gather(self, out: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows of a result, in batch order."""
-        return out if self.mesh is None else self.mesh.data.all_gather(out, 0)
+        """Every rank's images of a result, in batch order, or every rank's
+        rows under sequence parallelism."""
+        if self.mesh is None:
+            return out
+        return self.mesh.data.all_gather(out, 1 if self._sp else 0)
+
+    def _rows(self, x, dim: int = 1):
+        """This rank's rows of ``x`` (an array or tensor whole along
+        ``dim``, or None) under sequence parallelism, contiguous; else
+        ``x``."""
+        if x is None or not self._sp:
+            return x
+        part = sequence.share_rows(x, self.mesh.data, dim)
+        return part.contiguous() if torch.is_tensor(part) else \
+            np.ascontiguousarray(part)
+
+    def _check_rows(self, h_img: int) -> None:
+        """Under sequence parallelism, refuse an image height whose latent
+        levels do not split over the data group (the JAX message)."""
+        if self._sp:
+            sequence.check_height(h_img, self.mesh.data.size,
+                                  len(self.config.unet.block_out_channels))
+
+    def _sp_scope(self):
+        """The row context of a sequence-parallel call, else nothing."""
+        if not self._sp:
+            return contextlib.nullcontext()
+        return sequence.row_context(self.mesh.data, self.sp_min_seq)
 
 
 def rows(x, share: slice, b: int):
@@ -275,6 +316,9 @@ class StepCallbackMixin:
     def _run_step_callback(self, i: int, latents: torch.Tensor) -> None:
         cb = self._active_callback
         if cb is not None and int(i) % self._active_callback_steps == 0:
+            rows = sequence.current()
+            if rows is not None:  # the whole latents, on every rank
+                latents = rows.comm.all_gather(latents, 1)
             cb(int(i), latents.to("cpu", torch.float32, copy=True).numpy())
 
 

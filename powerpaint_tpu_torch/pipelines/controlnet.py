@@ -83,13 +83,14 @@ class ControlNetPipeline(InpaintPipeline):
                  tokenizer, dtype: torch.dtype = torch.bfloat16,
                  device=None, int8: Optional[bool] = None,
                  step_callback: Optional[Callable] = None, mesh=None,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False, sp_min_seq: int = 2048):
         if config.controlnet is None:
             raise ValueError("ControlNetPipeline needs a config with a "
                              "controlnet (ppt_v1_controlnet_config)")
         super().__init__(config, state, tokenizer, dtype=dtype, device=device,
                          int8=int8, step_callback=step_callback, mesh=mesh,
-                         sequence_parallel=sequence_parallel)
+                         sequence_parallel=sequence_parallel,
+                         sp_min_seq=sp_min_seq)
 
     @classmethod
     def from_pipeline(cls, pipe: InpaintPipeline, controlnet,

@@ -59,7 +59,6 @@ from powerpaint_tpu_torch.pipelines.common import (
     make_sampler,
     norm_embeds,
     pipeline_device,
-    refuse_sequence_parallel,
     resolve_seeds,
     rows,
     sampler_step,
@@ -98,17 +97,20 @@ class InpaintPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
     ``None`` reads ``POWERPAINT_INT8`` here, once). ``step_callback`` is the
     callback of every call that passes none (``StepCallbackMixin``).
     ``mesh``: a ``parallel.mesh.Mesh`` to run over, every rank making the
-    same calls (``MeshMixin``); ``sequence_parallel`` is refused (ROADMAP
-    A18c).
+    same calls (``MeshMixin``); ``sequence_parallel=True`` there splits
+    each image's rows over the data group instead of the batch, with
+    self-attention of at least ``sp_min_seq`` canvas tokens on the ring
+    (``MeshMixin``).
     """
 
     def __init__(self, config: PowerPaintConfig, state: Dict[str, dict],
                  tokenizer, dtype: torch.dtype = torch.bfloat16,
                  device=None, int8: Optional[bool] = None,
                  step_callback: Optional[Callable] = None, mesh=None,
-                 sequence_parallel: bool = False):
-        refuse_sequence_parallel(sequence_parallel)
+                 sequence_parallel: bool = False, sp_min_seq: int = 2048):
         self.config = config
+        self.sequence_parallel = bool(sequence_parallel)
+        self.sp_min_seq = int(sp_min_seq)
         self.step_callback = step_callback
         self.tokenizer = tokenizer
         self.dtype = dtype
@@ -346,6 +348,7 @@ class InpaintPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
         img_b, mask_b = batch_inputs(
             image, mask, multi, len(prompts) if multi else num_images_per_prompt)
         b = img_b.shape[0]
+        self._check_rows(img_b.shape[1])
         for f, g in zip(fittings, guidances):
             check_call_args(task=task, num_inference_steps=num_inference_steps,
                             guidance_scale=float(g), strength=strength,
@@ -368,7 +371,8 @@ class InpaintPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
         """Draw the noise, run ``_generate`` (with ``extra``, the keyword
         arguments a subclass's ``_generate`` adds) and ``finish`` under the
         telemetry stage ``generate``, and count the images and steps. On a
-        mesh this rank runs its share of the images (``MeshMixin``)."""
+        mesh this rank runs its share of the images, or under sequence
+        parallelism its rows of every image (``MeshMixin``)."""
         b, h, w, _ = req.images.shape
         share = self._share(b)
         if share is not None:
@@ -378,23 +382,32 @@ class InpaintPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
         n_draws = sched.num_steps if takes_step_noise(mod, float(eta)) else 0
         noise0, vae_noise, img_noise, step_noise = self._draw_noise(
             req.seeds, (h // 8, w // 8, 4), n_draws)
+        if self._sp:  # each image's rows, its noise drawn whole then cut
+            req, latents, extra = self._shard_rows(req, latents, extra)
+            noise0, vae_noise, img_noise = (
+                self._rows(t) for t in (noise0, vae_noise, img_noise))
+            if step_noise is not None:
+                step_noise = [self._rows(t) for t in step_noise]
 
         dev = self.device
         telemetry.reset_stages()
         with telemetry.stage("generate"):
-            out = finish(self._gather(self._generate(
-                to_device(req.ids, dev, torch.long),
-                to_device(np.asarray(req.fittings, np.float32), dev),
-                to_device(req.images, dev),
-                to_device(req.masks, dev),
-                to_device(np.asarray(req.guidances, np.float32), dev),
-                noise0, vae_noise, img_noise, step_noise,
-                num_steps=num_inference_steps,
-                strength_steps=req.strength_steps, output_type=output_type,
-                eta=float(eta),
-                latents_in=None if latents is None else to_device(latents, dev),
-                clip_skip=int(clip_skip), scheduler=req.scheduler,
-                **extra)))
+            with self._sp_scope():
+                out = self._generate(
+                    to_device(req.ids, dev, torch.long),
+                    to_device(np.asarray(req.fittings, np.float32), dev),
+                    to_device(req.images, dev),
+                    to_device(req.masks, dev),
+                    to_device(np.asarray(req.guidances, np.float32), dev),
+                    noise0, vae_noise, img_noise, step_noise,
+                    num_steps=num_inference_steps,
+                    strength_steps=req.strength_steps, output_type=output_type,
+                    eta=float(eta),
+                    latents_in=(None if latents is None
+                                else to_device(latents, dev)),
+                    clip_skip=int(clip_skip), scheduler=req.scheduler,
+                    **extra)
+            out = finish(self._gather(out))
         self._calls += 1
         telemetry.count("images", b)
         telemetry.count("denoise_steps", req.strength_steps)
@@ -419,3 +432,14 @@ class InpaintPipeline(AotPipelineMixin, AsyncDispatchMixin, LoraMixin,
         if extra.get("control_u8") is not None:
             extra["control_u8"] = extra["control_u8"][:, share]
         return req, rows(latents, share, b), extra
+
+    def _shard_rows(self, req: Request, latents, extra: dict):
+        """A request's rows of each image under sequence parallelism
+        (``MeshMixin``): its images, masks, the caller's latents and the
+        ControlNet's control images (N, B, H, W, 3); the rest whole."""
+        req = req._replace(images=self._rows(req.images),
+                           masks=self._rows(req.masks))
+        extra = dict(extra)
+        if extra.get("control_u8") is not None:
+            extra["control_u8"] = self._rows(extra["control_u8"], dim=2)
+        return req, self._rows(latents), extra

@@ -178,3 +178,21 @@ def test_the_parallel_modules_are_covered_and_start_nothing_on_import():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_sequence_parallel_modules_are_covered_and_load_no_jax():
+    """The ring, the row context and the modules they change are checked
+    like the rest, and import neither JAX nor the JAX package."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"ops/ring_attention.py", "parallel/sequence.py",
+            "ops/attention.py", "parallel/collectives.py",
+            "ops/freeu.py"} <= names
+    code = ("import sys\n"
+            "import powerpaint_tpu_torch.ops.ring_attention\n"
+            "import powerpaint_tpu_torch.parallel.sequence\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'powerpaint_tpu'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

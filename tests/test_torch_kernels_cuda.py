@@ -548,6 +548,70 @@ def test_group_norm_modes(dev, case, dtype):
         assert torch.equal(alone, y[:1])
 
 
+@pytest.mark.parametrize("case", GN_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_sequence_parallel_modes(dev, case, dtype):
+    """The moments mode (mean, M2) against the plain two-pass moments to
+    1e-5; the apply and quantise modes from given statistics against their
+    plain versions from the same statistics (the apply within one rounding,
+    the quantiser bitwise)."""
+    b, s, c, groups = case
+    x = (_randn(dev, b, s, c, seed=94) * 2 - 0.3).to(dtype)
+    gamma = 1 + 0.1 * _randn(dev, c, seed=95)
+    beta = 0.1 * _randn(dev, c, seed=96)
+    before = norms.group_norm_moments.launches
+    mean, m2 = norms.group_norm_moments(x, groups)
+    torch.cuda.synchronize()
+    assert norms.group_norm_moments.launches == before + 1
+    want_mean, want_m2 = norms.group_norm_moments_plain(x, groups)
+    torch.testing.assert_close(mean, want_mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(m2, want_m2, atol=1e-5, rtol=1e-5)
+    stats = (want_mean * 0.9 + 0.05, 1.0 / torch.sqrt(want_m2 / (s * c // groups) + 1e-5))
+    y = norms.group_norm(x, gamma, beta, num_groups=groups, eps=1e-5, silu=True,
+                         stats=stats)
+    want_y = norms.group_norm_plain(x, gamma, beta, num_groups=groups, eps=1e-5,
+                                    silu=True, stats=stats)
+    atol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * float(want_y.float().abs().max()) + 1e-2
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol, rtol=0)
+    kw = dict(num_groups=groups, eps=1e-5, x_scale=8.0 / 127.0, stats=stats)
+    assert torch.equal(norms.gn_silu_quantize_int8(x, gamma, beta, **kw),
+                       norms.gn_silu_quantize_int8_plain(x, gamma, beta, **kw))
+
+
+@pytest.mark.parametrize("b,sq,skv,n,d", [
+    (2, 300, 300, 2, 40), (1, 128, 77, 1, 64), (2, 256, 256, 8, 80),
+    (1, 200, 200, 1, 512), (1, 65, 130, 1, 768), (2, 70, 33, 3, 20)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_mode(dev, b, sq, skv, n, d, dtype):
+    """The log-sum-exp mode: the fp32 output to ``chip_smoke.LSE_OUT_RTOL``
+    of its largest value and of its 2-norm, and the log-sum-exp to
+    ``chip_smoke.LSE_RTOL`` of the plain version's; the plain mode's
+    output unchanged by the new mode's launch."""
+    import chip_smoke
+    from powerpaint_tpu_torch.parallel.dryrun import attention_errors
+
+    rtol = chip_smoke.LSE_OUT_RTOL[dtype]
+    q = _randn(dev, b, sq, n, d, dtype=dtype, seed=4)
+    k = _randn(dev, b, skv, n, d, dtype=dtype, seed=5)
+    v = _randn(dev, b, skv, n, d, dtype=dtype, seed=6)
+    plain_mode = fa.flash_attention(q, k, v)
+    before = fa.flash_attention_lse.launches
+    out, lse = fa.flash_attention_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_lse.launches == before + 1
+    assert out.dtype == lse.dtype == torch.float32 and lse.shape == (b, n, sq)
+    want, want_lse = fa.flash_attention_lse_plain(q, k, v)
+    err = attention_errors(out, want)
+    assert max(err["max_rel_err"], err["norm_rel_err"]) <= rtol, err
+    torch.testing.assert_close(lse, want_lse, atol=0,
+                               rtol=chip_smoke.LSE_RTOL[dtype])
+    assert torch.equal(fa.flash_attention(q, k, v), plain_mode)
+    # the output rounded to the inputs' type is the plain mode's, within
+    # one rounding step of the output
+    err = attention_errors(out.to(dtype), plain_mode)
+    assert max(err["max_rel_err"], err["norm_rel_err"]) <= rtol, err
+
+
 @pytest.mark.parametrize("n", [1, 7, 4096 * 320, 262144 * 128 + 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantize_int8_kernel(dev, n, dtype):

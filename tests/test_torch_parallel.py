@@ -284,10 +284,3 @@ def test_the_mesh_lays_ranks_out_and_refuses_an_uneven_split():
     finally:
         dist.destroy_process_group()
 
-
-def test_the_pipelines_refuse_sequence_parallel():
-    from powerpaint_tpu_torch.pipelines.inpaint import InpaintPipeline
-
-    with pytest.raises(ValueError, match="A18c"):
-        InpaintPipeline(tiny_v1_config(), {}, None, device="cpu",
-                        sequence_parallel=True)
