@@ -89,21 +89,23 @@ Phases, in order; any failure exits non-zero:
    call with int8 on (PSNR against the bf16 image of the same seed, the
    saturated share). Each call's launches are the config's, exactly;
    stage times keep the branch and the base UNet apart; one profiled call.
-   7b. The annotators and the safety checker: full published width,
-   random fp32 weights from seeds, at PyTorch's default precision (cuDNN
-   convolutions in TF32, matmuls in fp32). DPT-hybrid
-   depth (384^2 in, 1024^2 out; 52 GroupNorm kernel launches a map, exact)
-   and HED (512^2, no OpenCV at its bucket's size), each through
-   ``PowerPaint.infer(control_type=...)`` on the ppt-v1 + ControlNet stack
-   at 20 DDIM steps; the body-pose network at a 512^2 image's input shape
-   (184 x 192) and the PAF decode on fields upsampled by torch (the OpenCV
-   resizes and the drawing are the CPU tests'); the CLIP ViT-L/14 safety
-   checker (50 LayerNorm kernel launches a check, exact) registered for a
-   ppt-v1 call, then one whose thresholds are -1, which must flag the image
-   and black it out. Each window's launches are exact. Then each of the
-   four networks on the card against the CPU at a reduced input: within
-   1e-3 of the CPU output's largest magnitude with TF32 off, within 0.1 at
-   the default precision.
+   7b. The control maps, the annotators and the safety checker: full
+   published width, random fp32 weights from seeds, at PyTorch's default
+   precision (cuDNN convolutions in TF32, matmuls in fp32), no OpenCV.
+   DPT-hybrid depth (384^2 in, 1024^2 out; 52 GroupNorm kernel launches a
+   map, exact), HED (512^2, its bucket's size), canny (host maps at 512^2
+   and 1024^2; 512^2 and 512 x 600), HED at 512 x 600 (resized to its
+   512 x 576 bucket and back on the card) plain and scribble, and pose
+   (``OpenposeBodyPreprocessor``: its resizes on the card, the decode and
+   drawing on the host), each through ``PowerPaint.infer(control_type=
+   ...)`` on the ppt-v1 + ControlNet stack at 20 DDIM steps; the CLIP
+   ViT-L/14 safety checker (50 LayerNorm kernel launches a check, exact)
+   registered for a ppt-v1 call, then one whose thresholds are -1, which
+   must flag the image and black it out. Each window's launches are exact.
+   Then HED's and pose's map steps on the card against the same functions
+   on the CPU, bitwise, and each of the four networks on the card against
+   the CPU at a reduced input: within 1e-3 of the CPU output's largest
+   magnitude with TF32 off, within 0.1 at the default precision.
    7c. The sampler family (``run_sampler_path``), full width, bf16, 512^2:
    ppt-v1 with each registry sampler but DDIM at 5 steps (20 before
    phase 7i; LCM at 4),
@@ -147,9 +149,10 @@ Phases, in order; any failure exits non-zero:
    ControlNet (seed 1) written in fp16 as a diffusers directory and loaded
    by ``load_controlnet`` (every tensor the source as the pipelines cast
    it; load GB/s), a portrait call over the ppt-v1 stack, and
-   ``serve.cli.main --control_type hed --controlnet_dir`` on the demo
-   stack; ppt-v2's ``prompt_embeds`` (the task tower not launched) and the
-   18-step custom ``timesteps=`` grid at 768 x 512 (18 evaluations), and
+   ``serve.cli.main --control_type hed``, then ``canny``, with
+   ``--controlnet_dir`` on the demo stack; ppt-v2's ``prompt_embeds`` (the
+   task tower not launched) and the 18-step custom ``timesteps=`` grid at
+   768 x 512 (18 evaluations), and
    ``timesteps=`` refused on DDIM. Launches exact per call.
    7f. The VAE extras and the approximation modes
    (``run_vae_extras_path``), full width, bf16: ppt-v1 with the
@@ -1899,8 +1902,7 @@ def run_cli(device) -> dict:
 
 def edge_map(hw: int, seed: int) -> np.ndarray:
     """A drawn canny-like control image: white 1-pixel outlines of a few
-    boxes and rings on black, (hw, hw, 3) uint8 (the GPU host has no
-    OpenCV)."""
+    boxes and rings on black, (hw, hw, 3) uint8."""
     rng = np.random.RandomState(seed)
     yy, xx = np.mgrid[:hw, :hw]
     edges = np.zeros((hw, hw), bool)
@@ -2241,15 +2243,21 @@ def _window(label: str, want: dict, run):
 
 
 def run_annotator_path(device):
-    """Phase 7b: the ControlNet annotators and the safety checker at full
-    published width, random fp32 weights from seeds, through the entry
-    points: DPT-hybrid depth (384^2 in, 1024^2 out) and HED (512^2) each
-    through ``PowerPaint.infer(control_type=...)`` on the full-width
-    ppt-v1 + ControlNet stack at 20 DDIM steps; the body-pose network at a
-    512^2 image's input shape and the PAF decode; the CLIP ViT-L/14 safety
-    checker registered for the ppt-v1 call, then one with every concept
-    threshold at -1, which must flag the image and black it out. Each
-    window's launches are exact. Then each network on the card against the
+    """Phase 7b: the control maps, the ControlNet annotators and the safety
+    checker at full published width, random fp32 weights from seeds,
+    through the entry points, with no OpenCV: DPT-hybrid depth (384^2 in,
+    1024^2 out) and HED (512^2, its bucket's size) each through
+    ``PowerPaint.infer(control_type=...)`` on the full-width ppt-v1 +
+    ControlNet stack at 20 DDIM steps; canny (host numpy, 512^2 and 1024^2
+    maps) through infer at 512^2 and at ``OFF_BUCKET``; HED at
+    ``OFF_BUCKET`` (resized to its bucket and back on the card), plain and
+    scribble, through infer; pose through ``OpenposeBodyPreprocessor``
+    (its resizes on the card, decode and drawing on the host) and infer;
+    the CLIP ViT-L/14 safety checker registered for the ppt-v1 call, then
+    one with every concept threshold at -1, which must flag the image and
+    black it out. Each window's launches are exact. Then each map's steps on
+    the card against the same functions on the CPU, bitwise
+    (``control_map_checks``), and each network on the card against the
     same network on the CPU, fp32, at a reduced input, with TF32 off and at
     the default precision."""
     from powerpaint_tpu_torch.controller import PowerPaint
@@ -2264,7 +2272,6 @@ def run_annotator_path(device):
     from powerpaint_tpu_torch.pipelines.controlnet import ControlNetPipeline
     from powerpaint_tpu_torch.tasks import control, pose
 
-    F = torch.nn.functional
     # PyTorch's default precision, at which the annotators run: cuDNN
     # convolutions in TF32, matmuls in fp32
     torch.backends.cudnn.allow_tf32 = True
@@ -2327,7 +2334,7 @@ def run_annotator_path(device):
     log(call="infer control_type=depth", seconds=secs, seconds_per_image=secs,
         launches=got)
 
-    # ---- HED at 512^2: its bucket's size, so no OpenCV resize
+    # ---- HED at 512^2: its bucket's size, so no resize
     hed = control.register_hed(state=states["hed"], device=device)
     control.get_control_image("hed", image)  # warm-up
     emap, secs, got = _window("hed map", {}, lambda: control.get_control_image(
@@ -2347,36 +2354,89 @@ def run_annotator_path(device):
     log(call="infer control_type=hed", seconds=secs, seconds_per_image=secs,
         launches=got)
 
-    # ---- pose: the network at a 512^2 image's input shape; the phase's own
-    # torch bicubic resizes stand in for OpenCV's (which the GPU host lacks)
-    body = pose.OpenposeBodyPreprocessor(state=states["bodypose"], device=device)
+    # ---- canny: the host function (numpy and scipy) at 512^2 and 1024^2,
+    # then through infer at 512^2 and at OFF_BUCKET (512 x 600: HED's
+    # 64-pixel bucket for it is 512 x 576)
+    off_image, off_mask = inputs(OFF_BUCKET, 3)
+    for side in (HW, 2 * HW):
+        img_c = inputs(side, 4)[0]
+        control.get_control_image("canny", img_c)  # warm-up: scipy's import
+        t0 = time.perf_counter()
+        cmap = control.get_control_image("canny", img_c)
+        secs = time.perf_counter() - t0
+        check(cmap.shape == (side, side, 3) and cmap.dtype == np.uint8
+              and cmap.any() and set(np.unique(cmap)) <= {0, 255},
+              f"canny map {cmap.shape} {cmap.dtype}")
+        log(path="annotators", control="canny", input=[side, side], card=CARD[0],
+            map_seconds=secs, edge_share=float((cmap[..., 0] > 0).mean()),
+            note="host numpy and scipy")
+    for label, img_i, msk_i in (("canny", image, mask), ("canny off-bucket",
+                                                          off_image, off_mask)):
+        res, secs, got = _window(f"infer {label}", cn_call, lambda: pp.infer(
+            img_i, msk_i, control_type="canny", **kw))
+        add(got)
+        check(res.result.shape == img_i.shape, f"{label} infer {res.result.shape}")
+        log(call=f"infer control_type=canny, {img_i.shape[0]}x{img_i.shape[1]}",
+            seconds=secs, seconds_per_image=secs, launches=got)
+
+    # ---- HED at OFF_BUCKET: INTER_AREA to the bucket and INTER_LINEAR back
+    # on the card, plain and with the scribble pass (NMS, blur)
+    check(control._fit_resolution(*OFF_BUCKET, hed.detect_resolution)
+          != OFF_BUCKET, f"{OFF_BUCKET} is at its HED bucket's size")
+    for scribble in (False, True):
+        hed.scribble = scribble
+        name = "hed scribble" if scribble else "hed"
+        control.get_control_image("hed", off_image)  # warm-up
+        emap, secs, got = _window(f"{name} map off-bucket", {},
+                                  lambda: control.get_control_image("hed", off_image))
+        check(emap.shape == off_image.shape and emap.dtype == np.uint8
+              and (scribble or emap.any()), f"{name} map {emap.shape} {emap.dtype}")
+        if scribble:  # random weights may leave no edge above the NMS threshold
+            check(set(np.unique(emap)) <= {0, 255}, f"scribble map {np.unique(emap)}")
+        log(path="annotators", control=name, input=list(OFF_BUCKET),
+            bucket=list(control._fit_resolution(*OFF_BUCKET, hed.detect_resolution)),
+            card=CARD[0], map_seconds=secs, edge_mean=float(emap.mean()))
+        res, secs, got = _window(f"infer {name} off-bucket", cn_call, lambda: pp.infer(
+            off_image, off_mask, control_type="hed", **kw))
+        add(got)
+        check(res.result.shape == off_image.shape, f"{name} infer {res.result.shape}")
+        log(call=f"infer control_type=hed, scribble={scribble}, "
+            f"{OFF_BUCKET[0]}x{OFF_BUCKET[1]}", seconds=secs,
+            seconds_per_image=secs, launches=got)
+    hed.scribble = False
+
+    # ---- pose through OpenposeBodyPreprocessor.__call__: the network input's
+    # bicubic resize and the fields' upsamples on the card, the decode and
+    # the drawing on the host
+    body = control.register_openpose(state=states["bodypose"], device=device)
     (h, w), (hp, wp) = pose.network_shape(HW, HW)
-    bgr = torch.as_tensor(image[:, :, ::-1].copy(), device=device).float()
-    scaled = F.interpolate(bgr.permute(2, 0, 1)[None], size=(h, w), mode="bicubic",
-                           align_corners=False).clamp(0, 255).round()
-    x = F.pad(scaled, (0, wp - w, 0, hp - h), value=pose.PAD_VALUE)
-    x = (x.permute(0, 2, 3, 1) / 256.0 - 0.5).contiguous()
-    body.forward(x)  # warm-up
-    (paf, heat), secs, got = _window("pose network", {}, lambda: body.forward(x))
-    check(paf.shape == (hp // 8, wp // 8, 38) and heat.shape == (hp // 8, wp // 8, 19)
-          and np.isfinite(paf).all() and np.isfinite(heat).all(),
-          f"pose fields {paf.shape} {heat.shape}")
-
-    def upsample(field):
-        t = torch.as_tensor(field, device=device).permute(2, 0, 1)[None]
-        t = F.interpolate(t, scale_factor=pose.STRIDE, mode="bicubic",
-                          align_corners=False)[:, :, :h, :w]
-        t = F.interpolate(t, size=(HW, HW), mode="bicubic", align_corners=False)
-        return t[0].permute(1, 2, 0).cpu().numpy()
-
+    x, scaled_hw = body.network_tensor(image)
+    check(tuple(x.shape) == (1, hp, wp, 3) and scaled_hw == (h, w),
+          f"pose input {tuple(x.shape)} {scaled_hw}")
+    body.fields(x)  # warm-up
+    (paf, heat), net_secs, got = _window("pose network", {}, lambda: body.fields(x))
+    check(tuple(paf.shape) == (hp // 8, wp // 8, 38)
+          and tuple(heat.shape) == (hp // 8, wp // 8, 19)
+          and bool(torch.isfinite(paf).all()) and bool(torch.isfinite(heat).all()),
+          f"pose fields {tuple(paf.shape)} {tuple(heat.shape)}")
+    control.get_control_image("pose", image)  # warm-up
+    pmap, secs, got = _window("pose map", {}, lambda: control.get_control_image(
+        "pose", image))
+    check(pmap.shape == (HW, HW, 3) and pmap.dtype == np.uint8,
+          f"pose map {pmap.shape} {pmap.dtype}")
     t0 = time.perf_counter()
-    candidate, subset = pose.decode_fields(upsample(paf), upsample(heat), HW)
-    log(path="annotators", control="pose", network_input=[1, hp, wp, 3],
-        network_seconds=secs, decode_seconds=time.perf_counter() - t0,
-        peaks=int(len(candidate)), people=int(len(subset)),
-        note="the OpenCV resizes and the drawing are held by the CPU tests "
-             "(tests/test_torch_annotators.py), not here: the GPU host has "
-             "no OpenCV")
+    candidate, subset = pose.decode(paf, heat, scaled_hw, (HW, HW))
+    decode_secs = time.perf_counter() - t0
+    log(path="annotators", control="pose", network_input=[1, hp, wp, 3], card=CARD[0],
+        network_seconds=net_secs, map_seconds=secs, decode_seconds=decode_secs,
+        peaks=int(len(candidate)), people=int(len(subset)))
+    res, secs, got = _window("infer pose", cn_call, lambda: pp.infer(
+        image, mask, control_type="pose", **kw))
+    add(got)
+    check(res.result.shape == (HW, HW, 3), f"pose infer {res.result.shape}")
+    log(call="infer control_type=pose", seconds=secs, seconds_per_image=secs,
+        launches=got)
+    control_map_checks(device, hed, body, off_image, image, paf, heat, scaled_hw)
 
     # ---- the safety checker on the ppt-v1 call: 50 LayerNorm launches a
     # check (pre, 24 x 2, post)
@@ -2416,7 +2476,7 @@ def run_annotator_path(device):
             raw_max=int(res.raw.max()))
     finally:
         safety.register_safety_checker(None)
-        for kind in ("depth", "hed"):
+        for kind in ("depth", "hed", "pose"):
             control._REGISTRY.pop(kind, None)
 
     # ---- each network on the card against the CPU in fp32, at a reduced
@@ -2457,6 +2517,79 @@ def run_annotator_path(device):
               f"or {0.1 * scale} (default)")
     del pipe, pp
     return total
+
+
+def control_map_checks(device, hed, body, off_image, image, paf, heat,
+                       scaled_hw) -> None:
+    """The control maps' steps on the card against the same port functions
+    on the CPU, on the same inputs, bitwise: HED's resize to its bucket
+    (INTER_AREA), then from the card's edge probability its safe steps,
+    INTER_LINEAR back and scribble pass (fp32 blur with its fused
+    multiply-adds, dilations, uint8 blur); pose's network input (uint8
+    INTER_CUBIC) and its fields' two fp32 INTER_CUBIC upsamples. canny and
+    the skeleton's drawing run on the host: a seeded skeleton is drawn and
+    timed."""
+    from powerpaint_tpu_torch.tasks import control, pose
+
+    cpu = torch.device("cpu")
+    hed_cpu = control.HEDPreprocessor(
+        state={k: v.to(cpu) for k, v in hed.model.state_dict().items()},
+        detect_resolution=hed.detect_resolution, device=cpu)
+    x_dev = hed.network_input(off_image)
+    x_cpu = hed_cpu.network_input(off_image)
+    check(x_dev.shape == x_cpu.shape and torch.equal(x_dev.cpu(), x_cpu),
+          "hed: the resize to the bucket differs between the card and the CPU")
+    prob = hed.probability(x_dev)
+    # the random network's probabilities (too faint for the scribble pass to
+    # keep an edge), and seeded ridges at the same size, which it keeps
+    bh, bw = prob.shape
+    v, u = np.mgrid[:bh, :bw] / np.array([bh, bw], np.float64)[:, None, None]
+    ridges = np.exp(-(((np.sin(u * 6.0) * 0.1 + v % 0.5 - 0.25) / 0.06) ** 2))
+    ridges = torch.as_tensor(ridges.astype(np.float32), device=device)
+    for source, p in (("network", prob), ("ridges", ridges)):
+        for safe, scribble in ((False, False), (True, False), (False, True)):
+            hed.safe = hed_cpu.safe = safe
+            hed.scribble = hed_cpu.scribble = scribble
+            got = hed.finish(p, off_image.shape[:2]).cpu()
+            want = hed_cpu.finish(p.cpu(), off_image.shape[:2])
+            diff = int((got != want).sum())
+            log(card_vs_cpu="hed map steps", probability=source, safe=safe,
+                scribble=scribble, shape=list(got.shape), pixels_differing=diff,
+                lit_share=float((want > 0).float().mean()))
+            check(diff == 0, f"hed {source} safe={safe} scribble={scribble}: "
+                  f"{diff} pixels differ between the card and the CPU")
+            check(source == "network" or bool(want.any()),
+                  f"hed ridges scribble={scribble}: an empty map")
+    hed.safe = hed.scribble = False
+    x_dev, hw_dev = pose.network_tensor(image, device)
+    x_cpu, hw_cpu = pose.network_tensor(image, cpu)
+    check(hw_dev == hw_cpu == scaled_hw and torch.equal(x_dev.cpu(), x_cpu),
+          "pose: the network input differs between the card and the CPU")
+    hw = image.shape[:2]
+    on_card = pose.upsample_fields(paf, heat, scaled_hw, hw)
+    on_cpu = pose.upsample_fields(paf.cpu(), heat.cpu(), scaled_hw, hw)
+    for name, a, b in zip(("paf", "heat"), on_card, on_cpu):
+        diff = int((a != b).sum())
+        log(card_vs_cpu=f"pose {name} upsample", shape=list(a.shape),
+            elements_differing=diff)
+        check(diff == 0, f"pose {name}: {diff} elements differ between the "
+              "card and the CPU")
+    rng = np.random.RandomState(6)
+    people = []
+    for _ in range(3):
+        row = -np.ones(20)
+        row[:18] = np.arange(18) + 18 * len(people)
+        people.append(row)
+    cand = np.concatenate([np.stack([rng.uniform(-0.2, 1.2, 18) * hw[1],
+                                     rng.uniform(-0.2, 1.2, 18) * hw[0],
+                                     rng.rand(18), np.arange(18) + 18 * i], 1)
+                           for i in range(3)])
+    t0 = time.perf_counter()
+    skeleton = pose.draw_bodypose(hw[0], hw[1], cand, np.stack(people))
+    log(path="annotators", control="pose drawing", people=3, card=CARD[0],
+        seconds=time.perf_counter() - t0, lit_share=float((skeleton > 0).mean()))
+    check(skeleton.any(), "pose: the seeded skeleton drew nothing")
+    del hed_cpu
 
 
 def kernel_resources(nvcc_logs: dict) -> None:
@@ -2867,6 +3000,9 @@ def run_checkpoint_path(device):
 
 PORTRAIT = (768, 512)
 PORTRAIT_INPUT = (640, 480)
+# phase 7b: a processed size off the 64-pixel grid on one side, so HED
+# resizes to its bucket (512 x 576) and back
+OFF_BUCKET = (512, 600)
 CUSTOM_GRID = [999, 950, 900, 850, 800, 700, 600, 500, 400, 300, 250, 200,
                150, 100, 75, 50, 25, 10]
 TIMESTEPS_ERROR = ("explicit timesteps= lists are only supported with the "
@@ -3014,10 +3150,10 @@ def run_call_surface_path(device):
     ``timesteps=`` on DDIM. A full-width ControlNet (seed 1) written in
     fp16 as a diffusers directory, loaded by ``load_controlnet`` (every
     tensor the source cast as the pipelines cast it), a 20-step portrait
-    call over the ppt-v1 stack, and the command line's ``--control_type hed
-    --controlnet_dir`` on the demo stack. The natives: the portrait blend
-    against numpy, the BPE's ids against the Python BPE's. Launches exact
-    per call."""
+    call over the ppt-v1 stack, and the command line's ``--control_type hed``
+    and ``canny`` with ``--controlnet_dir`` on the demo stack. The natives:
+    the portrait blend against numpy, the BPE's ids against the Python
+    BPE's. Launches exact per call."""
     import contextlib
     import dataclasses
     import io
@@ -3233,42 +3369,43 @@ def run_call_surface_path(device):
     del cn, call_cn, branch, pipe, call
     torch.cuda.empty_cache()
 
-    # 5. the command line: --control_type hed --controlnet_dir on the demo
-    # stack (a 512^2 image: HED at its bucket's size needs no OpenCV)
+    # 5. the command line: --control_type hed, then canny, --controlnet_dir
+    # on the demo stack (a 512^2 image; canny's map is the host's)
     out_dir = os.path.join("smoke_out", "cli_control")
     os.makedirs(out_dir, exist_ok=True)
     cli_image, cli_mask = inputs(HW, 5)
     paths = {k: os.path.join(out_dir, f"{k}.png") for k in ("image", "mask", "out")}
     Image.fromarray(cli_image).save(paths["image"])
     Image.fromarray((cli_mask * 255).astype(np.uint8)).save(paths["mask"])
-    argv = ["--image", paths["image"], "--mask", paths["mask"], "--output",
-            paths["out"], "--prompt", prompt, "--steps", str(STEPS),
-            "--short_side", str(HW), "--seed", "1", "--control_type", "hed",
-            "--controlnet_dir", work]
-    control._REGISTRY.pop("hed", None)  # the command's own random HED
-    reset_counts()  # the command starts here
-    printed = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(printed):
-        rc = cli.main(argv)
-    secs = time.perf_counter() - t0
     cli_want = expected_launches_cn(cn_cfg, STEPS)
-    launches = read_counts()
-    lines = printed.getvalue().strip().splitlines()
-    log(path="cli control", card=CARD[0], argv=argv, rc=rc, printed=lines,
-        seconds=secs, launches=launches)
-    check(rc == 0, f"cli control: exit code {rc}")
-    check(launches == cli_want,
-          f"cli control: launches {launches}, expected {cli_want}")
-    check(len(lines) >= 2 and re.fullmatch(
-        rf"control: hed map \({HW}x{HW}\) in [0-9.]+s", lines[-2]) is not None
-        and re.fullmatch(rf"wrote {re.escape(paths['out'])} \({HW}x{HW}\) in "
-                         rf"[0-9.]+s \({STEPS} steps, control hed\)", lines[-1])
-        is not None, f"cli control: output {lines}")
-    with Image.open(paths["out"]) as im:
-        check(im.size == (HW, HW) and im.mode == "RGB",
-              f"cli control: wrote {im.size} {im.mode}")
-    path_done("call surface cli control", cli_want)
+    for kind in ("hed", "canny"):
+        argv = ["--image", paths["image"], "--mask", paths["mask"], "--output",
+                paths["out"], "--prompt", prompt, "--steps", str(STEPS),
+                "--short_side", str(HW), "--seed", "1", "--control_type", kind,
+                "--controlnet_dir", work]
+        control._REGISTRY.pop("hed", None)  # the command's own random HED
+        reset_counts()  # the command starts here
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(argv)
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+        lines = printed.getvalue().strip().splitlines()
+        log(path=f"cli control {kind}", card=CARD[0], argv=argv, rc=rc,
+            printed=lines, seconds=secs, launches=launches)
+        check(rc == 0, f"cli control {kind}: exit code {rc}")
+        check(launches == cli_want,
+              f"cli control {kind}: launches {launches}, expected {cli_want}")
+        check(len(lines) >= 2 and re.fullmatch(
+            rf"control: {kind} map \({HW}x{HW}\) in [0-9.]+s", lines[-2]) is not None
+            and re.fullmatch(rf"wrote {re.escape(paths['out'])} \({HW}x{HW}\) in "
+                             rf"[0-9.]+s \({STEPS} steps, control {kind}\)", lines[-1])
+            is not None, f"cli control {kind}: output {lines}")
+        with Image.open(paths["out"]) as im:
+            check(im.size == (HW, HW) and im.mode == "RGB",
+                  f"cli control {kind}: wrote {im.size} {im.mode}")
+        path_done(f"call surface cli control {kind}", cli_want)
     shutil.rmtree(work)
     torch.cuda.empty_cache()
 

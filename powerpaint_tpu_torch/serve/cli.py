@@ -24,9 +24,9 @@ ppt-v1 + ControlNet (``pipelines.controlnet``) on the map
 branch is ``--controlnet_dir``'s (a diffusers ControlNet directory,
 ``io.checkpoint.load_controlnet``), or without a checkpoint the demo
 stack's random branch from seed 0; depth, hed and pose run their annotator
-with random weights from seed 0 unless one is registered (canny needs
-OpenCV). ``POWERPAINT_INT8=1`` in the environment
-runs the int8 W8A8 ResNet units, as in the JAX package.
+with random weights from seed 0 unless one is registered, and canny's map
+is made on the host (no map needs OpenCV). ``POWERPAINT_INT8=1`` in the
+environment runs the int8 W8A8 ResNet units, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -84,7 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference defaults)")
     p.add_argument("--control_type", default=None,
                    choices=[None, "canny", "depth", "hed", "pose"],
-                   help="ControlNet conditioning (ppt-v1 only)")
+                   help="ControlNet conditioning (ppt-v1 only): the map "
+                        "of the processed image; depth, hed and pose run "
+                        "their annotator (random weights unless one is "
+                        "registered)")
     p.add_argument("--controlnet_dir", default=None, metavar="DIR",
                    help="diffusers ControlNet directory (config.json and "
                         "diffusion_pytorch_model.safetensors) for "

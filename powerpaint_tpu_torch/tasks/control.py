@@ -2,8 +2,8 @@
 ``powerpaint_tpu/tasks/control.py``): canny, DPT depth, HED edges and, in
 ``tasks/pose.py``, OpenPose body.
 
-canny runs on the host through OpenCV with the reference thresholds
-(100 / 200). Depth, HED and pose run their networks (``models/dpt.py``,
+canny runs on the host with the reference thresholds (100 / 200). Depth,
+HED and pose run their networks (``models/dpt.py``,
 ``models/annotators.py``) on a device in fp32 at PyTorch's default
 precision (cuDNN convolutions in TF32, matmuls in fp32: how the reference's
 torch annotators run on CUDA), from a state dict with the published
@@ -12,9 +12,11 @@ bundled, so ``get_control_image`` raises for them until a preprocessor is
 registered (``register_dpt_depth``, ``register_hed``,
 ``register_openpose``, or ``register_preprocessor`` for any callable).
 
-OpenCV is imported only where a step needs it: canny, HED at a size it
-must resize and its ``scribble`` mode, and the pose preprocessor's resizes
-and drawing.
+The JAX package makes these maps with OpenCV, which the GPU host does not
+have; the port calls ``tasks.imgproc`` (OpenCV's Canny, resizes, Gaussian
+blur and dilation written out, bitwise on uint8) and ``tasks.drawing``
+instead, and imports no OpenCV. HED's resizes and its scribble pass run on
+its device, so its network input never leaves the card.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from powerpaint_tpu_torch.tasks import imgproc
+
 _REGISTRY: Dict[str, Callable[[np.ndarray], np.ndarray]] = {}
 _ANNOTATORS = {"depth": "register_dpt_depth", "hed": "register_hed",
                "pose": "register_openpose"}
@@ -36,17 +40,10 @@ def register_preprocessor(name: str, fn: Callable[[np.ndarray], np.ndarray]):
     _REGISTRY[name] = fn
 
 
-def _opencv():
-    import cv2
-
-    return cv2
-
-
 def canny(image: np.ndarray, low: int = 100, high: int = 200) -> np.ndarray:
-    """cv2.Canny edges of an (H, W, 3) uint8 image, as (H, W, 3) uint8."""
-    import cv2
-
-    edges = cv2.Canny(image, low, high)
+    """Canny edges (``cv2.Canny``'s, bit for bit) of an (H, W, 3) uint8
+    image, as (H, W, 3) uint8."""
+    edges = imgproc.canny(image, low, high)
     return np.stack([edges] * 3, axis=-1)
 
 
@@ -159,46 +156,47 @@ def _fit_resolution(h: int, w: int, resolution: int) -> tuple:
             max(64, int(round(w * k / 64.0)) * 64))
 
 
-def safe_step(x: np.ndarray, step: int = 2) -> np.ndarray:
+def safe_step(x: torch.Tensor, step: int = 2) -> torch.Tensor:
     """Quantise a [0, 1] map to ``step`` levels (the 'safe' mode)."""
-    y = x.astype(np.float32) * float(step + 1)
-    return y.astype(np.int32).astype(np.float32) / float(step)
+    y = x.float() * float(step + 1)
+    return y.to(torch.int32).float() / float(step)
 
 
-def nms_edges(x: np.ndarray, threshold: int, sigma: float) -> np.ndarray:
-    """Directional non-maximum suppression of a uint8 edge map (the
-    'scribble' pass): keep pixels that are maxima of their 3-neighbourhood
-    along any of four line directions, then binarise (OpenCV)."""
-    import cv2
+_LINE_KERNELS = (
+    np.array([[0, 0, 0], [1, 1, 1], [0, 0, 0]], np.uint8),
+    np.array([[0, 1, 0], [0, 1, 0], [0, 1, 0]], np.uint8),
+    np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1]], np.uint8),
+    np.array([[0, 0, 1], [0, 1, 0], [1, 0, 0]], np.uint8),
+)
 
-    blurred = cv2.GaussianBlur(x.astype(np.float32), (0, 0), sigma)
-    kernels = [
-        np.array([[0, 0, 0], [1, 1, 1], [0, 0, 0]], np.uint8),
-        np.array([[0, 1, 0], [0, 1, 0], [0, 1, 0]], np.uint8),
-        np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1]], np.uint8),
-        np.array([[0, 0, 1], [0, 1, 0], [1, 0, 0]], np.uint8),
-    ]
-    kept = np.zeros_like(blurred)
-    for kernel in kernels:
-        line_max = cv2.dilate(blurred, kernel)
-        kept = np.where(line_max == blurred, blurred, kept)
-    out = np.zeros_like(kept, np.uint8)
-    out[kept > threshold] = 255
-    return out
+
+def nms_edges(x, threshold: int, sigma: float):
+    """Directional non-maximum suppression of a uint8 edge map, numpy or a
+    tensor on its device (the 'scribble' pass): keep pixels that are maxima
+    of their 3-neighbourhood along any of four line directions, then
+    binarise."""
+    t = torch.from_numpy(imgproc.writable(x)) if isinstance(x, np.ndarray) else x
+    blurred = imgproc.gaussian_blur(t.float(), sigma)
+    kept = torch.zeros_like(blurred)
+    for kernel in _LINE_KERNELS:
+        line_max = imgproc.dilate(blurred, kernel)
+        kept = torch.where(line_max == blurred, blurred, kept)
+    out = torch.where(kept > threshold, 255, 0).to(torch.uint8)
+    return out.numpy() if isinstance(x, np.ndarray) else out
 
 
 class HEDPreprocessor:
     """HED edge control map: resize the uint8 RGB image to the
-    ``detect_resolution`` bucket, one HEDNetwork forward on ``device``
-    (fp32), resize the edge probability back, uint8. ``safe`` quantises the
-    intensities; ``scribble`` applies directional NMS and binarisation.
-
-    An image already at its bucket's size (512 x 512 at the default
-    resolution) is not resized: OpenCV's same-size INTER_AREA and
-    INTER_LINEAR resizes of uint8 are the identity
-    (``tests/test_torch_annotators.py`` holds that), so HED runs there
-    without OpenCV. ``state`` is ``network-bsds500.pth``'s state dict
-    (``module*`` or ``net*`` names), or ``checkpoint`` its path."""
+    ``detect_resolution`` bucket (INTER_AREA down, INTER_LANCZOS4 up), one
+    HEDNetwork forward on ``device`` (fp32), the edge probability as uint8,
+    resized back (INTER_LINEAR). ``safe`` quantises the intensities;
+    ``scribble`` applies directional NMS, a Gaussian blur and binarisation.
+    The resizes and the scribble pass are ``tasks.imgproc``'s, on
+    ``device``: the image goes up once and the map comes back once. An
+    image already at its bucket's size (512 x 512 at the default
+    resolution) is not resized (OpenCV's same-size resize is a copy).
+    ``state`` is ``network-bsds500.pth``'s state dict (``module*`` or
+    ``net*`` names), or ``checkpoint`` its path."""
 
     def __init__(self, state=None, checkpoint: Optional[str] = None,
                  detect_resolution: int = 512, safe: bool = False,
@@ -213,31 +211,52 @@ class HEDPreprocessor:
         self.scribble = scribble
 
     @torch.no_grad()
-    def edges(self, image: np.ndarray) -> np.ndarray:
-        """(H, W) float32 edge probability of a uint8 RGB image at its own
-        size. No RGB -> BGR flip, as the reference deployment (see
-        ``models.annotators.HEDNetwork``)."""
-        x = torch.as_tensor(image, device=self.device).float()[None] / 255.0
-        return self.model(x)[0, :, :, 0].cpu().numpy()
+    def probability(self, image: torch.Tensor) -> torch.Tensor:
+        """(H, W) fp32 edge probability of an (H, W, 3) uint8 tensor on the
+        device, at its own size. No RGB -> BGR flip, as the reference
+        deployment (see ``models.annotators.HEDNetwork``)."""
+        return self.model(image.float()[None] / 255.0)[0, :, :, 0]
 
-    def __call__(self, image: np.ndarray) -> np.ndarray:
-        h0, w0 = image.shape[:2]
+    def edges(self, image: np.ndarray) -> np.ndarray:
+        """``probability`` of a uint8 RGB numpy image, as numpy."""
+        x = torch.as_tensor(imgproc.writable(image), device=self.device)
+        return self.probability(x).cpu().numpy()
+
+    def network_input(self, image) -> torch.Tensor:
+        """The (h, w, 3) uint8 image at its bucket's size (a numpy image
+        goes to the device first): INTER_AREA down, INTER_LANCZOS4 up."""
+        x = torch.as_tensor(imgproc.writable(image), device=self.device) \
+            if isinstance(image, np.ndarray) else image
+        h0, w0 = x.shape[:2]
         h, w = _fit_resolution(h0, w0, self.detect_resolution)
-        resize = (h, w) != (h0, w0)
-        cv2 = _opencv() if resize or self.scribble else None
-        if resize:
-            interp = cv2.INTER_AREA if h <= h0 else cv2.INTER_LANCZOS4
-            image = cv2.resize(image, (w, h), interpolation=interp)
-        edge = self.edges(image)
+        if (h, w) == (h0, w0):
+            return x
+        interp = imgproc.INTER_AREA if h <= h0 else imgproc.INTER_LANCZOS4
+        return imgproc.resize(x, (w, h), interpolation=interp)
+
+    def finish(self, edge: torch.Tensor, image_hw) -> torch.Tensor:
+        """The (H, W) uint8 map from the bucket-size probability, on its
+        device: safe steps, uint8, INTER_LINEAR back to ``image_hw``, the
+        scribble pass."""
         if self.safe:
             edge = safe_step(edge)
-        edge_u8 = (edge * 255.0).clip(0, 255).astype(np.uint8)
-        if resize:
-            edge_u8 = cv2.resize(edge_u8, (w0, h0), interpolation=cv2.INTER_LINEAR)
+        edge_u8 = (edge * 255.0).clamp(0, 255).to(torch.uint8)
+        if tuple(edge_u8.shape) != tuple(image_hw):
+            edge_u8 = imgproc.resize(edge_u8, tuple(image_hw)[::-1],
+                                     interpolation=imgproc.INTER_LINEAR)
         if self.scribble:
             edge_u8 = nms_edges(edge_u8, 127, 3.0)
-            edge_u8 = cv2.GaussianBlur(edge_u8, (0, 0), 3.0)
-            edge_u8 = np.where(edge_u8 > 4, 255, 0).astype(np.uint8)
+            edge_u8 = imgproc.gaussian_blur(edge_u8, 3.0)
+            edge_u8 = torch.where(edge_u8 > 4, 255, 0).to(torch.uint8)
+        return edge_u8
+
+    def control_map(self, image: np.ndarray) -> torch.Tensor:
+        """The (H, W) uint8 map on the device."""
+        return self.finish(self.probability(self.network_input(image)),
+                           image.shape[:2])
+
+    def __call__(self, image: np.ndarray) -> np.ndarray:
+        edge_u8 = self.control_map(image).cpu().numpy()
         return np.stack([edge_u8] * 3, axis=-1)
 
 

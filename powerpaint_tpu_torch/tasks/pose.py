@@ -7,10 +7,13 @@ line integrals, greedy limb matching, skeleton assembly, and the
 The constants (boxsize 368, stride 8, thresholds 0.1 / 0.05, the 19-limb
 sequence and its PAF channel map, the distance prior) are the published
 CMU values. ``OpenposeBodyPreprocessor`` runs in three steps that can be
-called apart: ``network_input`` (OpenCV resize and the 128 pad),
+called apart: ``network_input`` (the bicubic resize and the 128 pad),
 ``forward`` (``models.annotators.BodyPoseModel`` on the device) and
-``decode`` (OpenCV upsample, then numpy and scipy). OpenCV and scipy are
-imported where they are used.
+``decode`` (the fields' bicubic upsample, then numpy and scipy). The JAX
+package resizes and draws with OpenCV, which the GPU host does not have:
+the resizes here are ``tasks.imgproc``'s (OpenCV's arithmetic, run on the
+device), the drawing ``tasks.drawing``'s. scipy is imported where it is
+used.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from powerpaint_tpu_torch.tasks import drawing, imgproc
 
 # 18 keypoints: nose, neck, shoulders, elbows, wrists, hips, knees, ankles,
 # eyes, ears. Limbs are 1-indexed keypoint pairs; MAP_IDX names each limb's
@@ -180,9 +185,9 @@ def assemble_people(all_peaks: List[List[Tuple]], connection_all: list,
 def draw_bodypose(height: int, width: int, candidate: np.ndarray,
                   subset: np.ndarray) -> np.ndarray:
     """The 18-keypoint skeleton on black: limb ellipses at 0.6 alpha, then
-    joint circles (OpenCV)."""
-    import cv2
-
+    joint circles (OpenCV's ``ellipse2Poly``, ``fillConvexPoly``,
+    ``addWeighted`` and ``circle``, from ``tasks.drawing`` and
+    ``tasks.imgproc``)."""
     canvas = np.zeros((height, width, 3), np.uint8)
     stickwidth = 4
     for i in range(17):
@@ -195,19 +200,19 @@ def draw_bodypose(height: int, width: int, candidate: np.ndarray,
             mx, my = xs.mean(), ys.mean()
             length = float(np.hypot(xs[0] - xs[1], ys[0] - ys[1]))
             angle = math.degrees(math.atan2(ys[0] - ys[1], xs[0] - xs[1]))
-            polygon = cv2.ellipse2Poly((int(mx), int(my)),
-                                       (int(length / 2), stickwidth),
-                                       int(angle), 0, 360, 1)
+            polygon = drawing.ellipse2poly((int(mx), int(my)),
+                                           (int(length / 2), stickwidth),
+                                           int(angle), 0, 360, 1)
             overlay = canvas.copy()
-            cv2.fillConvexPoly(overlay, polygon, COLORS[i])
-            canvas = cv2.addWeighted(canvas, 0.4, overlay, 0.6, 0)
+            drawing.fill_convex_poly(overlay, polygon, COLORS[i])
+            canvas = imgproc.add_weighted(canvas, 0.4, overlay, 0.6, 0)
     for i in range(18):
         for person in subset:
             idx = int(person[i])
             if idx == -1:
                 continue
             x, y = candidate[idx][:2]
-            cv2.circle(canvas, (int(x), int(y)), 4, COLORS[i], thickness=-1)
+            drawing.circle(canvas, (int(x), int(y)), 4, COLORS[i])
     return canvas
 
 
@@ -220,21 +225,45 @@ def network_shape(h0: int, w0: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     return (h, w), (h + (-h) % STRIDE, w + (-w) % WIDTH_BUCKET)
 
 
-def decode(paf: np.ndarray, heat: np.ndarray, scaled_hw: Tuple[int, int],
-           image_hw: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
-    """(candidate, subset) from one image's fields ((H/8, W/8, 38) and
-    (H/8, W/8, 19)): upsample x8 (OpenCV bicubic), drop the pad, resize to
-    the image, then peaks, limbs and people."""
-    import cv2
+def network_tensor(image_rgb: np.ndarray,
+                   device) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """(x (1, H, W, 3) fp32 on ``device``, the scaled image's (h, w)): the
+    image in BGR at the 368-boxsize scale (bicubic, OpenCV's uint8
+    arithmetic, on ``device``), padded with 128 to ``network_shape``, as
+    ``x / 256 - 0.5``."""
+    ori = torch.as_tensor(np.ascontiguousarray(image_rgb[:, :, ::-1]),
+                          device=device)  # the published model is BGR-trained
+    scale = 0.5 * BOXSIZE / ori.shape[0]
+    scaled = imgproc.resize(ori, fx=scale, fy=scale, interpolation=imgproc.INTER_CUBIC)
+    h, w = scaled.shape[:2]
+    padded = torch.nn.functional.pad(
+        scaled.float().permute(2, 0, 1), (0, (-w) % WIDTH_BUCKET, 0, (-h) % STRIDE),
+        value=PAD_VALUE).permute(1, 2, 0)
+    return padded[None] / 256.0 - 0.5, (h, w)
 
+
+def upsample_fields(paf, heat, scaled_hw: Tuple[int, int],
+                    image_hw: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """One image's fields ((H/8, W/8, 38) and (H/8, W/8, 19), numpy or
+    tensors) at the image's size, as numpy: upsampled x8 (bicubic, on the
+    fields' device), the pad dropped, resized to the image."""
     (h, w), (h0, w0) = scaled_hw, image_hw
 
     def upsample(field):
-        field = cv2.resize(field, (0, 0), fx=STRIDE, fy=STRIDE,
-                           interpolation=cv2.INTER_CUBIC)[:h, :w]
-        return cv2.resize(field, (w0, h0), interpolation=cv2.INTER_CUBIC)
+        field = imgproc.resize(field, fx=STRIDE, fy=STRIDE,
+                               interpolation=imgproc.INTER_CUBIC)[:h, :w]
+        field = imgproc.resize(field, (w0, h0), interpolation=imgproc.INTER_CUBIC)
+        return field.cpu().numpy() if isinstance(field, torch.Tensor) else field
 
-    return decode_fields(upsample(paf), upsample(heat), h0)
+    return upsample(paf), upsample(heat)
+
+
+def decode(paf, heat, scaled_hw: Tuple[int, int],
+           image_hw: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """(candidate, subset) from one image's fields: ``upsample_fields``,
+    then peaks, limbs and people on the host."""
+    paf_map, heatmap = upsample_fields(paf, heat, scaled_hw, image_hw)
+    return decode_fields(paf_map, heatmap, image_hw[0])
 
 
 def decode_fields(paf_map: np.ndarray, heatmap: np.ndarray,
@@ -260,33 +289,31 @@ class OpenposeBodyPreprocessor:
         self.model = load_annotator("bodypose", state, checkpoint=checkpoint,
                                     device=self.device)
 
-    def network_input(self, image_rgb: np.ndarray):
-        """(x (1, H, W, 3) float32, the scaled image's (h, w)): the image
-        in BGR at the 368-boxsize scale (OpenCV bicubic), padded with 128 to
-        ``network_shape``, as ``x / 256 - 0.5``."""
-        import cv2
+    def network_tensor(self, image_rgb: np.ndarray):
+        """``network_tensor`` of the image on this preprocessor's device."""
+        return network_tensor(image_rgb, self.device)
 
-        ori = image_rgb[:, :, ::-1]  # the published model is BGR-trained
-        h0, w0 = ori.shape[:2]
-        scale = 0.5 * BOXSIZE / h0
-        scaled = cv2.resize(ori, (0, 0), fx=scale, fy=scale,
-                            interpolation=cv2.INTER_CUBIC)
-        h, w = scaled.shape[:2]
-        padded = np.pad(scaled.astype(np.float32),
-                        ((0, (-h) % STRIDE), (0, (-w) % WIDTH_BUCKET), (0, 0)),
-                        constant_values=PAD_VALUE)
-        return padded[None] / 256.0 - 0.5, (h, w)
+    def network_input(self, image_rgb: np.ndarray):
+        """``network_tensor`` as numpy."""
+        x, hw = self.network_tensor(image_rgb)
+        return x.cpu().numpy(), hw
 
     @torch.no_grad()
+    def fields(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(PAF, heatmap) of the first image of x, fp32 on the device."""
+        paf, heat = self.model(torch.as_tensor(x, device=self.device))
+        return paf[0].float(), heat[0].float()
+
     def forward(self, x) -> Tuple[np.ndarray, np.ndarray]:
         """(PAF, heatmap) of the first image of x, as float32 numpy."""
-        paf, heat = self.model(torch.as_tensor(x, device=self.device))
-        return (paf[0].float().cpu().numpy(), heat[0].float().cpu().numpy())
+        paf, heat = self.fields(x)
+        return paf.cpu().numpy(), heat.cpu().numpy()
 
     def estimate(self, image_rgb: np.ndarray):
-        """(candidate, subset) for a uint8 RGB (H, W, 3) image."""
-        x, scaled_hw = self.network_input(image_rgb)
-        paf, heat = self.forward(x)
+        """(candidate, subset) for a uint8 RGB (H, W, 3) image; the fields
+        stay on the device until they are at the image's size."""
+        x, scaled_hw = self.network_tensor(image_rgb)
+        paf, heat = self.fields(x)
         return decode(paf, heat, scaled_hw, image_rgb.shape[:2])
 
     def __call__(self, image_rgb: np.ndarray) -> np.ndarray:

@@ -213,3 +213,70 @@ def test_annotators_raise_until_registered(hed):
         del control._REGISTRY["hed"]
     with pytest.raises(NotImplementedError, match="unknown control type"):
         control.get_control_image("segmentation", image)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_preprocessors():
+    """The JAX preprocessors this module's tests build, kept by class, so
+    that the OpenCV-free cases below reuse one and its compiled network (at
+    the same input shapes) instead of compiling anew."""
+    made = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for cls in (jax_control.HEDPreprocessor, jax_pose.OpenposeBodyPreprocessor):
+            def keep(self, *args, _init=cls.__init__, _cls=cls, **kwargs):
+                _init(self, *args, **kwargs)
+                made[_cls] = self
+
+            mp.setattr(cls, "__init__", keep)
+        yield made
+
+
+@pytest.mark.parametrize("hw", [(70, 90), (40, 50)])
+def test_hed_preprocessor_matches_jax_without_opencv(hed, jax_preprocessors,
+                                                     monkeypatch, hw):
+    """``test_hed_preprocessor_matches_jax``'s comparison with OpenCV
+    unimportable on the port's side: plain, safe and scribble, 70 x 90 to
+    the 64 x 64 bucket (INTER_AREA) and back (INTER_LINEAR), and 40 x 50 up
+    to it (INTER_LANCZOS4) and back. Within one uint8 level (the networks'
+    fp32 difference); the scribble map, 0 or 255, exactly."""
+    tree, sd = hed
+    theirs = jax_preprocessors.get(jax_control.HEDPreprocessor) \
+        or jax_control.HEDPreprocessor(params=tree, detect_resolution=64)
+    assert theirs.detect_resolution == 64
+    image = (np.random.default_rng(1).random(hw + (3,)) * 255).astype(np.uint8)
+    wants = {}
+    for mode in ((False, False), (True, False), (False, True)):
+        theirs.safe, theirs.scribble = mode
+        wants[mode] = theirs(image)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    ours = control.HEDPreprocessor(state=sd, detect_resolution=64, device="cpu")
+    for (safe, scribble), want in wants.items():
+        ours.safe, ours.scribble = safe, scribble
+        got = ours(image)
+        assert got.shape == want.shape == hw + (3,) and got.dtype == np.uint8
+        bound = 0 if scribble else 1
+        err = np.abs(got.astype(int) - want.astype(int)).max()
+        assert err <= bound, (safe, scribble, err)
+        if scribble:
+            assert set(np.unique(got)) <= {0, 255} and got.any()
+
+
+def test_openpose_preprocessor_matches_jax_without_opencv(body, jax_preprocessors,
+                                                           monkeypatch):
+    """``test_openpose_preprocessor_matches_jax``'s end-to-end comparison
+    with OpenCV unimportable on the port's side: the skeleton bitwise, and
+    the same peaks (each within 1e-3 of the JAX score: the JAX package's
+    uint8 INTER_CUBIC is IPP's here, a level off on a few pixels)."""
+    tree, sd = body
+    theirs = jax_preprocessors.get(jax_pose.OpenposeBodyPreprocessor) \
+        or jax_pose.OpenposeBodyPreprocessor(params=tree)
+    image = (np.random.default_rng(3).random((96, 128, 3)) * 255).astype(np.uint8)
+    want, (want_cand, _) = theirs(image), theirs.estimate(image)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    ours = pose.OpenposeBodyPreprocessor(state=sd, device="cpu")
+    got, (cand, _) = ours(image), ours.estimate(image)
+    assert got.shape == (96, 128, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    assert len(cand) == len(want_cand) > 0
+    np.testing.assert_array_equal(cand[:, [0, 1, 3]], want_cand[:, [0, 1, 3]])
+    np.testing.assert_allclose(cand[:, 2], want_cand[:, 2], atol=1e-3)

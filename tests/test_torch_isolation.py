@@ -196,3 +196,61 @@ def test_the_sequence_parallel_modules_are_covered_and_load_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+OPENCV_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+cv2(?:\.|\s|$)"
+    r"|import_module\(\s*['\"]cv2|__import__\(\s*['\"]cv2",
+    re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_opencv_import_in_the_source(path):
+    """The GPU host has no OpenCV: no port module (nor ``chip_smoke.py``)
+    imports it."""
+    hits = OPENCV_IMPORT.findall(path.read_text())
+    assert not hits, f"{path.relative_to(ROOT)}: {hits}"
+
+
+def test_the_opencv_pattern_catches_what_it_must():
+    for line in ("import cv2", "    import cv2", "from cv2 import resize",
+                 "importlib.import_module('cv2')", '__import__("cv2")'):
+        assert OPENCV_IMPORT.search(line), line
+    for line in ("# cv2.resize", "x = cv2_like", '"""cv2.Canny"""'):
+        assert not OPENCV_IMPORT.search(line), line
+
+
+def test_every_control_map_is_made_without_opencv():
+    """With ``cv2`` unimportable, every control type of the registry makes
+    its map on the CPU: canny, HED (plain, safe, scribble, at a size off
+    its bucket) and pose, with random full-width annotators at small
+    inputs."""
+    code = ("import sys\n"
+            "sys.modules['cv2'] = None\n"
+            "import numpy as np, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from powerpaint_tpu_torch.io.weights import random_annotator_state\n"
+            "from powerpaint_tpu_torch.tasks import control\n"
+            "gen = lambda s: torch.Generator().manual_seed(s)\n"
+            "img = (np.random.default_rng(0).random((70, 90, 3)) * 255)"
+            ".astype(np.uint8)\n"
+            "img[20:50, 30:70] = (220, 40, 90)\n"
+            "out = {'canny': control.get_control_image('canny', img)}\n"
+            "hed = control.register_hed(state=random_annotator_state('hed', gen(1), "
+            "device='cpu'), detect_resolution=64, device='cpu')\n"
+            "for safe, scribble in ((False, False), (True, False), (False, True)):\n"
+            "    hed.safe, hed.scribble = safe, scribble\n"
+            "    out[f'hed{int(safe)}{int(scribble)}'] = "
+            "control.get_control_image('hed', img)\n"
+            "control.register_openpose(state=random_annotator_state("
+            "'bodypose', gen(2), device='cpu'), device='cpu')\n"
+            "out['pose'] = control.get_control_image('pose', img[:48, :64])\n"
+            "for k, v in out.items():\n"
+            "    assert v.dtype == np.uint8 and v.shape[2] == 3, (k, v.shape)\n"
+            "    assert v.shape[:2] == ((48, 64) if k == 'pose' else (70, 90)), k\n"
+            "assert out['canny'].any() and out['hed00'].any()\n"
+            "assert set(np.unique(out['hed01'])) <= {0, 255}\n"
+            "assert 'cv2' not in sys.modules or sys.modules['cv2'] is None\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

@@ -214,6 +214,28 @@ def test_strokes_are_opencvs():
         masks.draw_line(np.zeros((8, 8), np.float32), (0, 0), (8, 3), 3)
 
 
+def test_coloured_polygon_and_disc_are_opencvs():
+    """The rasterisers the masks share with the pose skeleton
+    (``tasks.drawing``), with a colour on a 3-channel canvas: a filled
+    polygon (integer points, partly off the canvas) and a filled disc."""
+    from powerpaint_tpu_torch.tasks import drawing
+
+    rng = np.random.RandomState(1)
+    for _ in range(50):
+        h, w = int(rng.randint(8, 90)), int(rng.randint(8, 90))
+        colour = tuple(int(v) for v in rng.randint(1, 256, 3))
+        pts = np.stack([rng.randint(-20, w + 20, 6), rng.randint(-20, h + 20, 6)], 1)
+        hull = cv2.convexHull(pts.astype(np.int32))[:, 0]
+        centre = (int(rng.randint(-5, w + 5)), int(rng.randint(-5, h + 5)))
+        r = int(rng.randint(0, 30))
+        got, want = np.zeros((h, w, 3), np.uint8), np.zeros((h, w, 3), np.uint8)
+        drawing.fill_convex_poly(got, hull, colour)
+        drawing.circle(got, centre, r, colour[::-1])
+        cv2.fillConvexPoly(want, hull, colour)
+        cv2.circle(want, centre, r, colour[::-1], -1)
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("version", ["ppt-v1", "ppt-v2"])
 @pytest.mark.parametrize("task", data.TASKS)
 def test_batches_are_bitwise_the_jax_packages(version, task):
