@@ -27,8 +27,12 @@ Phases, in order; any failure exits non-zero:
    or memory-efficient op, which return one too), GroupNorm's moments
    mode (mean and M2, to 1e-5 of the plain two-pass moments, beside
    ``torch.var_mean``) and its apply and quantise modes from given
-   statistics (the apply to B3's bound, the quantiser bitwise)),
-   in fp32 (TF32 off for matmuls and convs) and in bf16, and timed beside
+   statistics (the apply to B3's bound, the quantiser bitwise)), and the
+   flash kernel's bf16-softmax mode (``scripts/torch_perf_attn_bf16.py``'s
+   experiment) against its plain version at the kernel's block of keys
+   to ``BSM_RTOL`` of the output's largest value and of its 2-norm, with
+   B1's output on the same inputs as the control that must miss it (the
+   mode is timed by phase 7k), in fp32 (TF32 off for matmuls and convs) and in bf16, and timed beside
    the plain version, one PyTorch library call of the same function (or
    the chain of calls named), and the data-sheet bound. The int8 units and the quantising modes must be bitwise equal to
    their plain versions, and the statistics bitwise equal across the
@@ -254,6 +258,14 @@ Phases, in order; any failure exits non-zero:
    attention against one flash launch over the whole K/V, to 2^-7 of the
    output's largest value and of its 2-norm. No scaling
    is measured: the ranks share one card.
+   7k. The bf16-softmax experiment's entry point,
+   ``scripts/torch_perf_attn_bf16.py``, through its ``main()``: B1 and the
+   flash kernel's bf16-softmax mode at the TPU script's three shapes,
+   each kernel's error against dense fp32 softmax, the mode against its
+   plain version with B1 as the control (the script exits on a miss);
+   it launches B1 and the mode and no other kernel, and no other path
+   launches the mode. Its rows are the mode's times in the kernels
+   line.
 8. Tiny configurations (ppt-v1, ppt-v2, ppt-v1 + ControlNet, each also
    with one other sampler: euler_a at strength 0.6, LCM on an LCM UNet,
    heun with a window; ppt-v1 with int8; ppt-v1 with the asymmetric VAE,
@@ -377,6 +389,22 @@ SM_CLOCK_HZ = [1.98e9]
 CARD = ["not read"]
 
 
+def read_card() -> str:
+    """nvidia-smi's "name, power.limit" of card 0, with ``CARD``,
+    ``SM_COUNT`` and ``SM_CLOCK_HZ`` set from the card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    CARD[0] = smi
+    SM_COUNT[0] = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True).stdout.strip().splitlines()
+    if clock and clock[0].strip().isdigit():
+        SM_CLOCK_HZ[0] = float(clock[0]) * 1e6
+    return smi
+
+
 def exp2_floor_ms(n_exp2: float) -> float:
     """Least time for ``n_exp2`` MUFU.EX2 (one per attention score) at 16
     per SM per clock, the card's SM count and top clock: a second bound of
@@ -458,6 +486,32 @@ LSE_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 # the 2-norm, so 2^-7 (0.0078). There a softmax scale off by a tenth
 # gives 0.24-0.57 and 0.15-0.16, and half the keys left out about 1.
 LSE_OUT_RTOL = {torch.float32: 2.0 ** -14, torch.bfloat16: 2.0 ** -7}
+# The flash kernel's bf16-softmax mode (scripts/torch_perf_attn_bf16.py),
+# checked against its plain version at the UNet's self-attention of its
+# first three levels, a ragged S off every tile and the VAE's one head, as
+# (B, Sq, Skv, N, D).
+BSM_ATTN_SHAPES = [(2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80),
+                   (2, 256, 256, 8, 160), (1, 1000, 1000, 2, 40),
+                   (1, 4096, 4096, 1, 512)]
+# Its bound against the plain version (``attention_errors``, no floor). The
+# plain version takes p as the card's bf16x2 exp2 gives it (exp2 in fp32
+# cut toward zero), so the two differ only where an fp32 score or sum,
+# summed in another order, rounds to another bf16: a bf16 step of an
+# output at most (2^-8 of the largest), a small share of the rows in the
+# norm. The control, B1 (the fp32 softmax) on the same inputs, must miss
+# the norm bound: where it did not, the check could not tell the mode from
+# B1. At BSM_ATTN_SHAPES on an H100 the mode read 0.0015-0.0052 of the
+# largest output and 8.6e-5-3.2e-4 of the norm, B1 0.0070-0.0183 and
+# 0.0053-0.0058 (PERF.md §6 has the script's readings beside these).
+BSM_RTOL = {"max_rel_err": 2.0 ** -7, "norm_rel_err": 2.0 ** -9}
+
+
+def bsm_within(err: dict) -> bool:
+    """Whether ``attention_errors`` of the bf16-softmax mode against its
+    plain version are within ``BSM_RTOL``."""
+    return all(err[k] <= t for k, t in BSM_RTOL.items())
+
+
 # GroupNorm's sequence-parallel modes at a rank's rows of that canvas: the
 # UNet's first level (ResNet and transformer norms), its widest concat,
 # the VAE's largest map and its mid block
@@ -678,6 +732,28 @@ def check_kernels(device) -> list:
             torch.cuda.empty_cache()
     log(phase="kernel checks", kernel="flash_attention_lse",
         seconds=time.perf_counter() - t0)
+
+    # ---- kernel 1, its bf16-softmax mode (the TPU script's kernel): held to
+    # its plain version at the kernel's block of keys, B1 on the same inputs
+    # the control (timed at the script's shapes by phase 7k)
+    t0 = time.perf_counter()
+    name = "flash_attention_bf16_softmax"
+    for (b, sq, skv, n, d) in BSM_ATTN_SHAPES:
+        q, k, v = (randn(b, s, n, d, dtype=torch.bfloat16) for s in (sq, skv, skv))
+        got = fa.flash_attention_bf16_softmax(q, k, v)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bf16_softmax_plain(q, k, v)
+        errs = attention_errors(got, want)
+        control = attention_errors(fa.flash_attention(q, k, v), want)
+        record(name, (b, sq, skv, n, d), torch.bfloat16, errs["max_abs_err"],
+               BSM_RTOL["max_rel_err"] * float(want.float().abs().max()),
+               ok=bsm_within(errs), **{k: errs[k] for k in BSM_RTOL},
+               rtol=BSM_RTOL, block_kv=fa.bf16_config(d)["bk"],
+               control_b1=control)
+        check(not bsm_within(control), f"{name} {(b, sq, skv, n, d)}: B1's "
+              f"output is within the mode's bound too ({control})")
+        del got, want
+    log(phase="kernel checks", kernel=name, seconds=time.perf_counter() - t0)
 
     # ---- kernel 2: GroupNorm in its four modes (csrc/group_norm.cu)
     t0 = time.perf_counter()
@@ -1252,7 +1328,8 @@ def batch_invariance(device) -> None:
 # phases 3 to 7: the main paths
 # ---------------------------------------------------------------------------
 
-KERNELS = ("flash_attention", "flash_attention_lse", "group_norm_moments",
+KERNELS = ("flash_attention", "flash_attention_lse",
+           "flash_attention_bf16_softmax", "group_norm_moments",
            "group_norm", "group_norm_stats",
            "gn_silu_quantize_int8", "quantize_int8", "layer_norm",
            "conv3x3_gn_silu", "conv3x3", "conv3x3_gn_silu_int8", "conv3x3_int8")
@@ -1501,11 +1578,13 @@ def counters():
     from powerpaint_tpu_torch.ops import conv, norms
     from powerpaint_tpu_torch.ops.flash_attention import (
         flash_attention,
+        flash_attention_bf16_softmax,
         flash_attention_lse,
     )
 
     return {"flash_attention": flash_attention,
             "flash_attention_lse": flash_attention_lse,
+            "flash_attention_bf16_softmax": flash_attention_bf16_softmax,
             "group_norm_moments": norms.group_norm_moments,
             "group_norm": norms.group_norm,
             "group_norm_stats": norms.group_norm_stats,
@@ -2598,7 +2677,8 @@ def kernel_resources(nvcc_logs: dict) -> None:
     kernel's form and cluster size and the LayerNorm kernel's cut of a row
     (``ln_plan``) at each checked shape, and, where
     ``cuobjdump`` exists, the count of wgmma instructions in its SASS by
-    mnemonic (HGMMA for bf16, IGMMA for int8). The conv and attention kernels' dynamic shared memory is in their
+    mnemonic (HGMMA for bf16, IGMMA for int8) and of MUFU.EX2 by its full
+    mnemonic (the bf16 form, MUFU.EX2.BF16, apart). The conv and attention kernels' dynamic shared memory is in their
     kernel lines (``smem_bytes``)."""
     import re
     import shutil
@@ -2649,7 +2729,7 @@ def kernel_resources(nvcc_logs: dict) -> None:
         except (OSError, subprocess.CalledProcessError) as e:
             log(cuobjdump=name, result=f"not measured: {e}")
             continue
-        counts, fn = {}, None
+        counts, ex2, fn = {}, {}, None
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
@@ -2658,7 +2738,13 @@ def kernel_resources(nvcc_logs: dict) -> None:
             m = re.search(r"\b([HIQ]GMMA)\.", line)  # bf16 / int8 / fp8 wgmma
             if fn is not None and m:
                 counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
+            m = re.search(r"\b(MUFU\.EX2\S*)", line)  # with its type suffix
+            if fn is not None and m:
+                mn = m.group(1).rstrip(",;")
+                ex2.setdefault(fn, {})[mn] = ex2.get(fn, {}).get(mn, 0) + 1
         log(cuobjdump=name, gmma_per_kernel=counts)
+        if ex2:  # static counts in each kernel's code
+            log(cuobjdump=name, mufu_ex2_per_kernel=ex2)
 
 
 # ---------------------------------------------------------------------------
@@ -5525,6 +5611,41 @@ def run_mesh_path(device):
             for k in KERNELS}
 
 
+def run_attn_bf16_path(device):
+    """Phase 7k: ``scripts/torch_perf_attn_bf16.py`` through its
+    ``main()``, the entry point of the bf16-softmax experiment (the script
+    exits when the mode misses its plain version's bound or B1 meets it).
+    It launches B1 and the mode, and no other kernel. Returns the launches
+    and the script's rows, which time the mode for the kernels line."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "scripts" / "torch_perf_attn_bf16.py"
+    spec = importlib.util.spec_from_file_location("torch_perf_attn_bf16", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    reset_counts()
+    rows = script.main()
+    check([r["shape"] for r in rows] == [list(x) for x in script.SHAPES]
+          and all(r["ok"] for r in rows), f"attn bf16 script: rows {rows}")
+    return _path_counts("attn bf16 script", {
+        k: int(k in ("flash_attention", "flash_attention_bf16_softmax"))
+        for k in KERNELS}), rows
+
+
+def script_timing(row: dict) -> dict:
+    """A row of ``scripts/torch_perf_attn_bf16.py`` as a timing row of the
+    mode, shape (B, Sq, Skv, N, D)."""
+    b, s, n, d = row["shape"]
+    return dict(shape=[b, s, s, n, d], ms=row["bf16_softmax_ms"],
+                stream_ms=row["bf16_softmax_stream_ms"],
+                host_ms=row["bf16_softmax_host_ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["tensor_core_bound_ms"], bound_by=row["bound_by"],
+                library_ms=None, **{k: row[k] for k in (
+                    "flash_attention_ms", "sdpa_ms", "exp2_floor_ms",
+                    "exp2_floor_packed_ms")})
+
+
 META = {
     "flash_attention": dict(
         route="cuda", source="powerpaint_tpu_torch/csrc/flash_attention.cu",
@@ -5532,6 +5653,9 @@ META = {
     "flash_attention_lse": dict(
         route="cuda", source="powerpaint_tpu_torch/csrc/flash_attention.cu",
         replaces="powerpaint_tpu/ops/flash_attention.py:28"),
+    "flash_attention_bf16_softmax": dict(
+        route="cuda", source="powerpaint_tpu_torch/csrc/flash_attention.cu",
+        replaces="scripts/perf_attn_bf16.py:43"),
     "group_norm_moments": dict(
         route="cuda", source="powerpaint_tpu_torch/csrc/group_norm.cu",
         replaces="powerpaint_tpu/ops/norms_pallas.py:78"),
@@ -5575,17 +5699,7 @@ def main() -> None:
     device = torch.device("cuda", 0)
 
     # phase 1: the card and the build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    CARD[0] = smi
-    SM_COUNT[0] = torch.cuda.get_device_properties(0).multi_processor_count
-    clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True).stdout.strip().splitlines()
-    if clock and clock[0].strip().isdigit():
-        SM_CLOCK_HZ[0] = float(clock[0]) * 1e6
+    print(read_card(), flush=True)
     log(sms=SM_COUNT[0], max_sm_clock_hz=SM_CLOCK_HZ[0])
     log(torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0),
@@ -5622,7 +5736,8 @@ def main() -> None:
              ("adapters", run_adapter_path),
              ("serving", lambda d: run_serving_path(d, refs["ppt-v1"])),
              ("training", run_train_path),
-             ("mesh", run_mesh_path))
+             ("mesh", run_mesh_path),
+             ("attn bf16 script", run_attn_bf16_path))
     for label, run in paths:
         t0 = time.perf_counter()
         counts = run(device)
@@ -5638,6 +5753,8 @@ def main() -> None:
     log(phase="tiny reference", seconds=time.perf_counter() - t0)
 
     kernels = []
+    script_rows = refs["attn bf16 script"]
+    timings["flash_attention_bf16_softmax"] = [script_timing(r) for r in script_rows]
     for name, m in META.items():
         head = timings[name][0]  # the main paths' most launched shape
         kernels.append(dict(
@@ -5667,6 +5784,9 @@ def main() -> None:
             kernels[-1]["image_tokens"] = [  # the IP-Adapter's S_kv = 4
                 {k: r[k] for k in keys + ("library_backend",)}
                 for r in timings[name] if r["shape"][2] == 4]
+        if name == "flash_attention_bf16_softmax":  # the script's shapes
+            kernels[-1]["script_shapes"] = timings[name]
+            kernels[-1]["sdpa_scope"] = script_rows[0]["sdpa_scope"]
         if name == "layer_norm":  # the ViT-H tower's and the projection's
             ip_rows = [list(shape) for shape, _ in IP_LN_SHAPES]
             kernels[-1]["ip_rows"] = [{k: r[k] for k in keys}

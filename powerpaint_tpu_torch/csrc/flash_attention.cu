@@ -66,6 +66,40 @@
 // writes it. Without it the kernels write what they wrote before, in the
 // same order.
 //
+// The bf16-softmax mode (ppt_flash_attention_bf16_softmax; the experiment of
+// scripts/torch_perf_attn_bf16.py, no pipeline calls it): replaces the TPU
+// kernel scripts/perf_attn_bf16.py::_bf16_kernel (launched by _flash_bf16's
+// pl.pallas_call), a different function from the one above: the fp32 scores
+// of a kv tile rounded to bf16, the running max kept in bf16, s - m_new and
+// exp2 in bf16 with p fed to p v as it comes, only alpha = exp2(m_prev -
+// m_new) taken in fp32 (the difference rounded to bf16 first), the row sum
+// in fp32 over the bf16 p, columns past Skv set to a finite -3e38 and out =
+// acc / l (1 where l = 0). So the result depends on the kv tile (BK), as the
+// TPU kernel's on its block_kv. The flag changes only the softmax and the
+// final division: the tiling, the ring and the wgmma products are those
+// above. What bounds it on an H100: the same tensor-core time (0.043 ms at
+// (2, 4096, 4096, 8, 40)) and the same exp floor, 0.064 ms there: ptxas
+// issues ex2.approx.ftz.bf16x2 as two MUFU.EX2.BF16, one a half, and a
+// PRMT to pack them (cuobjdump -sass, counted by chip_smoke.py:
+// 128 MUFU.EX2.BF16 and 4 MUFU.EX2 in the D = 40 instantiation against
+// the fp32 softmax's 132 MUFU.EX2), so the packed form halves no exp work.
+// The design: the score accumulator's same-row neighbours sc[4j],
+// sc[4j + 1] (row g) and sc[4j + 2], sc[4j + 3] (row g + 8) are rounded
+// pairwise into bf16x2 (cvt.rn.bf16x2.f32), max.bf16x2 takes the row max,
+// the two rows' maxima travel as one bf16x2 through the two shuffles, and
+// sub.rn.bf16x2 then ex2.approx.ftz.bf16x2 give p as a bf16x2 that is
+// already the wgmma A fragment (no pack of p; the max and the subtraction
+// are one HMNMX2 / HADD2 a pair). On an H100 that instruction's p is exp2
+// in fp32 cut toward zero to bf16, not rounded to nearest
+// (scripts/torch_perf_attn_bf16.py reads both), and the plain version,
+// flash_attention_bf16_softmax_plain, rounds so. The mode is its own library: this source
+// built with PPT_FLASH_BF16_SOFTMAX defined (ops/_build.py's
+// flash_attention_bf16_softmax) has its entry and only its instantiations,
+// so the main paths' library neither carries nor compiles them. Measured
+// (scripts/torch_perf_attn_bf16.py, NVIDIA H100 80GB HBM3 at 700 W): 0.210
+// ms at (2, 4096, 4096, 8, 40) against the fp32 softmax's 0.200 in the same
+// run. bf16 inputs only.
+//
 // fp32 (checks and the CPU-comparable reference): flash_f32_kernel does all
 // arithmetic as fp32 FMA on the CUDA cores (67 TFLOP/s on an H100 SXM), a
 // 4x8 register tile of scores per thread fed from shared memory in
@@ -84,6 +118,7 @@ constexpr int BQ = 64;        // fp32: q rows per block
 constexpr int BK = 64;        // fp32: kv rows per tile
 constexpr int THREADS = 128;  // fp32: 4 warps
 constexpr float NEG_BIG = -1e30f;
+constexpr float NEG_BF16 = -3e38f;  // the bf16-softmax mode's mask: finite in bf16
 constexpr float LN2 = 0.693147180559945309f;  // the log-sum-exp from base 2 to e
 
 struct Strides {
@@ -258,6 +293,26 @@ union Pack8 {  // eight bf16 (as raw 16-bit words) in one 16-byte word
   unsigned short h[8];
 };
 
+// bf16x2 arithmetic of the bf16-softmax mode; the low half is the
+// lower-addressed (even) column, as pack_bf16 lays it out.
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t a) {
+  uint32_t d;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
 // Eight consecutive head-dim values of one row, zero past the row count or
 // past D, element by element (the path for D or strides that are not a
 // multiple of 8 elements, or bases not 16-byte aligned).
@@ -332,8 +387,9 @@ PPT_VALUE_MMA(256)
 
 // DO output columns per block (one z slice), BK kv rows per stage, NWG
 // consumer warpgroups of 64 q rows each, STAGES kv stages in the ring,
-// KSTEPS k16 steps of q k^T (the head dims the shape takes, zero-padded).
-template <int DO, int BK, int NWG, int STAGES, int KSTEPS>
+// KSTEPS k16 steps of q k^T (the head dims the shape takes, zero-padded);
+// BSM: the bf16-softmax mode.
+template <int DO, int BK, int NWG, int STAGES, int KSTEPS, bool BSM>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
     flash_bf16_kernel(const BfParams p) {
   constexpr int VB = (DO + 63) / 64;          // 64-column blocks of a v tile
@@ -447,6 +503,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 #pragma unroll
   for (int i = 0; i < DO / 2; ++i) o[i] = 0.f;
   float m0 = NEG_BIG, m1 = NEG_BIG;  // rows g and g + 8 of this warp's 16
+  uint32_t mb = pack_bf16(NEG_BF16, NEG_BF16);  // BSM: both rows' max, bf16x2
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
   float alpha0, alpha1;              // the last tile's rescale of o
   float sc[BK / 2];         // scores of the tile in flight
@@ -476,13 +533,53 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   // tile only) masked first
   auto softmax = [&](int it) {
     const int kv0 = it * BK;
+    constexpr float neg = BSM ? NEG_BF16 : NEG_BIG;
     if (kv0 + BK > p.Skv) {
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
         const int col = kv0 + j * 8 + 2 * t4;
-        if (col >= p.Skv) sc[4 * j] = sc[4 * j + 2] = NEG_BIG;
-        if (col + 1 >= p.Skv) sc[4 * j + 1] = sc[4 * j + 3] = NEG_BIG;
+        if (col >= p.Skv) sc[4 * j] = sc[4 * j + 2] = neg;
+        if (col + 1 >= p.Skv) sc[4 * j + 1] = sc[4 * j + 3] = neg;
       }
+    }
+    if constexpr (BSM) {
+      // scores rounded pairwise to bf16x2: s0 row g, s1 row g + 8
+      uint32_t s0[BK / 8], s1[BK / 8];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        s0[j] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+        s1[j] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+      uint32_t mx0 = s0[0], mx1 = s1[0];
+#pragma unroll
+      for (int j = 1; j < BK / 8; ++j) {
+        mx0 = max_bf16x2(mx0, s0[j]);
+        mx1 = max_bf16x2(mx1, s1[j]);
+      }
+      // (row g, row g + 8) of the even and of the odd columns, then across
+      // the four threads of the rows
+      uint32_t mx = max_bf16x2(__byte_perm(mx0, mx1, 0x5410), __byte_perm(mx0, mx1, 0x7632));
+      mx = max_bf16x2(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = max_bf16x2(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const uint32_t mn = max_bf16x2(mb, mx);
+      const uint32_t dm = sub_bf16x2(mb, mn);  // m_prev - m_new in bf16
+      alpha0 = ex2(bf16_lo(dm));
+      alpha1 = ex2(bf16_hi(dm));
+      mb = mn;
+      const uint32_t mg = __byte_perm(mn, 0, 0x1010), m8 = __byte_perm(mn, 0, 0x3232);
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const uint32_t p01 = ex2_bf16x2(sub_bf16x2(s0[j], mg));
+        const uint32_t p23 = ex2_bf16x2(sub_bf16x2(s1[j], m8));
+        rs0 += bf16_lo(p01) + bf16_hi(p01);
+        rs1 += bf16_lo(p23) + bf16_hi(p23);
+        pn[j >> 1][2 * (j & 1)] = p01;
+        pn[j >> 1][2 * (j & 1) + 1] = p23;
+      }
+      l0 = l0 * alpha0 + rs0;
+      l1 = l1 * alpha1 + rs1;
+      return;
     }
     float mx0 = NEG_BIG, mx1 = NEG_BIG;
 #pragma unroll
@@ -576,8 +673,19 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 1.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
+  float inv0 = l0 > 0.f ? 1.f / l0 : 1.f;
+  float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
+  if constexpr (BSM) {  // the TPU kernel's acc / l, l = 0 taken as 1
+    const float den0 = l0 == 0.f ? 1.f : l0, den1 = l1 == 0.f ? 1.f : l1;
+#pragma unroll
+    for (int i = 0; i < DO / 8; ++i) {
+      o[4 * i] /= den0;
+      o[4 * i + 1] /= den0;
+      o[4 * i + 2] /= den1;
+      o[4 * i + 3] /= den1;
+    }
+    inv0 = inv1 = 1.f;
+  }
   const int row0 = q0 + wq * 16 + g;
   const int row1 = row0 + 8;
   if (p.lse != nullptr && blockIdx.z == 0 && t4 == 0) {  // one slice writes it
@@ -680,14 +788,14 @@ size_t bf16_smem_bytes(const BfConfig& c) {
          16 * c.STAGES;
 }
 
-template <int DO, int BK, int NWG, int STAGES, int KSTEPS>
+template <int DO, int BK, int NWG, int STAGES, int KSTEPS, bool BSM>
 cudaError_t launch_bf16(const Args& a) {
   const size_t smem = bf16_smem_bytes(BfConfig{DO, BK, NWG, STAGES, KSTEPS});
   const Strides* st[4] = {&a.qs, &a.ks, &a.vs, &a.os};
   bool vec = a.D % 8 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
              aligned16(a.o);
   for (const Strides* s : st) vec = vec && s->b % 8 == 0 && s->s % 8 == 0 && s->n % 8 == 0;
-  auto kernel = flash_bf16_kernel<DO, BK, NWG, STAGES, KSTEPS>;
+  auto kernel = flash_bf16_kernel<DO, BK, NWG, STAGES, KSTEPS, BSM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -704,20 +812,22 @@ cudaError_t launch_bf16(const Args& a) {
 
 constexpr int BF16_MAX_D = 1024;
 
+template <bool BSM>
 cudaError_t dispatch_bf16(const Args& a) {
   if (a.D > BF16_MAX_D) return cudaErrorInvalidValue;
   switch (bf16_config(a.D).KSTEPS) {
-    case 3: return launch_bf16<40, 128, 2, 3, 3>(a);
-    case 4: return launch_bf16<64, 128, 2, 3, 4>(a);
-    case 5: return launch_bf16<80, 128, 2, 2, 5>(a);
-    case 10: return launch_bf16<160, 64, 2, 2, 10>(a);
-    case 16: return launch_bf16<256, 64, 2, 2, 16>(a);
-    case 32: return launch_bf16<256, 32, 1, 2, 32>(a);
-    case 48: return launch_bf16<256, 32, 1, 2, 48>(a);
-    default: return launch_bf16<256, 16, 1, 2, 64>(a);
+    case 3: return launch_bf16<40, 128, 2, 3, 3, BSM>(a);
+    case 4: return launch_bf16<64, 128, 2, 3, 4, BSM>(a);
+    case 5: return launch_bf16<80, 128, 2, 2, 5, BSM>(a);
+    case 10: return launch_bf16<160, 64, 2, 2, 10, BSM>(a);
+    case 16: return launch_bf16<256, 64, 2, 2, 16, BSM>(a);
+    case 32: return launch_bf16<256, 32, 1, 2, 32, BSM>(a);
+    case 48: return launch_bf16<256, 32, 1, 2, 48, BSM>(a);
+    default: return launch_bf16<256, 16, 1, 2, 64, BSM>(a);
   }
 }
 
+#ifndef PPT_FLASH_BF16_SOFTMAX
 // Output columns per block of the fp32 kernel are 8*NC for NC in {5, 8,
 // 10, 16}: the choice with the fewest column slices (each recomputes the
 // scores), then the least padding.
@@ -745,7 +855,11 @@ cudaError_t dispatch_f32(const Args& a) {
   }
 }
 
+#endif  // PPT_FLASH_BF16_SOFTMAX
+
 }  // namespace
+
+#ifndef PPT_FLASH_BF16_SOFTMAX
 
 // The bf16 kernel's shape for head dim D: out[0..5] = output columns per
 // slice, kv rows per stage, consumer warpgroups, stages, slices, shared
@@ -775,7 +889,7 @@ extern "C" int ppt_flash_attention(const void* q, const void* k, const void* v,
                Strides{strides[6], strides[7], strides[8]},
                Strides{strides[9], strides[10], strides[11]},
                scale_log2, static_cast<cudaStream_t>(stream)};
-  return (int)(is_bf16 != 0 ? dispatch_bf16(a) : dispatch_f32(a));
+  return (int)(is_bf16 != 0 ? dispatch_bf16<false>(a) : dispatch_f32(a));
 }
 
 // The log-sum-exp mode (ring attention's hops): as ppt_flash_attention,
@@ -795,5 +909,28 @@ extern "C" int ppt_flash_attention_lse(const void* q, const void* k, const void*
                Strides{strides[6], strides[7], strides[8]},
                Strides{strides[9], strides[10], strides[11]},
                scale_log2, static_cast<cudaStream_t>(stream)};
-  return (int)(is_bf16 != 0 ? dispatch_bf16(a) : dispatch_f32(a));
+  return (int)(is_bf16 != 0 ? dispatch_bf16<false>(a) : dispatch_f32(a));
 }
+
+#else  // PPT_FLASH_BF16_SOFTMAX
+
+// The bf16-softmax mode (scripts/torch_perf_attn_bf16.py's experiment): as
+// ppt_flash_attention on bf16 q, k, v and o, with the softmax of the TPU
+// kernel scripts/perf_attn_bf16.py::_bf16_kernel in bf16 (see the top of
+// this file). bf16 only; D at most 1024.
+extern "C" int ppt_flash_attention_bf16_softmax(const void* q, const void* k, const void* v,
+                                                void* o, int B, int N, int Sq, int Skv, int D,
+                                                const long long* strides, float scale_log2,
+                                                void* stream) {
+  if (B <= 0 || N <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || B * N > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, o, nullptr, B, N, Sq, Skv, D,
+               Strides{strides[0], strides[1], strides[2]},
+               Strides{strides[3], strides[4], strides[5]},
+               Strides{strides[6], strides[7], strides[8]},
+               Strides{strides[9], strides[10], strides[11]},
+               scale_log2, static_cast<cudaStream_t>(stream)};
+  return (int)dispatch_bf16<true>(a);
+}
+
+#endif  // PPT_FLASH_BF16_SOFTMAX

@@ -4,7 +4,11 @@ under the repository's ``native/`` with g++, and load them with ctypes.
 Each ``csrc/<name>.cu`` is compiled on first use into a shared library with
 a plain C interface, ``_build/lib<name>-<hash>.so`` inside the package
 (``_build/`` is git-ignored), named by a hash of the source, the shared
-headers ``csrc/*.cuh`` and the flags, so an edited source is rebuilt.
+headers ``csrc/*.cuh`` and the flags, so an edited source is rebuilt. A
+library of ``DEFINED`` is another source built with a macro defined: the
+flash kernel's bf16-softmax mode is ``flash_attention.cu`` with
+``PPT_FLASH_BF16_SOFTMAX``, so that the main paths' library does not
+compile its instantiations.
 Nothing is built when a module is imported: nvcc and the card exist only
 on the GPU host.
 
@@ -49,10 +53,21 @@ def nvcc_path() -> str:
     return path
 
 
+# library -> (the source it is built from, its extra nvcc flags)
+DEFINED = {"flash_attention_bf16_softmax": ("flash_attention",
+                                            ("-DPPT_FLASH_BF16_SOFTMAX",))}
+
+
+def _source(name: str):
+    """(source path, nvcc flags) of library ``name``."""
+    src, extra = DEFINED.get(name, (name, ()))
+    return CSRC / f"{src}.cu", NVCC_FLAGS + extra
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src, flags = _source(name)
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -65,7 +80,8 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = out.with_suffix(".log")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src, flags = _source(name)
+    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
     with open(log, "w") as f:
         proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
     return proc, tmp, out, log
@@ -101,7 +117,8 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
-SOURCES = ("flash_attention", "conv3x3", "conv3x3_int8", "group_norm", "layer_norm")
+SOURCES = ("flash_attention", "flash_attention_bf16_softmax", "conv3x3",
+           "conv3x3_int8", "group_norm", "layer_norm")
 
 # native/<source>.cpp -> the library's name and native/build.sh's flags
 NATIVE_SOURCES = {"image": ("image_ops", ("-O3", "-shared", "-fPIC",

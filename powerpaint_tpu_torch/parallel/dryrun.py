@@ -53,6 +53,7 @@ from powerpaint_tpu_torch.models.vae import VAEDownsample2D
 from powerpaint_tpu_torch.ops import conv, norms
 from powerpaint_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bf16_softmax,
     flash_attention_lse,
 )
 from powerpaint_tpu_torch.ops.freeu import FreeUConfig
@@ -192,10 +193,12 @@ class AttentionShapes:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every hand kernel's launch counter (B1-B6, and the modes sequence
-    parallelism adds) of this process."""
+    """Every hand kernel's launch counter (B1-B6, the modes sequence
+    parallelism adds, and the bf16-softmax mode, which no rank launches) of
+    this process."""
     return {"flash_attention": flash_attention.launches,
             "flash_attention_lse": flash_attention_lse.launches,
+            "flash_attention_bf16_softmax": flash_attention_bf16_softmax.launches,
             "group_norm_moments": norms.group_norm_moments.launches,
             "conv3x3_gn_silu": conv.conv3x3_gn_silu.launches,
             "conv3x3": conv.conv3x3.launches,

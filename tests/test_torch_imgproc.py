@@ -28,6 +28,17 @@ MODES = {"area": imgproc.INTER_AREA, "linear": imgproc.INTER_LINEAR,
          "cubic": imgproc.INTER_CUBIC, "lanczos4": imgproc.INTER_LANCZOS4}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the ops here are tiny, and torch's idle
+    threads otherwise spin against OpenCV's own pool (alone, this file took
+    about 100 s with torch's default threads against about 10 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def opencv_without_ipp():
     """cv2 with IPP off for the duration of a test: OpenCV's own code."""

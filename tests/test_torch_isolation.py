@@ -1,5 +1,6 @@
-"""The port stands alone: ``powerpaint_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor anything of the JAX package."""
+"""The port stands alone: ``powerpaint_tpu_torch``, ``chip_smoke.py`` and
+the port's card script ``scripts/torch_perf_attn_bf16.py`` import neither
+JAX nor anything of the JAX package."""
 
 import pathlib
 import re
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "powerpaint_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCRIPT = ROOT / "scripts" / "torch_perf_attn_bf16.py"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", SCRIPT]
 FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|powerpaint_tpu)(?:\.|\s|$)",
     re.MULTILINE)
@@ -22,9 +24,12 @@ def test_importing_the_whole_port_loads_no_jax():
     modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m
                for m in modules]
     code = "\n".join(
-        ["import importlib, sys"]
+        ["import importlib, importlib.util, sys"]
         + [f"importlib.import_module({m!r})" for m in modules]
         + ["import chip_smoke",
+           "spec = importlib.util.spec_from_file_location('s', "
+           f"{str(SCRIPT)!r})",
+           "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
            "('jax', 'jaxlib', 'flax', 'powerpaint_tpu'))",
            "assert not bad, bad",

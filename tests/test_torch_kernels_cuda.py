@@ -612,6 +612,55 @@ def test_flash_attention_lse_mode(dev, b, sq, skv, n, d, dtype):
     assert max(err["max_rel_err"], err["norm_rel_err"]) <= rtol, err
 
 
+@pytest.mark.parametrize("b,sq,skv,n,d", [
+    (2, 300, 300, 2, 40), (1, 128, 77, 1, 64), (2, 256, 256, 4, 80),
+    (1, 64, 200, 2, 160), (1, 200, 200, 1, 512), (1, 65, 130, 1, 1024),
+    (2, 70, 33, 3, 20)])
+def test_flash_attention_bf16_softmax_mode(dev, b, sq, skv, n, d):
+    """The bf16-softmax mode against its plain version at the kernel's
+    block of keys, to ``chip_smoke.BSM_RTOL`` of the largest output and of
+    the 2-norm (``attention_errors``), ragged Sq and Skv off every tile;
+    B1's output on the same inputs, the control, misses that bound; a
+    two-image batch is bitwise each image alone, two runs are bitwise
+    equal, and the plain mode's output is unchanged."""
+    import chip_smoke
+    from powerpaint_tpu_torch.parallel.dryrun import attention_errors
+
+    q = _randn(dev, b, sq, n, d, dtype=torch.bfloat16, seed=7)
+    k = _randn(dev, b, skv, n, d, dtype=torch.bfloat16, seed=8)
+    v = _randn(dev, b, skv, n, d, dtype=torch.bfloat16, seed=9)
+    plain_mode = fa.flash_attention(q, k, v)
+    before = fa.flash_attention_bf16_softmax.launches
+    got = fa.flash_attention_bf16_softmax(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bf16_softmax.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = fa.flash_attention_bf16_softmax_plain(q, k, v)
+    err = attention_errors(got, want)
+    assert chip_smoke.bsm_within(err), err
+    control = attention_errors(plain_mode, want)
+    assert not chip_smoke.bsm_within(control), control
+    assert torch.equal(fa.flash_attention_bf16_softmax(q, k, v), got)
+    for i in range(b):
+        alone = fa.flash_attention_bf16_softmax(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+        assert torch.equal(alone, got[i:i + 1])
+    assert torch.equal(fa.flash_attention(q, k, v), plain_mode)
+
+
+def test_flash_attention_bf16_softmax_refuses_what_it_cannot_take(dev):
+    q = _randn(dev, 1, 8, 1, 16)
+    before = fa.flash_attention_bf16_softmax.launches
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention_bf16_softmax(q, q, q)
+    qb = q.to(torch.bfloat16)
+    with torch.enable_grad(), pytest.raises(ValueError, match="not differentiable"):
+        fa.flash_attention_bf16_softmax(qb.clone().requires_grad_(), qb, qb)
+    wide = _randn(dev, 1, 8, 1, fa.BF16_MAX_D + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bf16_softmax(wide, wide, wide)
+    assert fa.flash_attention_bf16_softmax.launches == before
+
+
 @pytest.mark.parametrize("n", [1, 7, 4096 * 320, 262144 * 128 + 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantize_int8_kernel(dev, n, dtype):
